@@ -1,0 +1,70 @@
+"""Guards of the port: it imports no JAX, CPU tensors take the plain paths, and the
+GPU smoke script fails without a CUDA device instead of falling back."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_reference
+from tpuhar_torch.ops.featurize import featurize_windows
+from tpuhar_torch.ops.fused_window import featurize_windows_auto
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import tpuhar_torch
+names = [m.name for m in pkgutil.walk_packages(tpuhar_torch.__path__, "tpuhar_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+jax_package = sorted(m for m in sys.modules if m.startswith("tpuhar.") and m != "tpuhar.config")
+assert not jax_package, jax_package
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 14  # every module of the package was imported
+
+
+def test_cpu_tensors_take_the_plain_paths():
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(rng.normal(0, 8000, (2, 250, 6)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 4, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((3, 3, 32, 16)).astype(np.float32))
+    scale, bias = torch.ones(16), torch.zeros(16)
+    before = featurize_windows_auto.launches, conv3x3_bn_act.launches
+    torch.testing.assert_close(featurize_windows_auto(raw), featurize_windows(raw), rtol=0, atol=0)
+    # the CPU path takes what the kernel refuses: k=3, f32, C not a multiple of 16 ...
+    torch.testing.assert_close(
+        featurize_windows_auto(raw, kernel_size=3), featurize_windows(raw, kernel_size=3), rtol=0, atol=0
+    )
+    torch.testing.assert_close(
+        conv3x3_bn_act(x, k, scale, bias), conv3x3_bn_act_reference(x, k, scale, bias), rtol=0, atol=0
+    )
+    # ... and launches nothing
+    assert (featurize_windows_auto.launches, conv3x3_bn_act.launches) == before
+
+
+def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        chip_smoke.require_cuda()
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        chip_smoke.main()
+    assert capsys.readouterr().out == ""  # no result printed

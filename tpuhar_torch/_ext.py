@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``csrc/*.cu`` have a plain C interface. At first use they are compiled
+with ``nvcc`` for ``sm_90a`` into one shared library under ``_build/``, named by a
+hash of the sources and the flags, and loaded with ``ctypes``: a changed source builds
+anew, an unchanged one loads the library built before. Every entry point returns
+``cudaGetLastError()`` after its launch; ``check`` raises when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argtypes; every pointer and the stream are c_void_p, so a 64-bit
+# address is never cut to a 32-bit int
+SIGNATURES = {
+    # raw, out, B, T, C, acc_scale, gyro_scale, medfilt, normalize, stream
+    "tpuhar_fused_window": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    # x, w, scale, bias, residual, out, M, S, C, C_out, relu, stream
+    "tpuhar_conv3x3_bn_act": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin/nvcc``, else the one on ``PATH``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or (
+        "/usr/local/cuda/bin/nvcc" if Path("/usr/local/cuda/bin/nvcc").exists() else None
+    )
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD / f"libtpuhar_kernels_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    so = library_path()
+    if not so.exists():
+        BUILD.mkdir(exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.tpuhar_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpuhar_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if status != 0:
+        msg = library().tpuhar_cuda_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status}: {msg}")

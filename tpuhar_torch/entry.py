@@ -1,0 +1,96 @@
+"""The flagship serving forward of the port (twin of ``__graft_entry__._build_forward``).
+
+Raw IMU counts ``(B, 250, 6)`` and a uint8 clip go through the fused window
+featurizer, the IMU transformer, the ``tpu_cnn`` tower (ImageNet normalization folded
+into its stem, the clip shipped patch-major), two rounds of cross-attention fusion and
+the LayerNorm classifier head, giving logits, MSP and energy OOD scores and the fused
+embedding.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .bridge import init_params, load_variables
+from .models.crossmodal import FusionClassifier
+from .ood import energy_score, msp_score
+from .ops.fold import fold_normalization
+from .ops.fused_window import featurize_windows_auto
+from .ops.stem import to_patch_major
+from .ops.video import prepare_clip
+
+
+def flagship_config(compute_dtype: str = "bfloat16"):
+    """The flagship serving configuration (``__graft_entry__._flagship_config``) in
+    the form the port runs: the ``tpu_cnn`` tower with its residual convs fused
+    (``conv_backend="pallas"`` in the JAX package)."""
+    from tpuhar.config import Config  # stdlib-only; imports no JAX
+
+    cfg = Config()
+    m = cfg.model
+    m.video_backbone = "tpu_cnn"
+    m.video_pretrained = False
+    m.compute_dtype = compute_dtype
+    m.head_norm = "layer"
+    m.conv_backend = "pallas"
+    return cfg
+
+
+def build_forward(
+    cfg,
+    batch: int,
+    *,
+    device,
+    seed: int = 0,
+    params: Optional[Dict] = None,
+    fold_normalize: bool = True,
+) -> Tuple[Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]], Tuple]:
+    """Returns ``(fn(imu_raw, video_u8) -> dict, example_args)``; fn closes over the
+    model on ``device`` in ``cfg.model.compute_dtype``.
+
+    ``params`` is a flax-layout variable tree (``bridge``) before any folding, such
+    as JAX's ``forward._variables_prefold``; ``None`` draws one with
+    ``init_params`` from ``torch.Generator().manual_seed(seed)``. With
+    ``fold_normalize`` and a ``tpu_cnn`` tower the clip is consumed raw and
+    patch-major ``(B, T, H/16, W/16, 768)``; otherwise NHWC ``(B, T, H, W, 3)``.
+    """
+    d = cfg.data
+    dtype = getattr(torch, cfg.model.compute_dtype)
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+    folded = False
+    if fold_normalize:
+        params, folded = fold_normalization(params, cfg)
+    model = load_variables(FusionClassifier(cfg, dtype=dtype), params).to(device).eval()
+
+    H, W = d.video_resize
+    video_example = np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8)
+    if folded:
+        video_example = to_patch_major(video_example)
+    example_args = (
+        torch.zeros((batch, d.imu_window_size, d.imu_channels), device=device),
+        torch.from_numpy(video_example).to(device),
+    )
+
+    @torch.inference_mode()
+    def forward(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Raw sensor counts + uint8 pixels → logits, OOD scores and embeddings."""
+        imu = featurize_windows_auto(
+            imu_raw,
+            kernel_size=d.median_filter_kernel,
+            normalize=d.normalize_imu,
+            racc=d.Racc,
+            rgyro=d.Rgyro,
+        )
+        video = video_u8.to(dtype) if folded else prepare_clip(video_u8)
+        logits, fused = model(imu, video)
+        return {
+            "logits": logits,
+            "msp": msp_score(logits),
+            "energy": energy_score(logits),
+            "embeddings": fused,
+        }
+
+    return forward, example_args

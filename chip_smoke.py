@@ -5,13 +5,23 @@
 Phases; any failed check raises and the exit code is non-zero:
 
 1. the card (``nvidia-smi``) and the torch and CUDA versions;
-2. the kernel build from ``tpuhar_torch/csrc/`` (nvcc, sm_90a), timed;
+2. the kernel build from ``tpuhar_torch/csrc/`` (nvcc, sm_90a, one process per
+   source), timed;
 3. each hand kernel against its plain PyTorch version on the card, at the shapes the
-   main path gives it, with both times (CUDA events, after warm-up);
+   main paths give it, with both times (CUDA events, after warm-up): the featurizer,
+   the bf16 conv, the int8 stem's byte-map preflight, the uint8 stem GEMM and the int8
+   conv (both bit for bit, the int8 conv also beside the bf16 conv's time);
 4. the flagship bf16 fusion forward at full width (``entry.build_forward``) answering
    three batch-8 requests, with each kernel's launch count in that run;
 5. the same parameters in f32 on the CPU (plain paths) at batch 2, against the card;
-6. step time and inferences/s at batch 8 and batch 256.
+6. the int8-resident serving forward at full width (``entry.build_int8_forward``,
+   calibrated and recalibrated on the card) answering three batch-8 requests, with the
+   launch counts of that run (the counts are reset after the build); the baseline int8
+   forward answering one;
+7. the same quantized tree and logit map on the CPU's plain paths at batch 2, against
+   the card: the int8 tower's features and the logits;
+8. step time and inferences/s: bf16 at batch 8 and 256, int8-resident at 8 and 256,
+   the baseline int8 forward at 256.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -27,16 +37,27 @@ import numpy as np
 import torch
 
 from tpuhar_torch import _ext
-from tpuhar_torch.bridge import init_params
-from tpuhar_torch.entry import build_forward, flagship_config
-from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_reference
+from tpuhar_torch.bridge import init_params, load_variables
+from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config
+from tpuhar_torch.models.crossmodal import FusionClassifier
+from tpuhar_torch.ops.conv3x3 import (
+    conv3x3_bn_act,
+    conv3x3_bn_act_reference,
+    conv3x3_i8,
+    conv3x3_i8_reference,
+)
 from tpuhar_torch.ops.featurize import featurize_windows
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
-from tpuhar_torch.ops.stem import to_patch_major
+from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
+from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, to_patch_major, verify_byte_map
+from tpuhar_torch.serving_quant import quantized_forward
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
 CONV_RTOL = 2e-2  # bf16 out: |kernel - plain| / max |plain|
 COSINE_MIN = 0.99  # bf16 on the card against f32 on the CPU, same parameters
+# the int8 tower on the card against the CPU's plain path on the same tree: the int8
+# codes are equal, only the f32 sum order of the pooled mean differs
+FEATURE_RTOL, FEATURE_ATOL = 1e-5, 1e-6
 # (frames, S, C, C_out, residual): the residual convs of batch 8 and 256 clips of
 # 16 frames, and one shape whose last 128-row tile is ragged (M = 3·49 = 147)
 CONV_SHAPES = [
@@ -45,6 +66,21 @@ CONV_SHAPES = [
     (3, 7, 512, 512, True),
 ]
 CONV_TIMED_SHAPE = (4096, 14, 256, 256, True)  # the s0 second conv at batch 256
+# the uint8 stem: (frames, int8 out) at batch 8 and 256, and a ragged M = 3·196
+STEM_SHAPES = [(128, False), (128, True), (4096, False), (4096, True), (3, True)]
+STEM_TIMED_SHAPE = (4096, True)  # the int8-resident stem at batch 256
+# the int8 conv: (frames, S, C, C_out, stride, residual, int8 out), the five convs of
+# the int8-resident tower at batch 8 and 256, and a ragged 3-frame 7² shape
+CONV_I8_CONVS = [
+    (14, 256, 256, 1, False, True),  # s0 block a
+    (14, 256, 256, 1, True, True),  # s0 block b
+    (14, 256, 512, 2, False, True),  # down1
+    (7, 512, 512, 1, False, True),  # s1 block a
+    (7, 512, 512, 1, True, False),  # s1 block b, f32 out for the pooled mean
+]
+CONV_I8_SHAPES = [(n, *c) for n in (128, 4096) for c in CONV_I8_CONVS] + [(3, 7, 512, 512, 1, True, True)]
+CONV_I8_TIMED_SHAPE = (4096, 14, 256, 256, 1, True, True)
+PLAIN_ITERS_4096 = 2  # the float64 plain versions at 4096 frames are slow
 
 
 def require_cuda() -> None:
@@ -53,9 +89,9 @@ def require_cuda() -> None:
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean ms per call of ``fn`` on the current stream, after three warm-up calls."""
-    for _ in range(3):
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` on the current stream, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -121,6 +157,81 @@ def check_conv3x3() -> dict:
             "shape": "(4096, 14, 14, 256)->256 bf16 + residual"}
 
 
+def _plain_ms(fn, frames: int) -> float:
+    return cuda_ms(fn, PLAIN_ITERS_4096, warmup=1) if frames >= 4096 else cuda_ms(fn, 5)
+
+
+def check_stem_u8() -> dict:
+    """The uint8 stem kernel against its plain version, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timed, worst = None, 0.0
+    for frames, int8_out in STEM_SHAPES:
+        col = torch.randint(0, 256, (frames, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
+        col[0, :2] = 0  # pure-black pixels: the clip corner of the byte map
+        w = torch.randint(-127, 128, (768, 256), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(256, generator=gen, device="cuda") * 1e-5
+        bias = torch.randn(256, generator=gen, device="cuda") * 0.5
+        kw = {"out_scale": 0.05 if int8_out else None}
+        got = stem_gemm_u8(col, w, scale, bias, **kw)
+        want = stem_gemm_u8_reference(col, w, scale, bias, **kw)
+        mismatches = (got != want).sum().item()
+        err = (got.float() - want.float()).abs().max().item()
+        ms = cuda_ms(lambda: stem_gemm_u8(col, w, scale, bias, **kw), 20)
+        plain_ms = _plain_ms(lambda: stem_gemm_u8_reference(col, w, scale, bias, **kw), frames)
+        gbps = col.numel() / ms / 1e6
+        name = f"({frames}·196, 768)->256 {'int8' if int8_out else 'f32'} out"
+        print(
+            f"[kernel] stem_u8 {name}: {mismatches} mismatches, max abs diff {err:.3e}; "
+            f"kernel {ms:.4f} ms ({gbps:.0f} GB/s of pixels), plain (float64) {plain_ms:.4f} ms"
+        )
+        if mismatches:
+            raise AssertionError(f"stem_u8 {name}: {mismatches} elements differ from the plain version")
+        worst = max(worst, err)
+        if (frames, int8_out) == STEM_TIMED_SHAPE:
+            timed = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **timed, "shape": "(4096·196, 768) u8 -> 256 int8"}
+
+
+def check_conv3x3_i8() -> dict:
+    """The int8 conv kernel against its plain version, bit for bit, and beside the
+    bf16 conv kernel at the same stride-1 shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timed, worst = None, 0.0
+    for n, s, c, c_out, stride, has_res, int8_out in CONV_I8_SHAPES:
+        so = -(-s // stride)
+        x = torch.randint(0, 128, (n, s, s, c), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (c_out, 9 * c), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(c_out, generator=gen, device="cuda") * 1e-5
+        bias = torch.randn(c_out, generator=gen, device="cuda") * 0.1
+        res = torch.randint(0, 128, (n, so, so, c_out), generator=gen, device="cuda", dtype=torch.int8) if has_res else None
+        kw = {"stride": stride, "residual": res, "res_scale": 0.01 if has_res else None,
+              "out_scale": 0.02 if int8_out else None}
+        got = conv3x3_i8(x, w, scale, bias, **kw)
+        want = conv3x3_i8_reference(x, w, scale, bias, **kw)
+        mismatches = (got != want).sum().item()
+        err = (got.float() - want.float()).abs().max().item()
+        ms = cuda_ms(lambda: conv3x3_i8(x, w, scale, bias, **kw), 10)
+        plain_ms = _plain_ms(lambda: conv3x3_i8_reference(x, w, scale, bias, **kw), n)
+        tops = 2 * n * so * so * 9 * c * c_out / ms / 1e9
+        bf16_ms = None
+        if stride == 1:
+            xb, wb = x.to(torch.bfloat16), w.T.reshape(3, 3, c, c_out).to(torch.bfloat16).contiguous()
+            rb = None if res is None else res.to(torch.bfloat16)
+            bf16_ms = cuda_ms(lambda: conv3x3_bn_act(xb, wb, scale, bias, residual=rb), 10)
+        name = f"({n}, {s}, {s}, {c})->{c_out} stride {stride} residual={has_res} {'int8' if int8_out else 'f32'} out"
+        print(
+            f"[kernel] conv3x3_i8 {name}: {mismatches} mismatches, max abs diff {err:.3e}; kernel {ms:.4f} ms "
+            f"({tops:.1f} TOP/s), plain (float64) {plain_ms:.4f} ms, bf16 kernel "
+            + ("n/a (stride 1 only)" if bf16_ms is None else f"{bf16_ms:.4f} ms")
+        )
+        if mismatches:
+            raise AssertionError(f"conv3x3_i8 {name}: {mismatches} elements differ from the plain version")
+        worst = max(worst, err)
+        if (n, s, c, c_out, stride, has_res, int8_out) == CONV_I8_TIMED_SHAPE:
+            timed = {"ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms}
+    return {"max_abs_err": worst, **timed, "shape": "(4096, 14, 14, 256)->256 int8 + residual"}
+
+
 def request(seed: int, batch: int):
     """Seeded raw IMU counts and a uint8 clip, made patch-major on the host."""
     rng = np.random.default_rng(seed)
@@ -162,31 +273,56 @@ def main() -> None:
             **check_conv3x3(),
         },
     }
+    verify_byte_map("cuda")
+    print("[kernel] stem_u8 byte-map preflight: all 256 byte values exact")
+    kernels["stem_gemm_u8"] = {
+        "name": "stem_gemm_u8", "route": "cuda",
+        "source": "tpuhar_torch/csrc/stem_u8.cu",
+        "replaces": "tpuhar/ops/stem.py:254",
+        **check_stem_u8(),
+    }
+    kernels["conv3x3_i8"] = {
+        "name": "conv3x3_i8", "route": "cuda",
+        "source": "tpuhar_torch/csrc/conv3x3_i8.cu",
+        "replaces": "tpuhar/ops/conv3x3.py:142",
+        **check_conv3x3_i8(),
+    }
+    counters = {
+        "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
+        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8,
+    }
+
+    def drive(path: str, fn, requests, expected: dict) -> list:
+        """Serve ``requests`` with every launch count set to 0 just before and read
+        just after; fail unless the path launched each kernel as ``expected``."""
+        for counter in counters.values():
+            counter.launches = 0
+        outs = [fn(*r) for r in requests]
+        torch.cuda.synchronize()
+        counts = {name: counter.launches for name, counter in counters.items()}
+        for name, n in counts.items():
+            kernels[name].setdefault("launches_by_path", {})[path] = n
+        batch = requests[0][0].shape[0]
+        shapes = {"logits": (batch, cfg.model.num_classes), "msp": (batch,), "energy": (batch,),
+                  "embeddings": (batch, 2 * cfg.model.imu_d_model)}
+        for i, out in enumerate(outs):
+            for key, shape in shapes.items():
+                if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+                    raise AssertionError(f"{path} request {i}: {key} {tuple(out[key].shape)} not finite {shape}")
+        print(f"[{path}] {len(requests)} request(s) of batch {batch} answered; outputs {shapes}, all "
+              f"finite; launches {counts}")
+        for name, n in expected.items():
+            if counts[name] != n:
+                raise AssertionError(f"{path}: {name} launched {counts[name]} times, expected {n}")
+        return outs
 
     cfg = flagship_config()
-    fn, _ = build_forward(cfg, 8, device="cuda", seed=0)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    fn, _ = build_forward(cfg, 8, device="cuda", params=params)
     requests = [tuple(t.cuda() for t in request(100 + i, 8)) for i in range(3)]
-    featurize_windows_auto.launches = 0
-    conv3x3_bn_act.launches = 0
-    outs = [fn(*r) for r in requests]
-    torch.cuda.synchronize()
-    kernels["fused_window"]["launches"] = featurize_windows_auto.launches
-    kernels["conv3x3_bn_act"]["launches"] = conv3x3_bn_act.launches
-    shapes = {"logits": (8, cfg.model.num_classes), "msp": (8,), "energy": (8,), "embeddings": (8, 2 * cfg.model.imu_d_model)}
-    for i, out in enumerate(outs):
-        for key, shape in shapes.items():
-            if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
-                raise AssertionError(f"request {i}: {key} {tuple(out[key].shape)} not finite {shape}")
-    print(f"[slice] 3 requests of batch 8 answered; outputs {shapes}, all finite; "
-          f"launches {({k: v['launches'] for k, v in kernels.items()})}")
-    for name, k in kernels.items():
-        if k["launches"] <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    outs = drive("bf16", fn, requests, {"fused_window": 3, "conv3x3_bn_act": 12, "stem_gemm_u8": 0, "conv3x3_i8": 0})
 
-    ref_fn, _ = build_forward(
-        flagship_config("float32"), 2, device="cpu",
-        params=init_params(cfg, torch.Generator().manual_seed(0)),
-    )
+    ref_fn, _ = build_forward(flagship_config("float32"), 2, device="cpu", params=params)
     imu, video = requests[0]
     ref = ref_fn(imu[:2].cpu(), video[:2].cpu())
     for key in ("logits", "embeddings"):
@@ -196,16 +332,57 @@ def main() -> None:
         if not cos >= COSINE_MIN:
             raise AssertionError(f"{key}: cosine {cos} < {COSINE_MIN}")
 
+    t0 = time.perf_counter()
+    fn8, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=True)
+    torch.cuda.synchronize()
+    print(f"[int8] int8-resident forward built (calibration, quantization, logit recalibration "
+          f"on the card): {time.perf_counter() - t0:.1f} s")
+    outs8 = drive("int8_resident", fn8, requests,
+                  {"fused_window": 3, "stem_gemm_u8": 3, "conv3x3_i8": 15, "conv3x3_bn_act": 0})
+    fn8_base, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=False)
+    drive("int8_baseline", fn8_base, requests[:1],
+          {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5, "conv3x3_bn_act": 0})
+    for name, k in kernels.items():
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] <= 0:
+            raise AssertionError(f"no main path launched {name}")
+
+    # the card's quantized tree and logit map on the CPU's plain paths, at batch 2
+    q_cpu = tree_to(fn8.quantized_tree, "cpu")
+    frames = video[:2].reshape(32, 14, 14, 768)
+    feats = quant_tpucnn_forward_resident(fn8.quantized_tree, frames).cpu()
+    feats_ref = quant_tpucnn_forward_resident(q_cpu, frames.cpu())
+    diff = (feats - feats_ref).abs().max().item()
+    print(f"[cross-check] int8 tower features: card kernels vs CPU plain max abs diff {diff:.4e} "
+          f"(max |feature| {feats_ref.abs().max().item():.4e})")
+    if not torch.allclose(feats, feats_ref, rtol=FEATURE_RTOL, atol=FEATURE_ATOL):
+        raise AssertionError(f"int8 tower features differ beyond f32 sum order: {diff}")
+    cfg32 = flagship_config("float32")
+    ref8 = quantized_forward(
+        cfg32, load_variables(FusionClassifier(cfg32), params).eval(), q_cpu,
+        params["params"]["video_encoder"]["projection"], device="cpu",
+        recalibration=fn8.recalibration, resident=True,
+    )(imu[:2].cpu(), video[:2].cpu())
+    for key in ("logits", "embeddings"):
+        got = outs8[0][key][:2].float().cpu()
+        diff, cos = (got - ref8[key]).abs().max().item(), cosine(got, ref8[key])
+        print(f"[cross-check] int8 {key}: card (bf16 fusion) vs CPU (f32 fusion), same tree, "
+              f"max abs diff {diff:.4e}, cosine {cos:.6f}")
+        if not cos >= COSINE_MIN:
+            raise AssertionError(f"int8 {key}: cosine {cos} < {COSINE_MIN}")
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for batch in (8, 256):
+    programs = {"bf16": fn, "int8_resident": fn8, "int8_baseline": fn8_base}
+    for batch, names in ((8, ("bf16", "int8_resident")), (256, ("bf16", "int8_resident", "int8_baseline"))):
         imu = torch.randn((batch, 250, 6), generator=gen, device="cuda") * 8000.0
         video = torch.randint(0, 256, (batch, 16, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: fn(imu, video), 20 if batch == 8 else 10)
-        print(
-            f"[timing] batch {batch}: step {ms:.3f} ms, {batch / ms * 1e3:.1f} inf/s, "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})"
-        )
+        for name in names:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: programs[name](imu, video), 20 if batch == 8 else 10)
+            print(
+                f"[timing] {name} batch {batch}: step {ms:.3f} ms, {batch / ms * 1e3:.1f} inf/s, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})"
+            )
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

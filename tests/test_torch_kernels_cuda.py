@@ -12,9 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_reference
+from tpuhar_torch.ops.conv3x3 import (
+    conv3x3_bn_act,
+    conv3x3_bn_act_reference,
+    conv3x3_i8,
+    conv3x3_i8_reference,
+)
 from tpuhar_torch.ops.featurize import featurize_windows
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
+from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, verify_byte_map
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +107,147 @@ def test_conv3x3_refuses(cuda):
         conv3x3_bn_act(x[..., :120].contiguous(), k[:, :, :120].contiguous(), scale, bias)
     with pytest.raises(ValueError, match="square"):
         conv3x3_bn_act(x[:, :6].contiguous(), k, scale, bias)
+
+
+def _stem_case(frames, c0, device, seed=0, k=768):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    col = torch.randint(0, 256, (frames, 14, 14, k), generator=gen, device=device, dtype=torch.uint8)
+    col[0, :2] = 0  # pure-black pixels: the u8 = 0 → -127 clip corner
+    w = torch.randint(-127, 128, (k, c0), generator=gen, device=device, dtype=torch.int8)
+    scale = torch.rand(c0, generator=gen, device=device) * 1e-5  # most codes inside ±127
+    bias = torch.randn(c0, generator=gen, device=device) * 0.5
+    return col, w, scale, bias
+
+
+@pytest.mark.parametrize("frames", [128, 3])
+@pytest.mark.parametrize("out_scale", [None, 0.05])
+@pytest.mark.parametrize("relu", [True, False])
+def test_stem_u8_matches_plain_exactly(cuda, frames, out_scale, relu):
+    col, w, scale, bias = _stem_case(frames, 256, cuda)
+    before = stem_gemm_u8.launches
+    got = stem_gemm_u8(col, w, scale, bias, relu=relu, out_scale=out_scale)
+    assert stem_gemm_u8.launches == before + 1
+    want = stem_gemm_u8_reference(col, w, scale, bias, relu=relu, out_scale=out_scale)
+    assert got.dtype == want.dtype == (torch.float32 if out_scale is None else torch.int8)
+    assert got.shape == want.shape == (frames, 14, 14, 256)
+    assert torch.equal(got, want)
+
+
+def test_stem_u8_byte_map_preflight(cuda):
+    before = stem_gemm_u8.launches
+    verify_byte_map(cuda)
+    assert stem_gemm_u8.launches == before + 1
+
+
+def test_stem_u8_refuses(cuda):
+    col, w, scale, bias = _stem_case(2, 64, cuda)
+    with pytest.raises(TypeError, match="centered int8 wire"):
+        stem_gemm_u8(col.view(torch.int8), w, scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_gemm_u8(col.transpose(1, 2), w, scale, bias)
+    with pytest.raises(ValueError, match="int8"):
+        stem_gemm_u8(col, w.float(), scale, bias)
+    with pytest.raises(ValueError, match="multiple"):
+        stem_gemm_u8(col, w[:, :48].contiguous(), scale[:48], bias[:48])
+    with pytest.raises(ValueError, match="do not match"):
+        stem_gemm_u8(col[..., :640].contiguous(), w, scale, bias)
+
+
+def _conv_i8_case(n, s, c, c_out, stride, residual, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    so = -(-s // stride)
+    x = torch.randint(0, 128, (n, s, s, c), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (c_out, 9 * c), generator=gen, device=device, dtype=torch.int8)
+    scale = torch.rand(c_out, generator=gen, device=device) * 1e-5  # most codes inside ±127
+    bias = torch.randn(c_out, generator=gen, device=device) * 0.1
+    res = torch.randint(0, 128, (n, so, so, c_out), generator=gen, device=device, dtype=torch.int8) if residual else None
+    return x, w, scale, bias, res
+
+
+@pytest.mark.parametrize(
+    "n,s,c,c_out,stride,residual,out_scale",
+    [
+        (128, 14, 256, 256, 1, False, 0.02),  # s0 block a
+        (128, 14, 256, 256, 1, True, 0.02),  # s0 block b
+        (128, 14, 256, 512, 2, False, 0.02),  # down1
+        (128, 7, 512, 512, 1, False, 0.02),  # s1 block a
+        (128, 7, 512, 512, 1, True, None),  # s1 block b: f32 out
+        (3, 7, 512, 512, 1, True, 0.02),  # M = 147: a ragged last row tile
+        (2, 5, 96, 160, 2, True, None),  # odd plane at stride 2; C not a multiple of 64
+        (4, 9, 32, 32, 1, False, None),
+    ],
+)
+def test_conv3x3_i8_matches_plain_exactly(cuda, n, s, c, c_out, stride, residual, out_scale):
+    x, w, scale, bias, res = _conv_i8_case(n, s, c, c_out, stride, residual, cuda)
+    kw = dict(stride=stride, residual=res, res_scale=0.01 if residual else None, out_scale=out_scale)
+    for relu in (True, False):
+        before = conv3x3_i8.launches
+        got = conv3x3_i8(x, w, scale, bias, relu=relu, **kw)
+        assert conv3x3_i8.launches == before + 1
+        want = conv3x3_i8_reference(x, w, scale, bias, relu=relu, **kw)
+        assert got.dtype == want.dtype == (torch.float32 if out_scale is None else torch.int8)
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+def test_conv3x3_i8_refuses(cuda):
+    x, w, scale, bias, _ = _conv_i8_case(2, 7, 64, 64, 1, False, cuda)
+    with pytest.raises(ValueError, match="int8"):
+        conv3x3_i8(x.float(), w, scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_i8(x.transpose(1, 2), w, scale, bias)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        conv3x3_i8(x[..., :48].contiguous(), w[:, : 9 * 48].contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="square"):
+        conv3x3_i8(x[:, :6].contiguous(), w, scale, bias)
+    with pytest.raises(ValueError, match="stride"):
+        conv3x3_i8(x, w, scale, bias, stride=3)
+    with pytest.raises(ValueError, match="res_scale"):
+        conv3x3_i8(x, w, scale, bias, residual=x)
+
+
+def test_int8_slice_on_card_matches_cpu(cuda):
+    """The int8-resident forward cut to test size: the card's kernels against the
+    plain CPU path on the same quantized tree and logit map. The int8 tower features
+    agree to f32 sum order; the bf16 fusion stack to its cosine bound."""
+    from tpuhar_torch.bridge import init_params
+    from tpuhar_torch.entry import build_int8_forward, flagship_config
+    from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
+    from tpuhar_torch.ops.stem import to_patch_major
+    from tpuhar_torch.serving_quant import quantized_forward
+
+    cfg = flagship_config()
+    cfg.data.video_resize, cfg.data.video_frames_per_window = (64, 64), 4
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    fn, _ = build_int8_forward(cfg, 2, device=cuda, params=params)
+    rng = np.random.default_rng(0)
+    imu = torch.from_numpy(rng.normal(0, 8000, (2, 250, 6)).astype(np.float32))
+    video = torch.from_numpy(to_patch_major(rng.integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)))
+    before = featurize_windows_auto.launches, stem_gemm_u8.launches, conv3x3_i8.launches
+    got = fn(imu.to(cuda), video.to(cuda))
+    after = featurize_windows_auto.launches, stem_gemm_u8.launches, conv3x3_i8.launches
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 5)
+
+    q_cpu = tree_to(fn.quantized_tree, "cpu")
+    frames = video.reshape(8, 4, 4, 768)
+    feats_card = quant_tpucnn_forward_resident(fn.quantized_tree, frames.to(cuda)).cpu()
+    feats_cpu = quant_tpucnn_forward_resident(q_cpu, frames)
+    torch.testing.assert_close(feats_card, feats_cpu, rtol=1e-5, atol=1e-6)
+
+    from tpuhar_torch.models.crossmodal import FusionClassifier
+    from tpuhar_torch.bridge import load_variables
+
+    cfg32 = flagship_config("float32")
+    cfg32.data.video_resize, cfg32.data.video_frames_per_window = (64, 64), 4
+    model = load_variables(FusionClassifier(cfg32), params).eval()
+    ref_fn = quantized_forward(
+        cfg32, model, q_cpu, params["params"]["video_encoder"]["projection"],
+        device="cpu", recalibration=fn.recalibration, resident=True,
+    )
+    want = ref_fn(imu, video)
+    for key in ("logits", "embeddings"):
+        cos = torch.nn.functional.cosine_similarity(got[key].cpu().flatten(), want[key].flatten(), dim=0)
+        assert cos.item() >= 0.99, key
 
 
 def test_slice_on_card_matches_cpu_f32(cuda):

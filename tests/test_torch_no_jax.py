@@ -8,9 +8,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_reference
+from tpuhar_torch.ops.conv3x3 import (
+    conv3x3_bn_act,
+    conv3x3_bn_act_reference,
+    conv3x3_i8,
+    conv3x3_i8_reference,
+)
 from tpuhar_torch.ops.featurize import featurize_windows
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
+from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference
 
 torch.set_num_threads(2)
 
@@ -36,7 +42,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 19  # every module of the package was imported
 
 
 def test_cpu_tensors_take_the_plain_paths():
@@ -58,6 +64,28 @@ def test_cpu_tensors_take_the_plain_paths():
     assert (featurize_windows_auto.launches, conv3x3_bn_act.launches) == before
 
 
+def test_cpu_tensors_take_the_plain_int8_paths():
+    """The int8 stem and conv on CPU tensors, at shapes the kernels refuse (K not a
+    multiple of 64, C0 and C not multiples of 32), give their plain results and
+    launch nothing."""
+    rng = np.random.default_rng(1)
+    col = torch.from_numpy(rng.integers(0, 256, (2, 3, 3, 48), dtype=np.uint8))
+    w = torch.from_numpy(rng.integers(-127, 128, (48, 24), dtype=np.int8))
+    scale, bias = torch.full((24,), 1e-3), torch.zeros(24)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 5, 5, 24), dtype=np.int8))
+    wc = torch.from_numpy(rng.integers(-127, 128, (40, 9 * 24), dtype=np.int8))
+    res = torch.from_numpy(rng.integers(-127, 128, (2, 3, 3, 40), dtype=np.int8))
+    sc, bc = torch.full((40,), 1e-4), torch.zeros(40)
+    before = stem_gemm_u8.launches, conv3x3_i8.launches
+    assert torch.equal(
+        stem_gemm_u8(col, w, scale, bias, out_scale=0.1),
+        stem_gemm_u8_reference(col, w, scale, bias, out_scale=0.1),
+    )
+    kw = dict(stride=2, residual=res, res_scale=0.02, out_scale=0.05)
+    assert torch.equal(conv3x3_i8(x, wc, sc, bc, **kw), conv3x3_i8_reference(x, wc, sc, bc, **kw))
+    assert (stem_gemm_u8.launches, conv3x3_i8.launches) == before
+
+
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -68,3 +96,12 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         chip_smoke.main()
     assert capsys.readouterr().out == ""  # no result printed
+
+
+def test_profile_step_fails_without_cuda(monkeypatch, capsys):
+    from tpuhar_torch import profile_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        profile_step.main()
+    assert capsys.readouterr().out == ""  # no table printed

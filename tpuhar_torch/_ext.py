@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface. At first use they are compiled
-with ``nvcc`` for ``sm_90a`` into one shared library under ``_build/``, named by a
-hash of the sources and the flags, and loaded with ``ctypes``: a changed source builds
-anew, an unchanged one loads the library built before. Every entry point returns
+The sources in ``csrc/*.cu`` have a plain C interface. At first use each is compiled
+with ``nvcc`` for ``sm_90a`` (one process per source, all at once), and the objects
+are linked into one shared library under ``_build/``, named by a hash of the sources
+and the flags, and loaded with ``ctypes``: a changed source builds anew, an unchanged
+one loads the library built before. Every entry point returns
 ``cudaGetLastError()`` after its launch; ``check`` raises when that is not 0.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -32,6 +33,13 @@ SIGNATURES = {
     "tpuhar_fused_window": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
     # x, w, scale, bias, residual, out, M, S, C, C_out, relu, stream
     "tpuhar_conv3x3_bn_act": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream
+    "tpuhar_stem_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x, w, scale, bias, residual, out, M, S, So, C, C_out, stride, pad_lo, relu,
+    # res_scale, int8_out, out_scale, stream
+    "tpuhar_conv3x3_i8": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P,
+    ),
 }
 
 
@@ -63,16 +71,32 @@ def library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
+            # one nvcc per source, all at once, then one link: the build takes as long
+            # as its slowest source, however many kernels the port holds
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = str(Path(tmpdir) / f"{src.stem}.o")
+                cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )))
+                objs.append(obj)
+            failed = []
+            for cmd, proc in procs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{err}")
+            if failed:
+                raise RuntimeError("\n".join(failed))
+            tmp = str(Path(tmpdir) / so.name)
+            cmd = [nvcc(), "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+                )
+            os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

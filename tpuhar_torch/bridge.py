@@ -27,6 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+# the JAX package's quantized tpu_cnn tree -> the port's (defined with the forwards)
+from .ops.quant import quantized_tree_from_numpy  # noqa: F401
+
 # torch parameter name → flax leaf name, where they differ
 _FLAX_NAMES = {nn.Linear: {"weight": "kernel"}, nn.LayerNorm: {"weight": "scale"}}
 # flax's lecun_normal: truncated at ±2σ, σ corrected for the truncation

@@ -4,7 +4,9 @@ Raw IMU counts ``(B, 250, 6)`` and a uint8 clip go through the fused window
 featurizer, the IMU transformer, the ``tpu_cnn`` tower (ImageNet normalization folded
 into its stem, the clip shipped patch-major), two rounds of cross-attention fusion and
 the LayerNorm classifier head, giving logits, MSP and energy OOD scores and the fused
-embedding.
+embedding. ``build_forward`` runs the tower in the compute dtype; ``build_int8_forward``
+runs its int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
+reports as its headline.
 """
 from __future__ import annotations
 
@@ -94,3 +96,41 @@ def build_forward(
         }
 
     return forward, example_args
+
+
+def build_int8_forward(
+    cfg,
+    batch: int,
+    *,
+    device,
+    seed: int = 0,
+    params: Optional[Dict] = None,
+    calib_clips: Optional[np.ndarray] = None,
+    resident: bool = True,
+) -> Tuple[Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]], Tuple]:
+    """The int8 PTQ serving forward of a ``tpu_cnn`` configuration, as the JAX
+    package's ``bench.py`` builds its headline program: returns ``(fn(imu_raw,
+    video_u8) -> dict, example_args)`` from ``serving_quant.build_quantized_forward``.
+
+    ``params`` is a flax-layout variable tree before any folding (``None`` draws one
+    with ``init_params`` from ``seed``); ``calib_clips`` defaults to 2 clips of
+    uint8 noise from ``np.random.default_rng(seed)``. The clip is consumed raw and
+    patch-major ``(B, T, H/16, W/16, 768)``; ``resident`` picks the int8-resident tower.
+    """
+    from .serving_quant import build_quantized_forward
+
+    d = cfg.data
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+    H, W = d.video_resize
+    if calib_clips is None:
+        calib_clips = (
+            np.random.default_rng(seed).random((2, d.video_frames_per_window, H, W, 3)) * 255
+        ).astype(np.uint8)
+    fn = build_quantized_forward(cfg, params, calib_clips, device=device, resident=resident)
+    video_example = to_patch_major(np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8))
+    example_args = (
+        torch.zeros((batch, d.imu_window_size, d.imu_channels), device=device),
+        torch.from_numpy(video_example).to(device),
+    )
+    return fn, example_args

@@ -5,10 +5,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv3x3 import conv3x3_bn_act, fold_bn
+from ..ops.conv3x3 import conv3x3_bn_act, conv_nhwc, fold_bn
 from ..ops.stem import pack_stem_weights
 from .layers import BatchNorm
 
@@ -22,16 +21,6 @@ class ConvKernel(nn.Module):
     def __init__(self, shape, *, dtype=torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
-
-
-def _conv_same_nhwc(x, kernel, stride: int):
-    """XLA's SAME conv on NHWC: the padding ``max((⌈S/s⌉−1)·s + k − S, 0)`` is split
-    low ``⌊p/2⌋`` / high ``⌈p/2⌉`` (at 14² stride 2: 0 before, 1 after)."""
-    k, S = kernel.shape[0], x.shape[1]
-    pad = max((-(-S // stride) - 1) * stride + k - S, 0)
-    xc = F.pad(x.permute(0, 3, 1, 2), (pad // 2, pad - pad // 2) * 2)
-    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride)
-    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class TPUVideoCNN(nn.Module):
@@ -61,12 +50,11 @@ class TPUVideoCNN(nn.Module):
         if x.shape[-1] == p * p * 3:  # patch-major: one K=p²·3 GEMM
             h = x @ pack_stem_weights(kernel)
         else:  # NHWC: the VALID stride-p conv
-            h = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), stride=p)
-            h = h.permute(0, 2, 3, 1)
+            h = conv_nhwc(x, kernel, stride=p, padding="VALID")
         h = torch.relu(self.stem_bn(h))
         for si in range(len(self.widths)):
             if si > 0:
-                h = _conv_same_nhwc(h, getattr(self, f"down{si}_conv").kernel, stride=2)
+                h = conv_nhwc(h, getattr(self, f"down{si}_conv").kernel, stride=2).contiguous()
                 h = torch.relu(getattr(self, f"down{si}_bn")(h))
             for bi in range(self.blocks_per_stage):
                 convs = [getattr(self, f"s{si}b{bi}{part}_conv").kernel for part in "ab"]

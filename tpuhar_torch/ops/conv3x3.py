@@ -1,20 +1,45 @@
-"""Fused 3×3 SAME conv + folded BatchNorm + residual + ReLU on square NHWC planes.
+"""Fused 3×3 SAME convs on square NHWC planes: bf16 with folded BatchNorm, and int8.
 
 ``conv3x3_bn_act`` computes ``act(conv3x3_same(x) · scale + bias [+ residual])``. A
 tensor on the CPU takes the plain path (``conv3x3_bn_act_reference``: ``F.conv2d``,
 then the affine, residual and ReLU in f32); a CUDA tensor launches the bf16 kernel of
 ``csrc/conv3x3.cu``, the port of ``tpuhar/ops/conv3x3.py: conv3x3_bn_act``, or raises.
-``conv3x3_bn_act.launches`` counts the kernel's launches. Unlike the TPU function
-there is no quiet fallback for shapes the kernel does not take.
+
+``conv3x3_i8`` is its int8 form, which also takes the place of the XLA int8 convs of
+the JAX package's quantized tower (its ``ops/quant.int8_conv``, stride 1 and 2):
+``act(acc · scale + bias [+ residual · res_scale])``, requantized to int8 or stored
+f32. The CPU takes ``conv3x3_i8_reference``; a CUDA tensor launches the kernel of
+``csrc/conv3x3_i8.cu`` or raises.
+
+Each wrapper's ``.launches`` counts its kernel's launches. Unlike the TPU function
+there is no quiet fallback for shapes a kernel does not take.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _ext
+
+
+def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: ``max((⌈S/s⌉−1)·s + k − S, 0)`` split
+    low ``⌊p/2⌋`` / high ``⌈p/2⌉`` (at 14² stride 2: 0 before, 1 after)."""
+    pad = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return pad // 2, pad - pad // 2
+
+
+def conv_nhwc(x, kernel, stride: int = 1, padding: str = "SAME"):
+    """NHWC × HWIO conv in ``x``'s dtype with XLA's SAME or VALID padding."""
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        lo, hi = same_padding(x.shape[1], kernel.shape[0], stride)
+        xc = F.pad(xc, (lo, hi, lo, hi))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -98,3 +123,140 @@ def conv3x3_bn_act(
 
 
 conv3x3_bn_act.launches = 0
+
+
+def pack_conv3x3_i8(kernel_hwio: torch.Tensor) -> torch.Tensor:
+    """``(3, 3, C, C_out)`` int8 HWIO kernel → the ``(C_out, 9·C)`` matrix the int8
+    kernel reads: row ``n`` is output channel ``n``'s K run, in the order
+    ``(dy·3 + dx)·C + c``."""
+    kh, kw, c, c_out = kernel_hwio.shape
+    return kernel_hwio.reshape(kh * kw * c, c_out).T.contiguous()
+
+
+def quantize_activations(x: torch.Tensor, scale) -> torch.Tensor:
+    """Per-tensor symmetric int8 quantization with a calibrated scale.
+
+    A float ``scale`` becomes a 0-d f32 tensor on ``x``'s device: on CUDA, PyTorch
+    divides by a host scalar as a multiply by its reciprocal, which rounds
+    differently from the division the JAX package does."""
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int8_conv(x_q, w_q, x_scale, w_scale, *, stride: int = 1, padding: str = "SAME"):
+    """int8 NHWC conv, rescaled to f32: ``acc · (x_scale · w_scale)``.
+
+    The accumulator is computed in float64, which holds every int8 × int8 sum of the
+    tower exactly (|acc| ≤ 4608·127² < 2⁵³), and rounds to f32 as XLA's int32 → f32
+    convert does. ``w_scale`` is per output channel."""
+    acc = conv_nhwc(x_q.double(), w_q.double(), stride, padding)
+    return acc.float() * (x_scale * w_scale.reshape(-1).float())
+
+
+def conv3x3_i8_reference(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    stride: int = 1,
+    residual: Optional[torch.Tensor] = None,
+    res_scale: Optional[float] = None,
+    relu: bool = True,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version: ``int8_conv`` (float64 accumulator, exact), then the epilogue
+    in f32 in the JAX package's order."""
+    C_out, C = w_packed.shape[0], x.shape[-1]
+    y = int8_conv(x, w_packed.T.reshape(3, 3, C, C_out), 1.0, scale, stride=stride) + bias.float()
+    if residual is not None:
+        y = y + residual.float() * res_scale
+    if relu:
+        y = torch.relu(y)
+    return y if out_scale is None else quantize_activations(y, out_scale)
+
+
+def conv3x3_i8(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    stride: int = 1,
+    residual: Optional[torch.Tensor] = None,
+    res_scale: Optional[float] = None,
+    relu: bool = True,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused int8 3×3 SAME conv: ``act(acc · scale + bias [+ residual · res_scale])``,
+    requantized to int8 with ``out_scale`` or stored f32.
+
+    Args:
+      x: ``(N, S, S, C)`` int8 NHWC activations.
+      w_packed: ``(C_out, 9·C)`` int8 (``pack_conv3x3_i8`` of the HWIO kernel).
+      scale: ``(C_out,)`` f32, the input's scale times the weights' (``x_scale·w_scale``).
+      bias: ``(C_out,)`` f32.
+      stride: 1 or 2, with XLA's SAME padding (stride 2 on an even plane pads 0
+        before and 1 after).
+      residual: optional ``(N, S', S', C_out)`` int8, added as ``residual · res_scale``.
+      relu: apply ReLU after the residual.
+      out_scale: requantize with ``clip(round(y / out_scale), −127, 127)``; ``None``
+        returns f32.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_i8_reference(
+            x, w_packed, scale, bias, stride=stride, residual=residual,
+            res_scale=res_scale, relu=relu, out_scale=out_scale,
+        )
+    N, S, S2, C = x.shape
+    C_out = w_packed.shape[0]
+    tensors = {"x": x, "w_packed": w_packed}
+    if residual is not None:
+        tensors["residual"] = residual
+    for name, t in tensors.items():
+        if not t.is_cuda or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"conv3x3_i8 kernel: {name} must be a contiguous int8 CUDA tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"conv3x3_i8 kernel: {name} must be 16-byte aligned")
+    if S != S2:
+        raise ValueError(f"conv3x3_i8 kernel: square planes only, got {(S, S2)}")
+    if C % 32 or C_out % 32:
+        raise ValueError(f"conv3x3_i8 kernel: C={C} and C_out={C_out} must be multiples of 32")
+    if tuple(w_packed.shape) != (C_out, 9 * C):
+        raise ValueError(f"conv3x3_i8 kernel: weights {tuple(w_packed.shape)} != {(C_out, 9 * C)}")
+    if stride not in (1, 2):
+        raise ValueError(f"conv3x3_i8 kernel: stride {stride} is not 1 or 2")
+    So = -(-S // stride)
+    if residual is not None:
+        if tuple(residual.shape) != (N, So, So, C_out):
+            raise ValueError(f"conv3x3_i8 kernel: residual {tuple(residual.shape)} != {(N, So, So, C_out)}")
+        if res_scale is None:
+            raise ValueError("conv3x3_i8 kernel: a residual needs its res_scale")
+    if out_scale is not None and not out_scale > 0:
+        raise ValueError(f"conv3x3_i8 kernel: out_scale must be positive, got {out_scale}")
+    M = N * So * So
+    if M >= 65535 * 128:
+        raise ValueError(f"conv3x3_i8 kernel: {M} output rows exceed the grid")
+    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if scale.shape != (C_out,) or bias.shape != (C_out,):
+        raise ValueError("conv3x3_i8 kernel: scale and bias must be (C_out,)")
+    out_dtype = torch.float32 if out_scale is None else torch.int8
+    out = torch.empty((N, So, So, C_out), dtype=out_dtype, device=x.device)
+    lib = _ext.library()
+    with torch.cuda.device(x.device):
+        status = lib.tpuhar_conv3x3_i8(
+            x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            M, S, So, C, C_out, stride, same_padding(S, 3, stride)[0], int(relu),
+            0.0 if residual is None else float(res_scale),
+            int(out_scale is not None), 1.0 if out_scale is None else float(out_scale),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _ext.check(status, "tpuhar_conv3x3_i8")
+    conv3x3_i8.launches += 1
+    return out
+
+
+conv3x3_i8.launches = 0

@@ -1,11 +1,24 @@
-"""Patch-major clip layout for the patch-embed stem (``tpuhar/ops/stem.py``).
+"""Patch-major clip layout and the uint8 stem GEMM (``tpuhar/ops/stem.py``).
 
 The host ships each clip patch-major, ``(..., H/p, W/p, p²·3)``, so that the
 ``tpu_cnn`` stem is one K=768 GEMM against the packed ``(p²·3, C0)`` kernel.
+
+``stem_gemm_u8`` is the int8 serving stem on that wire: the byte map
+``max(u8, 1) ^ 0x80`` gives the int8 codes ``clip(u8 − 128, −127, 127)`` (the JAX
+package's ``sub=128, clip_lo=-127``, the only map its int8 path uses), then the int8
+GEMM, ``acc · scale + bias``, ReLU and an optional requant to int8. A takes the plain path (``stem_gemm_u8_reference``); a CUDA tensor launches the kernel
+of ``csrc/stem_u8.cu``, the port of ``stem_gemm_u8_pallas`` and of its XLA twin
+``stem_gemm_u8``, or raises. ``stem_gemm_u8.launches`` counts the kernel's
+launches. Only the uint8 wire is ported: the centered int8 wire is not.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
+
+from .. import _ext
 
 
 def pack_stem_weights(kernel_hwio):
@@ -26,3 +39,121 @@ def to_patch_major(frames: np.ndarray, patch: int = 16) -> np.ndarray:
     x = frames.reshape(*lead, Hp, patch, Wp, patch * C)
     x = np.moveaxis(x, -3, -2)  # (..., Hp, Wp, patch, patch·C)
     return np.ascontiguousarray(x).reshape(*lead, Hp, Wp, patch * patch * C)
+
+
+def _check_wire(col_u8: torch.Tensor) -> None:
+    if col_u8.dtype == torch.int8:
+        raise TypeError(
+            "stem_gemm_u8 takes the uint8 wire only; the centered int8 wire is not ported"
+        )
+    if col_u8.dtype != torch.uint8:
+        raise TypeError(f"stem_gemm_u8 takes uint8 patch-major pixels, got {col_u8.dtype}")
+
+
+def stem_gemm_u8_reference(
+    col_u8: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    relu: bool = True,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version: the byte map in uint8, the GEMM in float64 (exact: every
+    768-term int8 dot is below 2²⁴), then ``acc·scale + bias``, ReLU and, with
+    ``out_scale``, ``clip(round(y / out_scale), −127, 127)`` as int8."""
+    _check_wire(col_u8)
+    x = torch.bitwise_xor(torch.clamp(col_u8, min=1), 0x80).view(torch.int8)
+    acc = (x.double() @ w_packed.double()).float()
+    y = acc * scale.float() + bias.float()
+    if relu:
+        y = torch.relu(y)
+    if out_scale is None:
+        return y
+    s = torch.tensor(out_scale, dtype=torch.float32, device=y.device)
+    return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+
+
+def stem_gemm_u8(
+    col_u8: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    relu: bool = True,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused ``epilogue(clip(col_u8 − 128, −127, 127) @ w_packed)``.
+
+    Args:
+      col_u8: ``(..., K)`` uint8 patch-major pixels (``to_patch_major``).
+      w_packed: ``(K, C0)`` int8 (``pack_stem_weights`` of the quantized kernel).
+      scale, bias: ``(C0,)`` f32, applied as ``acc · scale + bias``.
+      relu: apply ReLU.
+      out_scale: requantize to int8 with this scale; ``None`` returns f32.
+    Returns ``(..., C0)``, int8 with ``out_scale``, else f32.
+    """
+    if col_u8.device.type == "cpu":
+        return stem_gemm_u8_reference(
+            col_u8, w_packed, scale, bias, relu=relu, out_scale=out_scale
+        )
+    _check_wire(col_u8)
+    K, C0 = w_packed.shape
+    for name, t, dtype in (("col_u8", col_u8, torch.uint8), ("w_packed", w_packed, torch.int8)):
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"stem_u8 kernel: {name} must be a contiguous {dtype} CUDA tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"stem_u8 kernel: {name} must be 16-byte aligned")
+    if col_u8.shape[-1] != K:
+        raise ValueError(f"stem_u8 kernel: pixels {tuple(col_u8.shape)} do not match weights {(K, C0)}")
+    if K % 64 or C0 % 32:
+        raise ValueError(f"stem_u8 kernel: K={K} must be a multiple of 64 and C0={C0} of 32")
+    M = col_u8.numel() // K
+    if M >= 65535 * 128:
+        raise ValueError(f"stem_u8 kernel: {M} rows exceed the grid")
+    if out_scale is not None and not out_scale > 0:
+        raise ValueError(f"stem_u8 kernel: out_scale must be positive, got {out_scale}")
+    scale = scale.to(device=col_u8.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=col_u8.device, dtype=torch.float32).contiguous()
+    if scale.shape != (C0,) or bias.shape != (C0,):
+        raise ValueError("stem_u8 kernel: scale and bias must be (C0,)")
+    out_dtype = torch.float32 if out_scale is None else torch.int8
+    out = torch.empty((*col_u8.shape[:-1], C0), dtype=out_dtype, device=col_u8.device)
+    lib = _ext.library()
+    with torch.cuda.device(col_u8.device):
+        status = lib.tpuhar_stem_u8(
+            col_u8.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), M, K, C0, int(relu),
+            int(out_scale is not None), 1.0 if out_scale is None else float(out_scale),
+            torch.cuda.current_stream(col_u8.device).cuda_stream,
+        )
+    _ext.check(status, "tpuhar_stem_u8")
+    stem_gemm_u8.launches += 1
+    return out
+
+
+stem_gemm_u8.launches = 0
+
+
+def verify_byte_map(device) -> None:
+    """Preflight: every uint8 value through ``stem_gemm_u8``'s byte map and an
+    identity-weight GEMM on ``device``, against ``clip(u8 − 128, −127, 127)``.
+
+    Raises ``RuntimeError`` on any mismatch. The JAX package's int8-space map once
+    miscompiled on its backend for half the byte range; this proves the route that
+    serves, on the device that serves it.
+    """
+    col = torch.arange(256, dtype=torch.uint8, device=device).reshape(1, 256)
+    w = torch.eye(256, dtype=torch.int8, device=device)
+    ones = torch.ones(256, dtype=torch.float32, device=device)
+    zeros = torch.zeros(256, dtype=torch.float32, device=device)
+    got = stem_gemm_u8(col, w, ones, zeros, relu=False)
+    got = got.reshape(256).cpu().numpy().astype(np.int64)
+    ref = np.clip(np.arange(256) - 128, -127, 127)
+    bad = np.flatnonzero(got != ref)
+    if bad.size:
+        raise RuntimeError(
+            f"int8 stem byte map is WRONG on {device}: {bad.size}/256 byte values "
+            f"(first: u8={bad[0]} -> {got[bad[0]]}, want {ref[bad[0]]}); the int8 "
+            "serving path would give garbage logits"
+        )

@@ -1,0 +1,124 @@
+"""Where the time of a flagship serving step goes, on one CUDA device.
+
+    python -m tpuhar_torch.profile_step
+
+Builds the flagship forwards from random weights of seed 0: ``entry.build_forward``
+(``bf16``) and ``entry.build_int8_forward`` in its int8-resident (``int8_resident``)
+and baseline (``int8_baseline``) forms. Each is fed device-resident random inputs,
+and for each program at batch 256 and 8 it prints:
+
+- the step time without the profiler (CUDA events, the mean of 20 steps after 3
+  warm-up steps) and the inferences per second;
+- from ``torch.profiler`` over 5 steps: the device time per step of every
+  kernel and copy by name, with its share and its launches per step; the device time
+  per step; and the device busy share, the device time over the span from the first
+  device op's start to the last one's end.
+
+The first line is the card's name and power limit as ``nvidia-smi`` gives them.
+Without a CUDA device it raises.
+"""
+from __future__ import annotations
+
+import subprocess
+from collections import defaultdict
+from typing import Callable, Dict
+
+import torch
+
+from .bridge import init_params
+from .entry import build_forward, build_int8_forward, flagship_config
+
+PROGRAMS = ("bf16", "int8_resident", "int8_baseline")
+BATCHES = (256, 8)
+STEPS = 5  # profiled steps, after the timed ones
+TOP = 14  # rows of the per-kernel table; the rest are summed into one
+
+
+def build(name: str, cfg, params) -> Callable:
+    if name == "bf16":
+        return build_forward(cfg, 8, device="cuda", params=params)[0]
+    return build_int8_forward(cfg, 8, device="cuda", params=params, resident=name == "int8_resident")[0]
+
+
+def step_ms(fn: Callable, args, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per step on the current stream, after ``warmup`` steps."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn: Callable, args, steps: int) -> Dict:
+    """Per-name device time of ``steps`` steps under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn(*args)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("torch.profiler recorded no device ops")
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in ops:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    device_us = sum(t for t, _ in by_name.values())
+    span_us = max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)
+    rows = sorted(
+        ({"name": n, "ms": t / steps / 1e3, "share": t / device_us, "launches": c / steps}
+         for n, (t, c) in by_name.items()),
+        key=lambda r: -r["ms"],
+    )
+    return {"device_ms": device_us / steps / 1e3, "ops": len(ops) / steps,
+            "busy": device_us / span_us, "rows": rows}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device; torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+
+    cfg = flagship_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    d = cfg.data
+    H, W = d.video_resize
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name in PROGRAMS:
+        fn = build(name, cfg, params)
+        for batch in BATCHES:
+            args = (
+                torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0,
+                torch.randint(0, 256, (batch, d.video_frames_per_window, H // 16, W // 16, 768),
+                              generator=gen, device="cuda", dtype=torch.uint8),
+            )
+            ms = step_ms(fn, args)
+            prof = device_profile(fn, args, STEPS)
+            print(f"\n[{name} batch {batch}] step {ms:.3f} ms unprofiled, {batch / ms * 1e3:.1f} inf/s; "
+                  f"device {prof['device_ms']:.3f} ms/step in {prof['ops']:.0f} ops, busy "
+                  f"{100 * prof['busy']:.1f}% ({STEPS} profiled steps; {smi})")
+            for r in prof["rows"][:TOP]:
+                print(f"  {100 * r['share']:5.1f}%  {r['ms']:8.3f} ms  {r['launches']:5.1f}x  {r['name'][:100]}")
+            rest = prof["rows"][TOP:]
+            if rest:
+                print(f"  {100 * sum(r['share'] for r in rest):5.1f}%  {sum(r['ms'] for r in rest):8.3f} ms"
+                      f"  {sum(r['launches'] for r in rest):5.1f}x  the other {len(rest)} names")
+        del fn
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -275,3 +275,84 @@ def test_slice_on_card_matches_cpu_f32(cuda):
     for key in ("logits", "embeddings"):
         cos = torch.nn.functional.cosine_similarity(got[key].cpu().flatten(), want[key].flatten(), dim=0)
         assert cos.item() >= 0.99, key
+
+
+def _attention_case(B, H, N, device, seed=0, dtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, H, N, 64), generator=gen, device=device).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize(
+    "B,H,N",
+    [(8, 12, 1568), (1, 1, 1568), (2, 12, 100), (1, 3, 100), (4, 3, 32), (1, 1, 8), (3, 2, 8)],
+)
+def test_flash_lean_matches_plain(cuda, B, H, N):
+    """bf16 against the plain one-tile math: max |kernel − plain| / max |plain| ≤ 1e-2,
+    since the online rescale reorders the sums and each tile's P rounds to bf16 against
+    another running max."""
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_reference
+
+    q, k, v = _attention_case(B, H, N, cuda)
+    before = flash_lean.launches
+    got = flash_lean(q, k, v)
+    assert flash_lean.launches == before + 1
+    want = flash_lean_reference(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (B, H, N, 64)
+    rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert rel.item() <= 1e-2
+
+
+def test_flash_lean_reads_strided_projections(cuda):
+    """Views of one (B, N, 3·H·64) projection give what contiguous copies give."""
+    from tpuhar_torch.ops.flash_lean import flash_lean
+
+    B, N, H = 2, 197, 12
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = (t.view(B, N, H, 64).transpose(1, 2) for t in qkv.split(H * 64, dim=-1))
+    assert not q.is_contiguous()
+    strided = flash_lean(q, k, v)
+    contiguous = flash_lean(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(strided, contiguous)
+    assert strided.transpose(1, 2).is_contiguous()  # the (B, N, H, 64) buffer
+
+
+def test_flash_lean_refuses(cuda):
+    from tpuhar_torch.ops.flash_lean import flash_lean
+
+    q, k, v = _attention_case(1, 2, 64, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_lean(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_lean(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_lean(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+
+
+def test_vit_slice_on_card_matches_cpu_f32(cuda):
+    """The ViT forward cut to test size (``videomae_tiny`` on 4 frames of 64², 32
+    tokens): bf16 on the card vs f32 on the CPU, same parameters; one flash launch
+    per block."""
+    from tpuhar_torch.bridge import init_params
+    from tpuhar_torch.entry import build_forward, vit_config
+    from tpuhar_torch.ops.flash_lean import flash_lean
+
+    def config(dtype):
+        cfg = vit_config(dtype)
+        cfg.model.video_backbone = "videomae_tiny"
+        cfg.data.video_resize, cfg.data.video_frames_per_window = (64, 64), 4
+        return cfg
+
+    params = init_params(config("float32"), torch.Generator().manual_seed(0))
+    fn, _ = build_forward(config("bfloat16"), 2, device=cuda, params=params)
+    ref_fn, _ = build_forward(config("float32"), 2, device="cpu", params=params)
+    rng = np.random.default_rng(0)
+    imu = torch.from_numpy(rng.normal(0, 8000, (2, 250, 6)).astype(np.float32))
+    video = torch.from_numpy(rng.integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8))
+    before = flash_lean.launches
+    got = fn(imu.to(cuda), video.to(cuda))
+    assert flash_lean.launches == before + 4
+    want = ref_fn(imu, video)
+    for key in ("logits", "embeddings"):
+        cos = torch.nn.functional.cosine_similarity(got[key].cpu().flatten(), want[key].flatten(), dim=0)
+        assert cos.item() >= 0.99, key

@@ -15,6 +15,7 @@ from tpuhar_torch.ops.conv3x3 import (
     conv3x3_i8_reference,
 )
 from tpuhar_torch.ops.featurize import featurize_windows
+from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_reference
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
 from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference
 
@@ -31,7 +32,7 @@ names = [m.name for m in pkgutil.walk_packages(tpuhar_torch.__path__, "tpuhar_to
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-jax_package = sorted(m for m in sys.modules if m.startswith("tpuhar.") and m != "tpuhar.config")
+jax_package = sorted(m for m in sys.modules if m == "tpuhar" or m.startswith("tpuhar."))
 assert not jax_package, jax_package
 print(len(names))
 """
@@ -42,7 +43,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 19  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 22  # every module of the package was imported
 
 
 def test_cpu_tensors_take_the_plain_paths():
@@ -51,7 +52,8 @@ def test_cpu_tensors_take_the_plain_paths():
     x = torch.from_numpy(rng.standard_normal((2, 4, 4, 32)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((3, 3, 32, 16)).astype(np.float32))
     scale, bias = torch.ones(16), torch.zeros(16)
-    before = featurize_windows_auto.launches, conv3x3_bn_act.launches
+    q, kv = (torch.from_numpy(rng.standard_normal((1, 2, 40, 32)).astype(np.float32)) for _ in range(2))
+    before = featurize_windows_auto.launches, conv3x3_bn_act.launches, flash_lean.launches
     torch.testing.assert_close(featurize_windows_auto(raw), featurize_windows(raw), rtol=0, atol=0)
     # the CPU path takes what the kernel refuses: k=3, f32, C not a multiple of 16 ...
     torch.testing.assert_close(
@@ -60,8 +62,12 @@ def test_cpu_tensors_take_the_plain_paths():
     torch.testing.assert_close(
         conv3x3_bn_act(x, k, scale, bias), conv3x3_bn_act_reference(x, k, scale, bias), rtol=0, atol=0
     )
+    # head_dim 32 and f32 on the CPU: the plain attention
+    torch.testing.assert_close(flash_lean(q, kv, kv), flash_lean_reference(q, kv, kv), rtol=0, atol=0)
+    bf = [t.to(torch.bfloat16) for t in (q, kv)]
+    torch.testing.assert_close(flash_lean(bf[0], bf[1], bf[1]), flash_lean_reference(bf[0], bf[1], bf[1]), rtol=0, atol=0)
     # ... and launches nothing
-    assert (featurize_windows_auto.launches, conv3x3_bn_act.launches) == before
+    assert (featurize_windows_auto.launches, conv3x3_bn_act.launches, flash_lean.launches) == before
 
 
 def test_cpu_tensors_take_the_plain_int8_paths():

@@ -1,11 +1,13 @@
 """tpuhar_torch — the PyTorch/CUDA port of ``tpuhar`` for NVIDIA Hopper (H100).
 
-Serving slice: the flagship bf16 IMU+video fusion forward (``entry.build_forward``).
-Plain tensor code is PyTorch; the two kernels on its path are written by hand for
-``sm_90a`` in ``csrc/`` (the fused window featurizer and the fused 3x3 conv), each
-with its plain PyTorch version beside it. Module names mirror ``tpuhar/``. The port
-imports no JAX; from the JAX package it reads only ``tpuhar.config``, which is
-stdlib-only.
+Serving slices (``entry``): the flagship bf16 IMU+video fusion forward
+(``build_forward(flagship_config())``), its int8-resident form
+(``build_int8_forward``) and the ``videomae_base`` ViT forward
+(``build_forward(vit_config())``). Plain tensor code is PyTorch; the kernels on these
+paths are written by hand for ``sm_90a`` in ``csrc/`` (the fused window featurizer, the
+fused 3x3 conv in bf16 and int8, the uint8 stem GEMM and flash attention), each with
+its plain PyTorch version beside it. Module names mirror ``tpuhar/``. The port imports
+no JAX and nothing of the JAX package: ``config`` is its own copy of the configuration.
 """
 
 __version__ = "0.1.0"

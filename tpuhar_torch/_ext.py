@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p, so a 64-bit
 # address is never cut to a 32-bit int
 SIGNATURES = {
@@ -40,6 +40,9 @@ SIGNATURES = {
     "tpuhar_conv3x3_i8": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P,
     ),
+    # q, k, v, out, B, H, N, sm_scale, then the (batch, head, token) element strides
+    # of q, k, v and out, stream
+    "tpuhar_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _F, *(_L,) * 12, _P),
 }
 
 

@@ -10,9 +10,9 @@ names, so the tree maps onto it by name:
   ``(H, Dh, D)`` with bias ``(D,)``, flatten onto the same Linear layout;
 - LayerNorm ``scale``/``bias`` → ``weight``/``bias``;
 - everything else by its own name and shape: HWIO conv kernels (kept HWIO for the
-  NHWC paths), BatchNorm ``scale``/``bias``/``mean``/``var``, the IMU
-  ``PatchEmbedding`` ``kernel (C, P, D)``/``bias (C, 1, D)``, ``cls_token``,
-  ``pos_encoding``.
+  NHWC paths), the ViT's tubelet ``proj`` ``kernel (2, 16, 16, 3, D)``/``bias (D,)``,
+  BatchNorm ``scale``/``bias``/``mean``/``var``, the IMU ``PatchEmbedding``
+  ``kernel (C, P, D)``/``bias (C, 1, D)``, ``cls_token``, ``pos_encoding``.
 
 ``fold_normalization`` (``ops/fold.py``) rewrites the same tree. This module imports
 no JAX.
@@ -105,13 +105,13 @@ def _linear_value(mod: nn.Linear, name: str, value: np.ndarray, key) -> np.ndarr
     )
 
 
-def _draw(name: str, shape: Tuple[int, ...], generator: torch.Generator) -> np.ndarray:
+def _draw(mod: nn.Module, name: str, shape: Tuple[int, ...], generator: torch.Generator) -> np.ndarray:
     t = torch.empty(shape, dtype=torch.float32)
     if name == "kernel":  # lecun_normal, fan_in = every axis but the output one
         std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
         nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-    elif name in ("cls_token", "pos_encoding"):
-        t.normal_(0.0, 1.0, generator=generator)
+    elif name in ("cls_token", "pos_encoding"):  # normal, σ as the module declares it
+        t.normal_(0.0, getattr(mod, "init_std", {}).get(name, 1.0), generator=generator)
     elif name in ("scale", "var"):
         t.fill_(1.0)
     elif name in ("bias", "mean"):
@@ -123,9 +123,11 @@ def _draw(name: str, shape: Tuple[int, ...], generator: torch.Generator) -> np.n
 
 def init_params(config, generator: torch.Generator) -> Dict:
     """A fresh flax-layout variable tree for ``FusionClassifier(config)``, drawn
-    from ``generator`` with flax's initialisers: truncated lecun-normal kernels,
-    zero biases, LayerNorm 1/0, ``cls_token``/``pos_encoding`` ~ N(0, 1), BatchNorm
-    scale/bias 1/0 and running stats 0/1. Values are f32 numpy arrays."""
+    from ``generator`` with flax's initialisers and in flax's leaf shapes: truncated
+    lecun-normal kernels (a ``DenseGeneral``'s drawn as its ``(in, out)`` matrix, as
+    flax draws it), zero biases, LayerNorm 1/0, ``cls_token``/``pos_encoding`` ~
+    N(0, σ) with the module's ``init_std`` (σ = 1 unless it says otherwise),
+    BatchNorm scale/bias 1/0 and running stats 0/1. Values are f32 numpy arrays."""
     from .models.crossmodal import FusionClassifier
 
     with torch.device("meta"):  # shapes only; nothing is allocated
@@ -135,5 +137,7 @@ def init_params(config, generator: torch.Generator) -> Dict:
         shape = tuple(t.shape)
         if isinstance(mod, nn.Linear) and name == "weight":
             shape = (mod.in_features, mod.out_features)
-        _put(variables["params" if is_param else "batch_stats"], key, _draw(key[-1], shape, generator))
+        value = _draw(mod, key[-1], shape, generator)
+        value = value.reshape(getattr(mod, "flax_shapes", {}).get(key[-1], value.shape))
+        _put(variables["params" if is_param else "batch_stats"], key, value)
     return variables

@@ -1,11 +1,13 @@
-"""The flagship serving forward of the port (twin of ``__graft_entry__._build_forward``).
+"""The serving forwards of the port (twins of ``__graft_entry__._build_forward``).
 
 Raw IMU counts ``(B, 250, 6)`` and a uint8 clip go through the fused window
-featurizer, the IMU transformer, the ``tpu_cnn`` tower (ImageNet normalization folded
-into its stem, the clip shipped patch-major), two rounds of cross-attention fusion and
-the LayerNorm classifier head, giving logits, MSP and energy OOD scores and the fused
-embedding. ``build_forward`` runs the tower in the compute dtype; ``build_int8_forward``
-runs its int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
+featurizer, the IMU transformer, the video tower (ImageNet normalization folded into
+its stem), two rounds of cross-attention fusion and the LayerNorm classifier head,
+giving logits, MSP and energy OOD scores and the fused embedding. ``build_forward``
+runs the tower in the compute dtype: the flagship's ``tpu_cnn`` (``flagship_config``,
+the clip shipped patch-major) or the ``videomae_base`` ViT (``vit_config``, the clip
+NHWC, attention through the flash kernel); ``build_int8_forward`` runs the ``tpu_cnn``
+tower's int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
 reports as its headline.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .bridge import init_params, load_variables
+from .config import Config
 from .models.crossmodal import FusionClassifier
 from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
@@ -28,8 +31,6 @@ def flagship_config(compute_dtype: str = "bfloat16"):
     """The flagship serving configuration (``__graft_entry__._flagship_config``) in
     the form the port runs: the ``tpu_cnn`` tower with its residual convs fused
     (``conv_backend="pallas"`` in the JAX package)."""
-    from tpuhar.config import Config  # stdlib-only; imports no JAX
-
     cfg = Config()
     m = cfg.model
     m.video_backbone = "tpu_cnn"
@@ -37,6 +38,23 @@ def flagship_config(compute_dtype: str = "bfloat16"):
     m.compute_dtype = compute_dtype
     m.head_norm = "layer"
     m.conv_backend = "pallas"
+    return cfg
+
+
+def vit_config(compute_dtype: str = "bfloat16"):
+    """The ``videomae_base`` fusion model as the JAX package serves it
+    (``InferenceEngine(fast_gelu=True, fast_attention=True)``): the tanh GELU and the
+    flash attention, with the flagship's IMU encoder, fusion and head. One Hopper
+    kernel serves both of the JAX package's flash kernels at every block size, so the
+    port reads neither ``flash_kernel`` nor ``flash_block_q``/``flash_block_k``."""
+    cfg = Config()
+    m = cfg.model
+    m.video_backbone = "videomae_base"
+    m.video_pretrained = False
+    m.compute_dtype = compute_dtype
+    m.head_norm = "layer"
+    m.gelu_approximate = True
+    m.use_flash_attention = True
     return cfg
 
 
@@ -55,8 +73,9 @@ def build_forward(
     ``params`` is a flax-layout variable tree (``bridge``) before any folding, such
     as JAX's ``forward._variables_prefold``; ``None`` draws one with
     ``init_params`` from ``torch.Generator().manual_seed(seed)``. With
-    ``fold_normalize`` and a ``tpu_cnn`` tower the clip is consumed raw and
-    patch-major ``(B, T, H/16, W/16, 768)``; otherwise NHWC ``(B, T, H, W, 3)``.
+    ``fold_normalize`` the clip is consumed raw: patch-major ``(B, T, H/16, W/16,
+    768)`` for a ``tpu_cnn`` tower, NHWC ``(B, T, H, W, 3)`` for a ViT; unfolded, it
+    is NHWC and normalized on the device.
     """
     d = cfg.data
     dtype = getattr(torch, cfg.model.compute_dtype)
@@ -69,7 +88,7 @@ def build_forward(
 
     H, W = d.video_resize
     video_example = np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8)
-    if folded:
+    if folded and cfg.model.video_backbone.startswith("tpu_cnn"):
         video_example = to_patch_major(video_example)
     example_args = (
         torch.zeros((batch, d.imu_window_size, d.imu_channels), device=device),

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import FlashSelfAttention, head_projections
+
 LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
 BN_EPS = 1e-5
 
@@ -49,13 +51,8 @@ class MultiHeadDotProductAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, *, dtype=torch.float32):
         super().__init__()
-        if d_model % num_heads:
-            raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
-        self.query = nn.Linear(d_model, d_model, dtype=dtype)
-        self.key = nn.Linear(d_model, d_model, dtype=dtype)
-        self.value = nn.Linear(d_model, d_model, dtype=dtype)
-        self.out = nn.Linear(d_model, d_model, dtype=dtype)
+        self.query, self.key, self.value, self.out = head_projections(d_model, num_heads, dtype=dtype)
 
     def forward(self, inputs_q, inputs_kv):
         B, Nq, D = inputs_q.shape
@@ -87,6 +84,43 @@ class TransformerEncoderBlock(nn.Module):
     def forward(self, x):
         x = self.norm1(x + self.self_attn(x, x))
         return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+
+
+class PreNormBlock(nn.Module):
+    """Pre-norm ViT block: ``x += SelfAttn(LN(x)); x += W2 gelu(W1 LN(x))``.
+
+    ``use_flash`` picks ``FlashSelfAttention`` over ``MultiHeadDotProductAttention``
+    (the same parameters, both named ``self_attn``); ``gelu_approximate`` the tanh GELU
+    over the exact erf one.
+    """
+
+    def __init__(
+        self,
+        d_model: int,
+        num_heads: int,
+        d_ff: int,
+        *,
+        use_flash: bool = False,
+        gelu_approximate: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.use_flash = use_flash
+        self.gelu = "tanh" if gelu_approximate else "none"
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
+        if use_flash:
+            self.self_attn = FlashSelfAttention(d_model, num_heads, dtype=dtype)
+        else:
+            self.self_attn = MultiHeadDotProductAttention(d_model, num_heads, dtype=dtype)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
+        self.mlp_in = nn.Linear(d_model, d_ff, dtype=dtype)
+        self.mlp_out = nn.Linear(d_ff, d_model, dtype=dtype)
+
+    def forward(self, x):
+        h = self.norm1(x)
+        x = x + (self.self_attn(h) if self.use_flash else self.self_attn(h, h))
+        h = F.gelu(self.mlp_in(self.norm2(x)), approximate=self.gelu)
+        return x + self.mlp_out(h)
 
 
 class CrossAttentionBlock(nn.Module):

@@ -1,26 +1,38 @@
-"""The ``tpu_cnn`` video tower at eval and the CNN branch of the video encoder
-(``tpuhar/models/video.py``: ``TPUVideoCNN``, ``VideoEncoder``)."""
+"""The video towers at eval and the video encoder (``tpuhar/models/video.py``): the
+``tpu_cnn`` CNN (``TPUVideoCNN``) and the VideoMAE-architecture ViT (``VideoViT``)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3_bn_act, conv_nhwc, fold_bn
 from ..ops.stem import pack_stem_weights
-from .layers import BatchNorm
+from .layers import LN_EPS, BatchNorm, PreNormBlock
 
 # backbone name → (widths, blocks per stage)
 TPU_CNN_CONFIGS = {"tpu_cnn": ((256, 512), 1), "tpu_cnn_large": ((384, 512), 2)}
+# backbone name → (depth, d_model, heads): the HF VideoMAE size ladder; tiny is for tests
+VIT_CONFIGS = {
+    "videomae_large": (24, 1024, 16),
+    "videomae_base": (12, 768, 12),
+    "videomae_small": (12, 384, 6),
+    "videomae_tiny": (4, 192, 3),
+}
+TUBELET = (2, 16, 16)
 
 
 class ConvKernel(nn.Module):
-    """An HWIO conv kernel, stored as flax's ``nn.Conv(use_bias=False)`` stores it."""
+    """A conv kernel (``(..., C_in, C_out)``, spatial axes first) and optional bias,
+    stored as flax's ``nn.Conv`` stores them."""
 
-    def __init__(self, shape, *, dtype=torch.float32):
+    def __init__(self, shape, *, bias: bool = False, dtype=torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
+        if bias:
+            self.bias = nn.Parameter(torch.empty(shape[-1], dtype=dtype), requires_grad=False)
 
 
 class TPUVideoCNN(nn.Module):
@@ -66,29 +78,132 @@ class TPUVideoCNN(nn.Module):
         return h.mean(dim=(1, 2))
 
 
-class VideoEncoder(nn.Module):
-    """CNN branch of the video encoder: frames folded into the batch, the tower, a
-    ``projection`` Dense per frame, then the temporal mean.
+class TubeletEmbed(nn.Module):
+    """3D tubelet patch embedding ``(B, T, H, W, 3)`` → ``(B, N, d_model)``: flax's
+    VALID stride == kernel ``nn.Conv`` as one GEMM. Patches are taken in the kernel's
+    ``(kt, kh, kw, C)`` order and tokens in ``(t, h, w)`` order
+    (``tpuhar/ops/quant_vit._patchify``)."""
 
-    ``(B, T, ...)`` → ``(emb (B, video_d_model) f32, tokens (B, T, video_d_model))``.
-    """
-
-    def __init__(self, backbone: str = "tpu_cnn", video_d_model: int = 768, *, dtype=torch.float32):
+    def __init__(self, d_model: int, *, dtype=torch.float32):
         super().__init__()
-        if backbone not in TPU_CNN_CONFIGS:
-            raise NotImplementedError(f"video backbone {backbone!r} is not ported")
-        widths, blocks = TPU_CNN_CONFIGS[backbone]
-        self.dtype = dtype
-        self.backbone = TPUVideoCNN(widths, blocks, dtype=dtype)
-        self.projection = nn.Linear(widths[-1], video_d_model, dtype=dtype)
+        self.proj = ConvKernel((*TUBELET, 3, d_model), bias=True, dtype=dtype)
 
     def forward(self, x):
+        kt, kh, kw = TUBELET
+        B, T, H, W, C = x.shape
+        t, h, w = T // kt, H // kh, W // kw  # VALID: a remainder is dropped
+        x = x[:, : t * kt, : h * kh, : w * kw].reshape(B, t, kt, h, kh, w, kw, C)
+        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, t * h * w, kt * kh * kw * C)
+        kernel = self.proj.kernel
+        return F.linear(x, kernel.reshape(-1, kernel.shape[-1]).T, self.proj.bias)
+
+
+class VideoViT(nn.Module):
+    """VideoMAE-architecture video transformer at eval: tubelet embedding, a learned
+    positional table over ``num_tokens`` tokens, pre-norm blocks, an optional final
+    LayerNorm, then mean pooling.
+
+    ``(B, T, H, W, 3)`` → ``(emb (B, d_model) f32, tokens (B, N, d_model))``.
+    """
+
+    init_std = {"pos_encoding": 0.02}  # flax normal(0.02); read by bridge.init_params
+
+    def __init__(
+        self,
+        num_tokens: int,
+        depth: int = 12,
+        d_model: int = 768,
+        num_heads: int = 12,
+        *,
+        use_final_norm: bool = True,
+        use_flash: bool = False,
+        gelu_approximate: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.depth, self.use_final_norm = depth, use_final_norm
+        self.tubelet = TubeletEmbed(d_model, dtype=dtype)
+        self.pos_encoding = nn.Parameter(torch.empty(1, num_tokens, d_model, dtype=dtype), requires_grad=False)
+        for i in range(depth):
+            self.add_module(f"block{i}", PreNormBlock(
+                d_model, num_heads, 4 * d_model, use_flash=use_flash,
+                gelu_approximate=gelu_approximate, dtype=dtype,
+            ))
+        if use_final_norm:
+            self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
+
+    def forward(self, x):
+        tokens = self.tubelet(x) + self.pos_encoding
+        for i in range(self.depth):
+            tokens = getattr(self, f"block{i}")(tokens)
+        if self.use_final_norm:
+            tokens = self.final_norm(tokens)
+        return tokens.mean(dim=1).float(), tokens
+
+
+class VideoEncoder(nn.Module):
+    """The video encoder: a ``tpu_cnn`` tower or a ViT, then a ``projection`` Dense.
+
+    CNN: frames folded into the batch, the tower, the projection per frame, then the
+    temporal mean. ViT (``num_tokens`` sizes its positional table): the ``vit``
+    submodule, then one projection applied to the pooled embedding and to the tokens.
+    ``(B, T, ...)`` → ``(emb (B, video_d_model) f32, tokens (B, N, video_d_model))``.
+    """
+
+    def __init__(
+        self,
+        backbone: str = "tpu_cnn",
+        video_d_model: int = 768,
+        *,
+        num_tokens: int = 0,
+        use_flash: bool = False,
+        use_final_norm: bool = True,
+        gelu_approximate: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.is_vit = backbone in VIT_CONFIGS
+        if self.is_vit:
+            depth, width, heads = VIT_CONFIGS[backbone]
+            self.vit = VideoViT(
+                num_tokens, depth, width, heads, use_final_norm=use_final_norm,
+                use_flash=use_flash, gelu_approximate=gelu_approximate, dtype=dtype,
+            )
+        elif backbone in TPU_CNN_CONFIGS:
+            widths, blocks = TPU_CNN_CONFIGS[backbone]
+            width = widths[-1]
+            self.backbone = TPUVideoCNN(widths, blocks, dtype=dtype)
+        else:
+            raise NotImplementedError(f"video backbone {backbone!r} is not ported")
+        self.projection = nn.Linear(width, video_d_model, dtype=dtype)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        if self.is_vit:
+            emb, tokens = self.vit(x)
+            return self.projection(emb.to(self.dtype)).float(), self.projection(tokens)
         B, T = x.shape[:2]
-        feats = self.backbone(x.to(self.dtype).reshape(B * T, *x.shape[2:]))
+        feats = self.backbone(x.reshape(B * T, *x.shape[2:]))
         tokens = self.projection(feats.reshape(B, T, -1))
         return tokens.mean(dim=1).float(), tokens
 
 
 def build_video_encoder(config, dtype) -> VideoEncoder:
-    m = config.model
-    return VideoEncoder(m.video_backbone, m.video_d_model, dtype=dtype)
+    m, d = config.model, config.data
+    backbone = m.video_backbone
+    # the reference routes any name holding "videomae" or "/" to HuggingFace (quirk
+    # Q10); such names map onto the native ViT
+    if ("/" in backbone or "videomae" in backbone.lower()) and backbone not in VIT_CONFIGS:
+        backbone = "videomae_base"
+    H, W = d.video_resize
+    kt, kh, kw = TUBELET
+    return VideoEncoder(
+        backbone,
+        m.video_d_model,
+        num_tokens=(d.video_frames_per_window // kt) * (H // kh) * (W // kw),
+        use_flash=m.use_flash_attention,
+        use_final_norm=bool(m.video_use_final_norm),
+        gelu_approximate=bool(m.gelu_approximate),
+        dtype=dtype,
+    )

@@ -1,0 +1,58 @@
+"""The flash self-attention module (``tpuhar/ops/attention.py``).
+
+Both of the JAX package's flash kernels (``flash_mha(kernel="lean")``, its
+``ops/flash_lean``, and ``kernel="library"``, the stock Pallas TPU kernel) compute one
+function, and the port serves both with ``ops.flash_lean``: the Hopper kernel on a CUDA
+tensor, its plain version on a CPU tensor. Attention without flash is the existing
+``layers.MultiHeadDotProductAttention``, which ``PreNormBlock`` picks itself.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from .flash_lean import flash_lean
+
+
+def head_projections(d_model: int, num_heads: int, *, dtype=torch.float32) -> Tuple[nn.Linear, ...]:
+    """flax's attention projections as ``nn.Linear``: ``query``/``key``/``value``
+    ``DenseGeneral`` D → (H, Dh) and ``out`` (H, Dh) → D. ``flax_shapes`` names each
+    flax leaf's shape for ``bridge.init_params``."""
+    if d_model % num_heads:
+        raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
+    dh = d_model // num_heads
+    qkv = []
+    for _ in range(3):
+        dense = nn.Linear(d_model, d_model, dtype=dtype)
+        dense.flax_shapes = {"kernel": (d_model, num_heads, dh), "bias": (num_heads, dh)}
+        qkv.append(dense)
+    out = nn.Linear(d_model, d_model, dtype=dtype)
+    out.flax_shapes = {"kernel": (num_heads, dh, d_model)}
+    return (*qkv, out)
+
+
+class FlashSelfAttention(nn.Module):
+    """Self-attention through ``flash_lean`` (the flash kernel); the parameters are those of
+    flax's ``MultiHeadDotProductAttention`` (``query``/``key``/``value``/``out``).
+
+    The projections stay in their ``(B, N, H·Dh)`` layout: the heads are strided
+    views, the kernel reads them as they are and writes ``(B, N, H, Dh)``, so no
+    transposing copy surrounds it.
+    """
+
+    def __init__(self, d_model: int, num_heads: int, *, dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query, self.key, self.value, self.out = head_projections(d_model, num_heads, dtype=dtype)
+
+    def forward(self, x):
+        B, N, D = x.shape
+        H = self.num_heads
+
+        def heads(t):  # (B, N, H·Dh) → a (B, H, N, Dh) view
+            return t.view(B, N, H, D // H).transpose(1, 2)
+
+        ctx = flash_lean(heads(self.query(x)), heads(self.key(x)), heads(self.value(x)))
+        return self.out(ctx.transpose(1, 2).reshape(B, N, D))

@@ -1,5 +1,5 @@
-"""Fold ImageNet normalization into the ``tpu_cnn`` patch-embed stem
-(``tpuhar/ops/fold.py``).
+"""Fold ImageNet normalization into a patch-embed stem (``tpuhar/ops/fold.py``): the
+``tpu_cnn`` stem or the ViT's tubelet ``proj``.
 
 The stem is linear and every output sees a full patch, so with
 ``normalize(x) = x·s_c + o_c`` per input channel:
@@ -7,9 +7,10 @@ The stem is linear and every output sees a full patch, so with
     W'[..., c, n] = W[..., c, n] · s_c
     δ[n]          = Σ_{taps, c} o_c · W[..., c, n]
 
-and the following BatchNorm absorbs the offset as ``μ' = μ − δ``. The folded model
-consumes raw 0..255 pixel values. The rewrite runs on the flax-layout variables
-(``bridge``), in f32, before they are loaded and cast to the compute dtype.
+and the offset lands in the next affine op: the ViT stem's bias (``b' = b + δ``), or
+the ``tpu_cnn`` stem's BatchNorm (``μ' = μ − δ``). The folded model consumes raw
+0..255 pixel values. The rewrite runs on the flax-layout variables (``bridge``), in
+f32, before they are loaded and cast to the compute dtype.
 """
 from __future__ import annotations
 
@@ -35,8 +36,20 @@ def fold_normalization(
     """Rewrite ``variables`` so the model consumes raw 0..255 pixels.
 
     Returns ``(new_variables, changed)``; ``changed=False`` (variables untouched)
-    unless the backbone is a ``tpu_cnn`` patch stem. The input tree is not modified.
+    unless the tree holds a ViT tubelet stem or the backbone is a ``tpu_cnn`` patch
+    stem. The input tree is not modified.
     """
+    vit = variables.get("params", {}).get("video_encoder", {}).get("vit", {})
+    if "tubelet" in vit:
+        proj = vit["tubelet"]["proj"]
+        kernel, delta = _fold_kernel(np.asarray(proj["kernel"]), mean, std)
+        bias = np.asarray(proj["bias"])
+        params = dict(variables["params"])
+        params["video_encoder"] = dict(params["video_encoder"])
+        params["video_encoder"]["vit"] = dict(vit, tubelet={"proj": {
+            "kernel": kernel, "bias": (bias.astype(np.float32) + delta).astype(bias.dtype),
+        }})
+        return dict(variables, params=params), True
     if not config.model.video_backbone.startswith("tpu_cnn"):
         return variables, False
     backbone = variables.get("params", {}).get("video_encoder", {}).get("backbone", {})

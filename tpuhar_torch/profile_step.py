@@ -1,11 +1,13 @@
-"""Where the time of a flagship serving step goes, on one CUDA device.
+"""Where the time of a serving step goes, on one CUDA device.
 
     python -m tpuhar_torch.profile_step
 
-Builds the flagship forwards from random weights of seed 0: ``entry.build_forward``
-(``bf16``) and ``entry.build_int8_forward`` in its int8-resident (``int8_resident``)
-and baseline (``int8_baseline``) forms. Each is fed device-resident random inputs,
-and for each program at batch 256 and 8 it prints:
+Builds the serving forwards from random weights of seed 0: the flagship's
+``entry.build_forward`` (``bf16``) and ``entry.build_int8_forward`` in its
+int8-resident (``int8_resident``) and baseline (``int8_baseline``) forms, and the
+``videomae_base`` ViT forward ``entry.build_forward(vit_config())`` (``vit_bf16``).
+Each is fed device-resident random inputs (a patch-major clip for the ``tpu_cnn``
+programs, NHWC for the ViT), and for each program at batch 256 and 8 it prints:
 
 - the step time without the profiler (CUDA events, the mean of 20 steps after 3
   warm-up steps) and the inferences per second;
@@ -26,16 +28,16 @@ from typing import Callable, Dict
 import torch
 
 from .bridge import init_params
-from .entry import build_forward, build_int8_forward, flagship_config
+from .entry import build_forward, build_int8_forward, flagship_config, vit_config
 
-PROGRAMS = ("bf16", "int8_resident", "int8_baseline")
+PROGRAMS = ("bf16", "int8_resident", "int8_baseline", "vit_bf16")
 BATCHES = (256, 8)
 STEPS = 5  # profiled steps, after the timed ones
 TOP = 14  # rows of the per-kernel table; the rest are summed into one
 
 
 def build(name: str, cfg, params) -> Callable:
-    if name == "bf16":
+    if name in ("bf16", "vit_bf16"):
         return build_forward(cfg, 8, device="cuda", params=params)[0]
     return build_int8_forward(cfg, 8, device="cuda", params=params, resident=name == "int8_resident")[0]
 
@@ -92,17 +94,22 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi)
 
-    cfg = flagship_config()
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    d = cfg.data
-    H, W = d.video_resize
+    configs = {"flagship": flagship_config(), "vit": vit_config()}
+    params = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for name in PROGRAMS:
-        fn = build(name, cfg, params)
+        kind = "vit" if name == "vit_bf16" else "flagship"
+        cfg = configs[kind]
+        if kind not in params:
+            params[kind] = init_params(cfg, torch.Generator().manual_seed(0))
+        fn = build(name, cfg, params[kind])
+        d = cfg.data
+        H, W = d.video_resize
+        clip = (H, W, 3) if kind == "vit" else (H // 16, W // 16, 768)
         for batch in BATCHES:
             args = (
                 torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0,
-                torch.randint(0, 256, (batch, d.video_frames_per_window, H // 16, W // 16, 768),
+                torch.randint(0, 256, (batch, d.video_frames_per_window, *clip),
                               generator=gen, device="cuda", dtype=torch.uint8),
             )
             ms = step_ms(fn, args)

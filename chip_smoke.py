@@ -12,9 +12,10 @@ Phases; any failed check raises and the exit code is non-zero:
    PyTorch call that computes the same function where there is one, and the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations over the peak
    rate of their type): the featurizer, the bf16 conv (beside ``F.conv2d``), the int8
-   stem's byte-map preflight, the uint8 stem GEMM and the int8 conv (both bit for bit,
-   the int8 conv also beside the bf16 conv's time), flash attention (beside
-   ``F.scaled_dot_product_attention``, with its TFLOP/s);
+   stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
+   mapped codes) and the int8 conv (both bit for bit, the int8 conv also beside the bf16
+   conv's time), flash attention (beside ``F.scaled_dot_product_attention``, with its
+   TFLOP/s);
 4. the flagship bf16 fusion forward at full width (``entry.build_forward``) answering
    three batch-8 requests, with each kernel's launch count in that run;
 5. the same parameters in f32 on the CPU (plain paths) at batch 2, against the card;
@@ -69,14 +70,19 @@ COSINE_MIN = 0.99  # bf16 on the card against f32 on the CPU, same parameters
 # the int8 tower on the card against the CPU's plain path on the same tree: the int8
 # codes are equal, only the f32 sum order of the pooled mean differs
 FEATURE_RTOL, FEATURE_ATOL = 1e-5, 1e-6
-# (frames, S, C, C_out, residual): the residual convs of batch 8 and 256 clips of
-# 16 frames, and one shape whose last 128-row tile is ragged (M = 3·49 = 147)
+# (frames, S, C, C_out, residual, relu): the four convs of the bf16 tower (each stage's
+# first without residual, its second with) at batch 8 and 256 clips of 16 frames, and 3
+# frames at both widths, whose last 128-row tile is ragged (M = 3·49 = 147 and 3·196 =
+# 588), also without residual and ReLU
 CONV_SHAPES = [
-    (128, 14, 256, 256, False), (128, 14, 256, 256, True), (128, 7, 512, 512, True),
-    (4096, 14, 256, 256, False), (4096, 14, 256, 256, True), (4096, 7, 512, 512, True),
-    (3, 7, 512, 512, True),
+    (128, 14, 256, 256, False, True), (128, 14, 256, 256, True, True),
+    (128, 7, 512, 512, False, True), (128, 7, 512, 512, True, True),
+    (4096, 14, 256, 256, False, True), (4096, 14, 256, 256, True, True),
+    (4096, 7, 512, 512, False, True), (4096, 7, 512, 512, True, True),
+    (3, 7, 512, 512, True, True), (3, 14, 256, 256, True, True),
+    (3, 7, 512, 512, False, False), (3, 14, 256, 256, False, False),
 ]
-CONV_TIMED_SHAPE = (4096, 14, 256, 256, True)  # the s0 second conv at batch 256
+CONV_TIMED_SHAPE = (4096, 14, 256, 256, True, True)  # the s0 second conv at batch 256
 # the uint8 stem: (frames, int8 out) at batch 8 and 256, and a ragged M = 3·196
 STEM_SHAPES = [(128, False), (128, True), (4096, False), (4096, True), (3, True)]
 STEM_TIMED_SHAPE = (4096, True)  # the int8-resident stem at batch 256
@@ -95,8 +101,10 @@ PLAIN_ITERS_4096 = 2  # the float64 plain versions at 4096 frames are slow
 # flash attention, bf16 out: |kernel - plain| / max |plain|; the online rescale reorders
 # the sums and each tile's P rounds to bf16 against another running max
 FLASH_RTOL = 1e-2
-# (B, H, N): videomae_base at batch 8 and 1, a tiny ViT stream, a ragged N
-FLASH_SHAPES = [(8, 12, 1568), (1, 12, 1568), (2, 3, 32), (2, 3, 100)]
+# (B, H, N): videomae_base at batch 8 and 1 (14 key tiles of 112, 8.17 query tiles of
+# 192), N below one key tile (a tiny ViT stream, a ragged N), whole key tiles (224) and
+# whole query tiles (384)
+FLASH_SHAPES = [(8, 12, 1568), (1, 12, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384)]
 FLASH_TIMED_SHAPE = (8, 12, 1568)
 # the card's peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,7 +169,7 @@ def check_conv3x3() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst_abs = worst_rel = 0.0
     timed = None
-    for n, s, c, c_out, has_res in CONV_SHAPES:
+    for n, s, c, c_out, has_res, relu in CONV_SHAPES:
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device="cuda") * scale
 
@@ -170,14 +178,14 @@ def check_conv3x3() -> dict:
         scale = torch.rand(c_out, generator=gen, device="cuda") + 0.5
         bias = randn(c_out, scale=0.1)
         res = randn(n, s, s, c_out).to(torch.bfloat16) if has_res else None
-        got = conv3x3_bn_act(x, kernel, scale, bias, residual=res)
-        want = conv3x3_bn_act_reference(x, kernel, scale, bias, res)
+        got = conv3x3_bn_act(x, kernel, scale, bias, residual=res, relu=relu)
+        want = conv3x3_bn_act_reference(x, kernel, scale, bias, res, relu)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: conv3x3_bn_act(x, kernel, scale, bias, residual=res), 20)
-        plain_ms = cuda_ms(lambda: conv3x3_bn_act_reference(x, kernel, scale, bias, res), 20)
+        ms = cuda_ms(lambda: conv3x3_bn_act(x, kernel, scale, bias, residual=res, relu=relu), 20)
+        plain_ms = cuda_ms(lambda: conv3x3_bn_act_reference(x, kernel, scale, bias, res, relu), 20)
         tflops = 2 * n * s * s * 9 * c * c_out / ms / 1e9
-        name = f"({n}, {s}, {s}, {c})->{c_out} residual={has_res}"
+        name = f"({n}, {s}, {s}, {c})->{c_out} residual={has_res} relu={relu}"
         print(
             f"[kernel] conv3x3 {name}: max abs diff {err:.3e}, rel {rel:.3e}; "
             f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms"
@@ -185,7 +193,7 @@ def check_conv3x3() -> dict:
         if not rel <= CONV_RTOL:
             raise AssertionError(f"conv3x3 {name}: relative diff {rel} > {CONV_RTOL}")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        if (n, s, c, c_out, has_res) == CONV_TIMED_SHAPE:
+        if (n, s, c, c_out, has_res, relu) == CONV_TIMED_SHAPE:
             # cuDNN's conv on the same NHWC input, without the BN, residual and ReLU
             xc, wc = x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 20)
@@ -229,8 +237,18 @@ def check_stem_u8() -> dict:
         if (frames, int8_out) == STEM_TIMED_SHAPE:
             b = bound(col.numel() + w.numel() + got.numel() * got.element_size() + 8 * 256,
                       {"int8": 2 * col.numel() * 256})
-            print(f"[kernel] stem_u8 {name}: bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+            # one PyTorch call for the kernel's product alone, on the byte-mapped int8
+            # codes made beforehand: no byte map, no scale and bias, no ReLU, no requant,
+            # and an int32 result four times the kernel's int8 output
+            codes = torch.bitwise_xor(torch.clamp(col, min=1), 0x80).view(torch.int8).reshape(-1, 768)
+            library_ms, note = None, "torch._int_mm on the mapped codes: the product only, int32 out"
+            try:
+                library_ms = cuda_ms(lambda: torch._int_mm(codes, w), 20)
+            except RuntimeError as err:  # a yardstick only: its refusal is recorded, not raised
+                note = f"torch._int_mm refused {tuple(codes.shape)} x {tuple(w.shape)}: {err}"
+            print(f"[kernel] stem_u8 {name}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  + (note if library_ms is None else f"{note}: {library_ms:.4f} ms"))
+            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_note": note, **b}
     return {"max_abs_err": worst, **timed, "shape": "(4096·196, 768) u8 -> 256 int8"}
 
 

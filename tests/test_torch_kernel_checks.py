@@ -1,0 +1,112 @@
+"""The operand checks of the bf16 conv and the flash kernel, as pure functions of shapes,
+strides and addresses: what the Hopper kernels take and what the wrappers refuse before
+any launch. No device is needed; the kernels themselves are held against their plain
+versions on the card by ``tests/test_torch_kernels_cuda.py``."""
+import pytest
+import torch
+
+from tpuhar_torch.ops.conv3x3 import check_conv3x3_shapes, conv3x3_bn_act
+from tpuhar_torch.ops.flash_lean import HEAD_DIM, check_flash_operand, check_flash_scale, flash_lean
+
+
+@pytest.mark.parametrize(
+    "x,kernel,residual",
+    [
+        ((4096, 14, 14, 256), (3, 3, 256, 256), (4096, 14, 14, 256)),  # s0 at batch 256
+        ((4096, 7, 7, 512), (3, 3, 512, 512), None),  # s1 at batch 256
+        ((128, 14, 14, 256), (3, 3, 256, 256), (128, 14, 14, 256)),  # batch 8
+        ((3, 7, 7, 512), (3, 3, 512, 512), (3, 7, 7, 512)),  # M = 147, ragged
+        ((2, 5, 5, 64), (3, 3, 64, 80), None),  # C_out a multiple of 8 only
+        ((1, 1, 1, 64), (3, 3, 64, 8), (1, 1, 1, 8)),
+    ],
+)
+def test_conv3x3_shapes_taken(x, kernel, residual):
+    check_conv3x3_shapes(x, kernel, residual)
+
+
+@pytest.mark.parametrize(
+    "x,kernel,residual,match",
+    [
+        ((14, 14, 256), (3, 3, 256, 256), None, r"\(N, S, S, C\)"),
+        ((2, 7, 6, 128), (3, 3, 128, 128), None, "square"),
+        ((2, 7, 7, 128), (3, 3, 64, 128), None, "weights"),
+        ((2, 7, 7, 128), (1, 1, 128, 128), None, "weights"),
+        ((2, 7, 7, 128), (3, 3, 128), None, "weights"),
+        ((2, 7, 7, 120), (3, 3, 120, 128), None, "multiple of 64"),  # C: half a 128-byte row
+        ((2, 7, 7, 48), (3, 3, 48, 80), None, "multiple of 64"),
+        ((2, 7, 7, 128), (3, 3, 128, 100), None, "of 8"),  # C_out: 16-byte stores
+        ((2, 7, 7, 128), (3, 3, 128, 128), (2, 7, 7, 64), "residual"),
+        ((2, 7, 7, 128), (3, 3, 128, 128), (1, 7, 7, 128), "residual"),
+        ((2**31 // 49 + 1, 7, 7, 64), (3, 3, 64, 64), None, "2\\^31"),
+    ],
+)
+def test_conv3x3_shapes_refused(x, kernel, residual, match):
+    with pytest.raises(ValueError, match=match):
+        check_conv3x3_shapes(x, kernel, residual)
+
+
+def _views(B, H, N):
+    """(shape, strides) of a contiguous (B, H, N, 64) tensor and of the (B, H, N, 64)
+    view of a (B, N, 3·H·64) projection, as ``Attention`` hands q, k and v over."""
+    contiguous = torch.empty((B, H, N, HEAD_DIM), dtype=torch.bfloat16)
+    qkv = torch.empty((B, N, 3 * H * HEAD_DIM), dtype=torch.bfloat16)
+    view = qkv[..., : H * HEAD_DIM].view(B, N, H, HEAD_DIM).transpose(1, 2)
+    return [(tuple(t.shape), t.stride()) for t in (contiguous, view)]
+
+
+@pytest.mark.parametrize("B,H,N", [(8, 12, 1568), (1, 12, 1568), (2, 3, 100), (1, 1, 1)])
+def test_flash_operand_taken(B, H, N):
+    for shape, strides in _views(B, H, N):
+        check_flash_operand("q", shape, strides, 0, (B, H, N, HEAD_DIM))
+        check_flash_operand("q", shape, strides, 4096 + 16, (B, H, N, HEAD_DIM))
+
+
+@pytest.mark.parametrize(
+    "shape,strides,ptr,expected,match",
+    [
+        ((2, 3, 100, 64), (19200, 6400, 64, 1), 0, (2, 3, 101, 64), "!="),
+        ((2, 3, 100, 32), (9600, 3200, 32, 1), 0, (2, 3, 100, 32), "head_dim"),
+        ((2, 3, 100, 64), (19200, 6400, 1, 100), 0, (2, 3, 100, 64), "unit stride"),
+        ((2, 3, 100, 64), (19200, 6400, 64, 1), 8, (2, 3, 100, 64), "16-byte aligned"),
+        ((2, 3, 100, 64), (20400, 6800, 68, 1), 0, (2, 3, 100, 64), "multiples of 8"),
+        ((2, 3, 100, 64), (19204, 6400, 64, 1), 0, (2, 3, 100, 64), "multiples of 8"),
+        ((2, 3, 100, 64), (0, 6400, 64, 1), 0, (2, 3, 100, 64), "broadcast"),
+        ((2, 3, 100, 64), (19200, 0, 64, 1), 0, (2, 3, 100, 64), "broadcast"),
+        ((2, 3, 100, 64), (19200, 6400, -64, 1), 0, (2, 3, 100, 64), "reversed"),
+    ],
+)
+def test_flash_operand_refused(shape, strides, ptr, expected, match):
+    with pytest.raises(ValueError, match=match):
+        check_flash_operand("k", shape, strides, ptr, expected)
+
+
+def test_flash_operand_ignores_the_stride_of_a_single_element():
+    """A dimension of one element is never stepped over: a zero stride there is no
+    broadcast."""
+    check_flash_operand("v", (1, 1, 100, 64), (0, 0, 64, 1), 0, (1, 1, 100, 64))
+
+
+@pytest.mark.parametrize("sm_scale", [0.125, 1.0, 1e-6])
+def test_flash_scale_taken(sm_scale):
+    check_flash_scale(sm_scale)
+
+
+@pytest.mark.parametrize("sm_scale", [0.0, -0.125, float("nan")])
+def test_flash_scale_refused(sm_scale):
+    with pytest.raises(ValueError, match="positive"):
+        check_flash_scale(sm_scale)
+
+
+def test_cpu_tensors_take_the_plain_paths_whatever_their_shape():
+    """The checks guard the kernels only: on the CPU a width no kernel takes goes
+    through the plain versions."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 5, 5, 24), generator=gen)
+    k = torch.randn((3, 3, 24, 20), generator=gen)
+    launches = (conv3x3_bn_act.launches, flash_lean.launches)
+    out = conv3x3_bn_act(x, k, torch.ones(20), torch.zeros(20))
+    assert out.shape == (1, 5, 5, 20)
+    q = torch.randn((1, 2, 9, 16), generator=gen)
+    assert flash_lean(q, q, q).shape == (1, 2, 9, 16)
+    assert flash_lean(q, q, q, sm_scale=-0.25).shape == (1, 2, 9, 16)  # any scale on the CPU
+    assert (conv3x3_bn_act.launches, flash_lean.launches) == launches

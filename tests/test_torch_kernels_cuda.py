@@ -70,11 +70,22 @@ def _conv_case(n, s, c, c_out, residual, device, seed=0):
 @pytest.mark.parametrize(
     "n,s,c,c_out,residual,relu",
     [
-        (16, 14, 256, 256, False, True),
-        (16, 14, 256, 256, True, True),
-        (16, 7, 512, 512, True, True),
-        (3, 7, 512, 512, True, False),  # M = 147: a ragged last row tile
-        (2, 5, 48, 80, False, True),  # C and C_out multiples of 16, not of the tiles
+        # the four convs of the bf16 tower at batch 8 and 256 (16 frames a clip)
+        (128, 14, 256, 256, False, True),
+        (128, 14, 256, 256, True, True),
+        (128, 7, 512, 512, False, True),
+        (128, 7, 512, 512, True, True),
+        (4096, 14, 256, 256, False, True),
+        (4096, 14, 256, 256, True, True),
+        (4096, 7, 512, 512, False, True),
+        (4096, 7, 512, 512, True, True),
+        (3, 7, 512, 512, True, False),  # M = 147: a ragged second row tile
+        (3, 7, 512, 512, False, False),
+        (3, 14, 256, 256, True, True),  # M = 588 = 4·128 + 76
+        (3, 14, 256, 256, False, False),
+        (1, 7, 64, 64, False, False),  # less than one warpgroup's 64 rows
+        (2, 5, 64, 80, False, True),  # C_out a multiple of 8, not of the 64-column boxes
+        (300, 7, 64, 320, True, True),  # two column tiles, the second ragged
         (5, 15, 128, 128, True, True),
     ],
 )
@@ -103,7 +114,7 @@ def test_conv3x3_refuses(cuda):
         conv3x3_bn_act(x.float(), k.float(), scale, bias)
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3_bn_act(x.transpose(1, 2), k, scale, bias)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         conv3x3_bn_act(x[..., :120].contiguous(), k[:, :, :120].contiguous(), scale, bias)
     with pytest.raises(ValueError, match="square"):
         conv3x3_bn_act(x[:, :6].contiguous(), k, scale, bias)
@@ -277,22 +288,29 @@ def test_slice_on_card_matches_cpu_f32(cuda):
         assert cos.item() >= 0.99, key
 
 
-def _attention_case(B, H, N, device, seed=0, dtype=torch.bfloat16):
+def _attention_case(B, H, N, device, seed=0, dtype=torch.bfloat16, strided=False):
+    """q, k, v as (B, H, N, 64): contiguous, or the views of (B, N, H, 64) buffers that
+    the ViT's attention hands over."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    if strided:
+        return [torch.randn((B, N, H, 64), generator=gen, device=device).to(dtype).transpose(1, 2) for _ in range(3)]
     return [torch.randn((B, H, N, 64), generator=gen, device=device).to(dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize(
-    "B,H,N",
-    [(8, 12, 1568), (1, 1, 1568), (2, 12, 100), (1, 3, 100), (4, 3, 32), (1, 1, 8), (3, 2, 8)],
-)
-def test_flash_lean_matches_plain(cuda, B, H, N):
+# N: one token, below one 112-row key tile, ragged, whole key tiles (112, 224), whole
+# query tiles (192, 384), 128 and 256 (two and four warpgroups' rows), and videomae_base's
+# 1568 = 14 key tiles = 8.17 query tiles
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3), (8, 12)])
+@pytest.mark.parametrize("N", [1, 8, 32, 100, 112, 128, 192, 224, 256, 384, 1568])
+def test_flash_lean_matches_plain(cuda, B, H, N, strided):
     """bf16 against the plain one-tile math: max |kernel − plain| / max |plain| ≤ 1e-2,
     since the online rescale reorders the sums and each tile's P rounds to bf16 against
     another running max."""
     from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_reference
 
-    q, k, v = _attention_case(B, H, N, cuda)
+    q, k, v = _attention_case(B, H, N, cuda, strided=strided)
+    assert q.is_contiguous() != strided or min(H, N) == 1
     before = flash_lean.launches
     got = flash_lean(q, k, v)
     assert flash_lean.launches == before + 1
@@ -327,6 +345,16 @@ def test_flash_lean_refuses(cuda):
         flash_lean(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="unit stride"):
         flash_lean(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    wide = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # rows start 8 bytes off
+        flash_lean(wide[..., 4:68], k, v)
+    with pytest.raises(ValueError, match="multiples of 8"):  # a token stride of 68 elements
+        flash_lean(torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=cuda)[..., :64], k, v)
+    with pytest.raises(ValueError, match="broadcast"):
+        flash_lean(q[:, :1].expand(1, 2, 64, 64), k, v)
+    for sm_scale in (0.0, -0.125):  # the kernel takes the max of the raw scores
+        with pytest.raises(ValueError, match="positive"):
+            flash_lean(q, k, v, sm_scale=sm_scale)
 
 
 def test_vit_slice_on_card_matches_cpu_f32(cuda):

@@ -60,7 +60,7 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())

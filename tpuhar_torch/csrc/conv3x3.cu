@@ -5,177 +5,234 @@
 // on NHWC planes x (N, S, S, C), weights (9*C, C_out) (the HWIO kernel reshaped, as
 // conv3x3.py:197 does), scale/bias (C_out,) f32, residual and out (N, S, S, C_out).
 //
-// Design: a plain implicit GEMM. Rows are M = N*S*S output pixels, K is 9 taps x C,
-// columns are C_out. For each K chunk (one tap, BK channels) the block gathers the
-// tap-shifted rows of x into shared memory with cp.async, zero-filling every row whose
-// tap falls off the plane (the (y, x) validity masks of conv3x3.py:79-88) and the
-// ragged last row tile, so plane and frame edges are exact with no padded copy of x.
-// The chunk is multiplied on the tensor cores with wmma (bf16 in, f32 accumulate),
-// double-buffered so the next chunk's loads overlap this chunk's MMAs. The epilogue
-// applies the folded BN, the residual and the ReLU in f32 and stores bf16.
+// What bounds it: operations. At batch 256 (4096 frames) each 14x14x256 conv is
+// 2*802816*2304*256 = 0.95 TFLOP against about 1.2 GB of x, residual and out, far above
+// the card's ~295 FLOP/byte ridge, so the design is built around keeping the tensor
+// cores fed. What competes with them is the operand traffic from L2: the nine taps read
+// x nine times and every 128-row tile reads all the weights, 48 KB a K step and 10.8 GB a
+// call, which alone takes about as long as the products.
 //
-// What bounds it: compute. At batch 256 (4096 frames) each 14x14x256 conv is
-// 2*802816*2304*256 = 0.95 TFLOP against about 1.2 GB of traffic, far above the
-// card's ~295 FLOP/byte ridge. This simple tile design (wmma from shared memory, no
-// TMA, no wgmma, no warp specialisation) is a first step; wgmma/TMA is later work.
+// Design: an implicit GEMM, warp-specialised. Rows are M = N*S*S output pixels, K is 9
+// taps x C, columns are C_out. A block owns 128 rows x 256 channels and runs three
+// warpgroups:
+//  - one producer (registers cut to 40 by setmaxnreg) fills a ring of four 48 KB stages
+//    in dynamic shared memory. A stage holds one K chunk (one tap, 64 channels): A, the
+//    128 tap-shifted rows of x, one 128-byte row each, and B, the 64 x 256 weight chunk
+//    as it lies in HWIO (channels-out contiguous, four boxes of 64 columns), both in the
+//    128-byte swizzle wgmma reads. B comes by TMA from a 2-D map over the (9*C, C_out)
+//    matrix (one thread, four boxes; columns past C_out arrive as zeros): the weights
+//    need no repacking and two thirds of a stage cost no thread an instruction. A is
+//    gathered by all 128 threads with 16-byte cp.async: a row whose tap falls off the
+//    plane (the (y, x) validity masks of conv3x3.py:79-88) and the rows of a ragged last
+//    tile are zero-filled, so SAME padding is exact with no padded copy of x; each thread
+//    keeps its rows' nine validity bits in three registers. The gather stays in threads
+//    rather than TMA's im2col mode: it is the step from the gather this kernel had, and
+//    one warpgroup has a stage's time (about a thousand clocks) for its 8 copies a
+//    thread. Both arrive on the stage's "full" mbarrier by themselves
+//    (cp.async.mbarrier.arrive.noinc, TMA's byte count), so the producer never waits for
+//    its own copies and runs the ring's full depth ahead.
+//  - two consumers (232 registers each) own 64 rows each and issue wgmma m64n256k16
+//    (bf16 in, 128 f32 accumulators a thread) from shared memory, A K-major, B MN-major
+//    (the trans-b bit). One wgmma group stays in flight while the next stage is waited
+//    for; a finished stage goes back to the producer through its "empty" mbarrier. No
+//    block-wide barrier sits in the K loop.
+//  - epilogue: the ring is free by then, so each consumer stages its 64 x 256 tile
+//    there. The residual comes in as 16-byte coalesced loads; every thread applies
+//    scale, bias, residual and ReLU in f32 to the accumulators it holds and rounds to
+//    bf16 in place (a row pitch of 528 bytes keeps these 4-byte accesses on 32 distinct
+//    banks); the tile leaves as 16-byte coalesced stores.
+// One block per SM at a time (193 KB of shared memory), and the grid is one block a tile:
+// two persistent forms (the epilogue through TMA behind the next tile's K loop, or
+// straight from the registers) measured slower on an H100 than leaving the tiles to the
+// hardware's block scheduler.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int BM = 128;  // output rows (pixels) per block
-constexpr int BN = 128;  // output channels per block
-constexpr int BK = 32;   // input channels per K chunk (within one tap)
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 64 x 32 outputs per warp
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int A_LD = BK + 8;  // row pitches in bf16 elements: 80 B and 272 B, which
-constexpr int B_LD = BN + 8;  // keep the 16-byte rows of a wmma load on distinct banks
-constexpr int A_CHUNKS = BM * BK / 8 / THREADS;  // 16-byte copies per thread per chunk
-constexpr int B_CHUNKS = BK * BN / 8 / THREADS;
-static_assert(A_CHUNKS * THREADS * 8 == BM * BK, "A tile split");
-static_assert(B_CHUNKS * THREADS * 8 == BK * BN, "B tile split");
+constexpr int BM = 128;  // output rows (pixels) per block: 64 per consumer warpgroup
+constexpr int BN = 256;  // output channels per block
+constexpr int BK = 64;   // input channels per K chunk (within one tap): one 128-byte row
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BLOCK_BYTES = BK * 64 * 2;  // 64 K rows x 64 channels
+constexpr int B_BYTES = B_BLOCK_BYTES * (BN / 64);
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + room to align to 1024
+constexpr int OUT_PITCH = BN * 2 + 16;                   // bytes per staged output row
+static_assert(64 * OUT_PITCH <= STAGE_BYTES, "a consumer's output tile fits in one stage");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv3x3_bn_act_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ scale, const float* __restrict__ bias,
-                      const __nv_bfloat16* __restrict__ res,
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_bn_act_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
                       __nv_bfloat16* __restrict__ out, int M, int S, int C, int C_out,
-                      int relu) {
-  __shared__ __align__(128) __nv_bfloat16 As[2][BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][BK * B_LD];
-  __shared__ __align__(128) float Cs[WARPS_M * WARPS_N][16 * 16];
+                      int n_tiles, int relu, const __grid_constant__ CUtensorMap w_map) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[STAGES], empty_bar[STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t smem_base = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // the A rows this thread copies: pixel index and its (y, x) in the plane
-  int a_row[A_CHUNKS], a_m[A_CHUNKS], a_y[A_CHUNKS], a_x[A_CHUNKS];
-  const int a_k = (tid % (BK / 8)) * 8;
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    a_row[i] = (tid + i * THREADS) / (BK / 8);
-    a_m[i] = m0 + a_row[i];
-    const int rem = a_m[i] % (S * S);
-    a_y[i] = rem / S;
-    a_x[i] = rem % S;
-  }
-  int b_row[B_CHUNKS], b_col[B_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < B_CHUNKS; ++i) {
-    b_row[i] = (tid + i * THREADS) / (BN / 8);
-    b_col[i] = ((tid + i * THREADS) % (BN / 8)) * 8;
-  }
-
-  const int k_chunks = (C + BK - 1) / BK;
+  const int wg = tid >> 7;
+  // neighbouring blocks share a row tile, so its second read of x finds it in L2
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int k_chunks = C / BK;
   const int steps = 9 * k_chunks;
 
-  auto load = [&](int step, int buf) {
-    const int tap = step / k_chunks;
-    const int c0 = (step % k_chunks) * BK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int yy = a_y[i] + dy, xx = a_x[i] + dx, c = c0 + a_k;
-      const bool ok = a_m[i] < M && yy >= 0 && yy < S && xx >= 0 && xx < S && c < C;
-      const __nv_bfloat16* src =
-          ok ? x + static_cast<size_t>(a_m[i] + dy * S + dx) * C + c : x;
-      cp_async16(&As[buf][a_row[i] * A_LD + a_k], src, ok);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 128 + 1);  // every producer thread, and the TMA's issuer
+      mbar_init(&empty_bar[s], 8);       // lane 0 of every consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < B_CHUNKS; ++i) {
-      const int k = c0 + b_row[i], n = n0 + b_col[i];
-      const bool ok = k < C && n < C_out;
-      const __nv_bfloat16* src =
-          ok ? w + (static_cast<size_t>(tap) * C + k) * C_out + n : w;
-      cp_async16(&Bs[buf][b_row[i] * B_LD + b_col[i]], src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load(0, 0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) load(step + 1, buf ^ 1);
-    cp_async_commit();  // an empty group on the last step keeps the wait count uniform
-    cp_async_wait_prev();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], &As[buf][(wm * WM + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[buf][kk * B_LD + wn * WN + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // the next iteration's loads overwrite this buffer
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // epilogue: each warp stages one 16x16 tile in shared memory at a time; a lane
-  // then owns 8 consecutive channels of one row (one 16-byte load and store)
-  float* cs = Cs[warp];
-  const int er = lane >> 1, ec = (lane & 1) * 8;
+  if (wg == 2) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<40>();
+    const int pt = tid - 256;
+    const int chunk = pt & 7;  // this thread's 16-byte chunk of every row it copies
+    const int row0 = pt >> 3;  // A rows row0 + 16 i
+    const uint32_t swz = static_cast<uint32_t>((chunk ^ (row0 & 7)) << 4);
+
+    // nine tap-validity bits for each of this thread's 8 A rows, three rows a register
+    uint32_t valid[3] = {0u, 0u, 0u};
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + row0 + 16 * i;
+      if (m < M) {
+        const int rem = m % (S * S);
+        const int y = rem / S, xx = rem % S;
+        uint32_t bits = 0;
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * WM + i * 16 + er;
-      const int n = n0 + wn * WN + j * 16 + ec;
-      if (m < M && n < C_out) {  // C_out % 8 == 0, so n < C_out means n + 8 <= C_out
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = cs[er * 16 + ec + e] * scale[n + e] + bias[n + e];
-        const size_t off = static_cast<size_t>(m) * C_out + n;
-        if (res != nullptr) {
-          const uint4 r = *reinterpret_cast<const uint4*>(res + off);
-          const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(&r);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
+        for (int tap = 0; tap < 9; ++tap) {
+          const int yy = y + tap / 3 - 1, xt = xx + tap % 3 - 1;
+          if (yy >= 0 && yy < S && xt >= 0 && xt < S) bits |= 1u << tap;
         }
-        uint4 o;
-        __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&o);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ob[e] = __float2bfloat16(relu ? fmaxf(v[e], 0.f) : v[e]);
-        *reinterpret_cast<uint4*>(out + off) = o;
+        valid[i / 3] |= bits << (9 * (i % 3));
       }
-      __syncwarp();
+    }
+    const __nv_bfloat16* a_src = x + static_cast<long long>(m0 + row0) * C + chunk * 8;
+    const long long a_step = 16ll * C;
+
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&empty_bar[s], ((it / STAGES) & 1) ^ 1);
+      const int tap = it / k_chunks;
+      const int c0 = (it - tap * k_chunks) * BK;
+      const int dy = tap / 3 - 1, dx = tap - (tap / 3) * 3 - 1;
+      const uint32_t a_dst = smem_base + s * STAGE_BYTES + row0 * 128 + swz;
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full_bar[s], B_BYTES);
+        const uint32_t b_dst = smem_base + s * STAGE_BYTES + A_BYTES;
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(b_dst + j * B_BLOCK_BYTES, &w_map, &full_bar[s], n0 + j * 64, tap * C + c0);
+      }
+      const __nv_bfloat16* a = a_src + (dy * S + dx) * C + c0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool ok = (valid[i / 3] >> (9 * (i % 3) + tap)) & 1u;
+        cp_async16(a_dst + i * 16 * 128, ok ? a + i * a_step : x, ok);
+      }
+      cp_async_arrive(&full_bar[s]);
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<232>();
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int lane = tid & 31;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full_bar[s], (it / STAGES) & 1);
+      fence_proxy_async();  // the gathered rows were written through the generic proxy
+      const uint32_t a_tile = smem_base + s * STAGE_BYTES + wg * (64 * 128);
+      const uint32_t b_tile = smem_base + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: 16 K values are 32 bytes along the row; B: 16 K rows are 2048 bytes
+        const uint64_t da = wgmma_desc(a_tile + kk * 32, 16, 1024);
+        const uint64_t db = wgmma_desc(b_tile + kk * 16 * 128, B_BLOCK_BYTES, 1024);
+        wgmma_m64n256k16_ss_tb(acc, da, db, (it | kk) != 0);
+      }
+      wgmma_commit();
+      if (it > 0) {
+        wgmma_wait<1>();  // the group of stage it - 1 has read its operands
+        if (lane == 0) mbar_arrive(&empty_bar[(it - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+
+    // -------------------------------- epilogue ------------------------------------
+    bar_sync(1, 256);  // both consumers have left the ring
+    uint8_t* stage = smem + wg * STAGE_BYTES;
+    const int wt = tid & 127;
+    const int row_base = m0 + wg * 64;
+    if (res != nullptr) {
+#pragma unroll 4
+      for (int i = 0; i < 64 * (BN / 8) / 128; ++i) {
+        const int idx = wt + i * 128;
+        const int r = idx / (BN / 8), c = idx % (BN / 8);
+        const int m = row_base + r, n = n0 + c * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m < M && n < C_out)
+          v = __ldg(reinterpret_cast<const uint4*>(res + static_cast<long long>(m) * C_out + n));
+        *reinterpret_cast<uint4*>(stage + r * OUT_PITCH + c * 16) = v;
+      }
+      bar_sync(2 + wg, 128);
+    }
+    const int r = (wt >> 5) * 16 + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + col0;
+      const int n = n0 + col;  // C_out % 8 == 0, so n < C_out means n + 1 < C_out
+      float2 sc = make_float2(0.f, 0.f), bi = make_float2(0.f, 0.f);
+      if (n < C_out) {
+        sc = __ldg(reinterpret_cast<const float2*>(scale + n));
+        bi = __ldg(reinterpret_cast<const float2*>(bias + n));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* p =
+            reinterpret_cast<__nv_bfloat162*>(stage + (r + 8 * h) * OUT_PITCH + col * 2);
+        float v0 = acc[4 * j + 2 * h] * sc.x + bi.x;
+        float v1 = acc[4 * j + 2 * h + 1] * sc.y + bi.y;
+        if (res != nullptr) {
+          const float2 rr = __bfloat1622float2(*p);
+          v0 += rr.x;
+          v1 += rr.y;
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *p = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    bar_sync(2 + wg, 128);
+#pragma unroll 4
+    for (int i = 0; i < 64 * (BN / 8) / 128; ++i) {
+      const int idx = wt + i * 128;
+      const int rr = idx / (BN / 8), c = idx % (BN / 8);
+      const int m = row_base + rr, n = n0 + c * 8;
+      if (m < M && n < C_out)
+        *reinterpret_cast<uint4*>(out + static_cast<long long>(m) * C_out + n) =
+            *reinterpret_cast<const uint4*>(stage + rr * OUT_PITCH + c * 16);
     }
   }
 }
@@ -186,11 +243,26 @@ extern "C" int tpuhar_conv3x3_bn_act(const void* x, const void* w, const void* s
                                      const void* bias, const void* residual, void* out,
                                      int M, int S, int C, int C_out, int relu,
                                      void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (C_out + BN - 1) / BN);
-  conv3x3_bn_act_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_bn_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (C_out + BN - 1) / BN;
+  const long long blocks = static_cast<long long>((M + BM - 1) / BM) * n_tiles;
+  if (C % BK != 0 || C_out % 8 != 0 || blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the weights as a (9*C, C_out) matrix, read in boxes of 64 K rows x 64 channels that
+  // land in the 128-byte swizzle; columns past C_out arrive as zeros
+  CUtensorMap w_map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C_out), static_cast<cuuint64_t>(9) * C};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C_out) * 2};
+  const cuuint32_t box[2] = {64, BK};
+  if (!encode_tensor_map(&w_map, w, 2, dims, strides, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_bn_act_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out), M,
-      S, C, C_out, relu);
+      S, C, C_out, n_tiles, relu, w_map);
   return static_cast<int>(cudaGetLastError());
 }

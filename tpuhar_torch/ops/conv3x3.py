@@ -66,6 +66,32 @@ def conv3x3_bn_act_reference(
     return y.to(x.dtype)
 
 
+CONV_K_CHUNK = 64  # input channels the bf16 kernel multiplies per step: C is a multiple
+
+
+def check_conv3x3_shapes(x_shape, kernel_shape, residual_shape=None) -> None:
+    """Raise ``ValueError`` on shapes the bf16 kernel does not take: ``x`` is
+    ``(N, S, S, C)`` with ``C`` a multiple of 64 (one 128-byte row of bf16 per pixel
+    and tap), the weights ``(3, 3, C, C_out)`` with ``C_out`` a multiple of 8 (16-byte
+    stores), the residual ``(N, S, S, C_out)``."""
+    if len(x_shape) != 4:
+        raise ValueError(f"conv3x3 kernel: x must be (N, S, S, C), got {tuple(x_shape)}")
+    N, S, S2, C = x_shape
+    if S != S2:
+        raise ValueError(f"conv3x3 kernel: square planes only, got {(S, S2)}")
+    if len(kernel_shape) != 4 or tuple(kernel_shape[:3]) != (3, 3, C):
+        raise ValueError(f"conv3x3 kernel: weights {tuple(kernel_shape)} != (3, 3, {C}, C_out)")
+    C_out = kernel_shape[3]
+    if C % CONV_K_CHUNK or C_out % 8 or min(C, C_out) <= 0:
+        raise ValueError(
+            f"conv3x3 kernel: C={C} must be a multiple of {CONV_K_CHUNK} and C_out={C_out} of 8"
+        )
+    if residual_shape is not None and tuple(residual_shape) != (N, S, S, C_out):
+        raise ValueError(f"conv3x3 kernel: residual {tuple(residual_shape)} != {(N, S, S, C_out)}")
+    if N * S * S >= 2**31:
+        raise ValueError(f"conv3x3 kernel: {N * S * S} output rows exceed 2^31")
+
+
 def conv3x3_bn_act(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -86,8 +112,6 @@ def conv3x3_bn_act(
     """
     if x.device.type == "cpu":
         return conv3x3_bn_act_reference(x, kernel, scale, bias, residual, relu)
-    N, S, S2, C = x.shape
-    C_out = kernel.shape[-1]
     tensors = {"x": x, "kernel": kernel}
     if residual is not None:
         tensors["residual"] = residual
@@ -96,14 +120,9 @@ def conv3x3_bn_act(
             raise ValueError(f"conv3x3 kernel: {name} must be a contiguous bfloat16 CUDA tensor")
         if t.data_ptr() % 16:
             raise ValueError(f"conv3x3 kernel: {name} must be 16-byte aligned")
-    if S != S2:
-        raise ValueError(f"conv3x3 kernel: square planes only, got {(S, S2)}")
-    if C % 16 or C_out % 16:
-        raise ValueError(f"conv3x3 kernel: C={C} and C_out={C_out} must be multiples of 16")
-    if tuple(kernel.shape) != (3, 3, C, C_out):
-        raise ValueError(f"conv3x3 kernel: weights {tuple(kernel.shape)} != {(3, 3, C, C_out)}")
-    if residual is not None and tuple(residual.shape) != (N, S, S, C_out):
-        raise ValueError(f"conv3x3 kernel: residual {tuple(residual.shape)} != {(N, S, S, C_out)}")
+    check_conv3x3_shapes(x.shape, kernel.shape, None if residual is None else residual.shape)
+    N, S, _, C = x.shape
+    C_out = kernel.shape[-1]
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     if scale.shape != (C_out,) or bias.shape != (C_out,):

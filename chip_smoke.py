@@ -13,8 +13,9 @@ Phases; any failed check raises and the exit code is non-zero:
    least time the card could take: bytes over 3.35 TB/s or operations over the peak
    rate of their type): the featurizer, the bf16 conv (beside ``F.conv2d``), the int8
    stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
-   mapped codes) and the int8 conv (both bit for bit, the int8 conv also beside the bf16
-   conv's time), flash attention (beside ``F.scaled_dot_product_attention``, with its
+   mapped codes) and the int8 conv (both bit for bit; the int8 conv beside
+   ``torch._int_mm`` on its im2col matrix and beside the bf16 conv's time, with their
+   ratio), flash attention (beside ``F.scaled_dot_product_attention``, with its
    TFLOP/s);
 4. the flagship bf16 fusion forward at full width (``entry.build_forward``) answering
    three batch-8 requests, with each kernel's launch count in that run;
@@ -215,7 +216,7 @@ def check_stem_u8() -> dict:
     for frames, int8_out in STEM_SHAPES:
         col = torch.randint(0, 256, (frames, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
         col[0, :2] = 0  # pure-black pixels: the clip corner of the byte map
-        w = torch.randint(-127, 128, (768, 256), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (256, 768), generator=gen, device="cuda", dtype=torch.int8)  # (C0, K)
         scale = torch.rand(256, generator=gen, device="cuda") * 1e-5
         bias = torch.randn(256, generator=gen, device="cuda") * 0.5
         kw = {"out_scale": 0.05 if int8_out else None}
@@ -238,18 +239,34 @@ def check_stem_u8() -> dict:
             b = bound(col.numel() + w.numel() + got.numel() * got.element_size() + 8 * 256,
                       {"int8": 2 * col.numel() * 256})
             # one PyTorch call for the kernel's product alone, on the byte-mapped int8
-            # codes made beforehand: no byte map, no scale and bias, no ReLU, no requant,
-            # and an int32 result four times the kernel's int8 output
+            # codes and the (K, C0) weights made beforehand: no byte map, no scale and
+            # bias, no ReLU, no requant, and an int32 result four times the kernel's int8
+            # output
             codes = torch.bitwise_xor(torch.clamp(col, min=1), 0x80).view(torch.int8).reshape(-1, 768)
-            library_ms, note = None, "torch._int_mm on the mapped codes: the product only, int32 out"
-            try:
-                library_ms = cuda_ms(lambda: torch._int_mm(codes, w), 20)
-            except RuntimeError as err:  # a yardstick only: its refusal is recorded, not raised
-                note = f"torch._int_mm refused {tuple(codes.shape)} x {tuple(w.shape)}: {err}"
+            library_ms, note = int_mm_ms(codes, w.T.contiguous(), "the mapped codes")
             print(f"[kernel] stem_u8 {name}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
                   + (note if library_ms is None else f"{note}: {library_ms:.4f} ms"))
             timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_note": note, **b}
     return {"max_abs_err": worst, **timed, "shape": "(4096·196, 768) u8 -> 256 int8"}
+
+
+def int_mm_ms(a: torch.Tensor, b: torch.Tensor, what: str):
+    """(ms, note) of one ``torch._int_mm(a, b)``: a yardstick only, so a refusal is
+    recorded in the note, not raised, and the time is None."""
+    note = f"torch._int_mm on {what}: the product only, int32 out"
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), 20), note
+    except RuntimeError as err:
+        return None, f"torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {err}"
+
+
+def im2col_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(N, S, S, C) → (N·S·S, 9·C), SAME padding at stride 1, K in the packed weights'
+    order (dy·3 + dx)·C + c."""
+    n, s, _, c = x.shape
+    xp = torch.zeros((n, s + 2, s + 2, c), dtype=x.dtype, device=x.device)
+    xp[:, 1:-1, 1:-1] = x
+    return torch.cat([xp[:, dy:dy + s, dx:dx + s] for dy in range(3) for dx in range(3)], dim=-1).reshape(-1, 9 * c)
 
 
 def check_conv3x3_i8() -> dict:
@@ -290,8 +307,17 @@ def check_conv3x3_i8() -> dict:
         if (n, s, c, c_out, stride, has_res, int8_out) == CONV_I8_TIMED_SHAPE:
             b = bound(x.numel() + w.numel() + res.numel() + got.numel() + 8 * c_out,
                       {"int8": 2 * n * so * so * 9 * c * c_out})
-            print(f"[kernel] conv3x3_i8 {name}: bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            timed = {"ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms, "library_ms": None, **b}
+            # PyTorch has no int8 conv on CUDA: the yardstick is the conv's product alone,
+            # on the im2col matrix made beforehand (no gather, no epilogue)
+            cols = im2col_nhwc(x)
+            library_ms, note = int_mm_ms(cols, w.T.contiguous(), f"the im2col matrix {tuple(cols.shape)}")
+            del cols
+            print(f"[kernel] conv3x3_i8 {name}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  + (note if library_ms is None else f"{note}: {library_ms:.4f} ms"))
+            print(f"[kernel] conv3x3_i8 {name}: int8 kernel / bf16 kernel = {ms / bf16_ms:.3f} "
+                  f"({ms:.4f} / {bf16_ms:.4f} ms)")
+            timed = {"ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms, "library_ms": library_ms,
+                     "library_note": note, **b}
     return {"max_abs_err": worst, **timed, "shape": "(4096, 14, 14, 256)->256 int8 + residual"}
 
 

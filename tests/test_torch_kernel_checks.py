@@ -1,12 +1,13 @@
-"""The operand checks of the bf16 conv and the flash kernel, as pure functions of shapes,
-strides and addresses: what the Hopper kernels take and what the wrappers refuse before
-any launch. No device is needed; the kernels themselves are held against their plain
+"""The operand checks of the bf16 and int8 convs, the uint8 stem and the flash kernel, as
+pure functions of shapes, strides and addresses: what the Hopper kernels take and what
+the wrappers refuse before any launch. No device is needed; the kernels themselves are held against their plain
 versions on the card by ``tests/test_torch_kernels_cuda.py``."""
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import check_conv3x3_shapes, conv3x3_bn_act
+from tpuhar_torch.ops.conv3x3 import check_conv3x3_i8_shapes, check_conv3x3_shapes, conv3x3_bn_act
 from tpuhar_torch.ops.flash_lean import HEAD_DIM, check_flash_operand, check_flash_scale, flash_lean
+from tpuhar_torch.ops.stem import check_stem_u8_shapes
 
 
 @pytest.mark.parametrize(
@@ -43,6 +44,84 @@ def test_conv3x3_shapes_taken(x, kernel, residual):
 def test_conv3x3_shapes_refused(x, kernel, residual, match):
     with pytest.raises(ValueError, match=match):
         check_conv3x3_shapes(x, kernel, residual)
+
+
+# (C, C_out, stride, residual, out) of the five int8 convs of the tower
+_I8_CONVS = [(14, 256, 256, 1, True), (14, 256, 256, 1, False), (14, 256, 512, 2, False),
+             (7, 512, 512, 1, False), (7, 512, 512, 1, True)]
+
+
+@pytest.mark.parametrize("frames", [4096, 128], ids=["batch256", "batch8"])
+@pytest.mark.parametrize("s,c,c_out,stride,residual", _I8_CONVS)
+def test_conv3x3_i8_path_shapes_taken(frames, s, c, c_out, stride, residual):
+    so = -(-s // stride)
+    check_conv3x3_i8_shapes((frames, s, s, c), (c_out, 9 * c), stride, (frames, so, so, c_out) if residual else None)
+
+
+@pytest.mark.parametrize(
+    "x,w,stride,residual",
+    [
+        ((4, 9, 9, 32), (32, 9 * 32), 1, None),  # a quarter of a 128-byte row of channels
+        ((2, 5, 5, 96), (160, 9 * 96), 2, (2, 3, 3, 160)),  # odd plane at stride 2
+        ((3, 7, 7, 160), (288, 9 * 160), 1, (3, 7, 7, 288)),  # a partial row and a partial 256-wide box
+        ((3, 14, 14, 256), (512, 9 * 256), 2, None),  # ragged M at stride 2
+        ((1, 1, 1, 32), (160, 9 * 32), 1, None),  # C_out = 160
+    ],
+)
+def test_conv3x3_i8_shapes_taken(x, w, stride, residual):
+    check_conv3x3_i8_shapes(x, w, stride, residual)
+
+
+@pytest.mark.parametrize(
+    "x,w,stride,residual,match",
+    [
+        ((14, 14, 256), (256, 9 * 256), 1, None, r"\(N, S, S, C\)"),
+        ((2, 7, 6, 64), (64, 9 * 64), 1, None, "square"),
+        ((2, 7, 7, 64), (9 * 64, 64), 1, None, "weights"),  # the HWIO matrix, not packed
+        ((2, 7, 7, 64), (64, 9 * 32), 1, None, "weights"),
+        ((2, 7, 7, 48), (64, 9 * 48), 1, None, "multiples of 32"),  # C
+        ((2, 7, 7, 64), (80, 9 * 64), 1, None, "multiples of 32"),  # C_out
+        ((2, 9, 9, 64), (64, 9 * 64), 3, None, "stride 3"),
+        ((2, 14, 14, 64), (64, 9 * 64), 2, (2, 14, 14, 64), "residual"),  # the input's plane
+        ((2, 7, 7, 64), (64, 9 * 64), 1, (2, 7, 7, 32), "residual"),
+        ((2**31 // (49 * 64) + 1, 7, 7, 64), (64, 9 * 64), 1, None, "2\\^31"),
+    ],
+)
+def test_conv3x3_i8_shapes_refused(x, w, stride, residual, match):
+    with pytest.raises(ValueError, match=match):
+        check_conv3x3_i8_shapes(x, w, stride, residual)
+
+
+@pytest.mark.parametrize(
+    "col,w",
+    [
+        ((4096, 14, 14, 768), (256, 768)),  # the int8-resident stem at batch 256
+        ((128, 14, 14, 768), (256, 768)),  # and at batch 8
+        ((3, 14, 14, 768), (64, 768)),
+        ((3, 14, 14, 768), (160, 768)),
+        ((2, 4, 4, 192), (256, 192)),  # K = 192: a partial 128-byte chunk
+        ((1, 256), (256, 256)),  # the byte-map preflight
+    ],
+)
+def test_stem_u8_shapes_taken(col, w):
+    check_stem_u8_shapes(col, w)
+
+
+@pytest.mark.parametrize(
+    "col,w,match",
+    [
+        ((2, 14, 14, 768), (768, 256), r"K-major \(C0, K\) expected"),  # the (K, C0) matrix
+        ((2, 4, 4, 192), (192, 64), r"K-major \(C0, K\) expected"),
+        ((2, 14, 14, 640), (256, 768), "do not match"),
+        ((2, 4, 4, 96), (64, 96), "multiple of 64"),  # K % 64
+        ((2, 4, 4, 768), (48, 768), "of 32"),  # C0 % 32
+        ((2, 4, 4, 768), (256, 768, 1), r"\(C0, K\)"),
+        ((2**31 // 4 + 1, 4, 64), (32, 64), "2\\^31"),
+    ],
+)
+def test_stem_u8_shapes_refused(col, w, match):
+    with pytest.raises(ValueError, match=match):
+        check_stem_u8_shapes(col, w)
 
 
 def _views(B, H, N):

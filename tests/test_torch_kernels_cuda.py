@@ -124,23 +124,34 @@ def _stem_case(frames, c0, device, seed=0, k=768):
     gen = torch.Generator(device=device).manual_seed(seed)
     col = torch.randint(0, 256, (frames, 14, 14, k), generator=gen, device=device, dtype=torch.uint8)
     col[0, :2] = 0  # pure-black pixels: the u8 = 0 → -127 clip corner
-    w = torch.randint(-127, 128, (k, c0), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (c0, k), generator=gen, device=device, dtype=torch.int8)  # K-major
     scale = torch.rand(c0, generator=gen, device=device) * 1e-5  # most codes inside ±127
     bias = torch.randn(c0, generator=gen, device=device) * 0.5
     return col, w, scale, bias
 
 
-@pytest.mark.parametrize("frames", [128, 3])
+@pytest.mark.parametrize(
+    "frames,c0,k,zero_frames",
+    [
+        (128, 256, 768, 0),  # the int8-resident stem at batch 8
+        (3, 256, 768, 0),  # M = 588: a ragged last row tile
+        (3, 64, 768, 0),  # C0 below one 256-wide tile
+        (3, 160, 768, 0),
+        (3, 256, 192, 0),  # K = 192: the second 128-byte chunk half past K (u8 0 maps to -127)
+        (4, 256, 768, 2),  # whole 128-row tiles of pure-black pixels
+    ],
+)
 @pytest.mark.parametrize("out_scale", [None, 0.05])
 @pytest.mark.parametrize("relu", [True, False])
-def test_stem_u8_matches_plain_exactly(cuda, frames, out_scale, relu):
-    col, w, scale, bias = _stem_case(frames, 256, cuda)
+def test_stem_u8_matches_plain_exactly(cuda, frames, c0, k, zero_frames, out_scale, relu):
+    col, w, scale, bias = _stem_case(frames, c0, cuda, k=k)
+    col[:zero_frames] = 0
     before = stem_gemm_u8.launches
     got = stem_gemm_u8(col, w, scale, bias, relu=relu, out_scale=out_scale)
     assert stem_gemm_u8.launches == before + 1
     want = stem_gemm_u8_reference(col, w, scale, bias, relu=relu, out_scale=out_scale)
     assert got.dtype == want.dtype == (torch.float32 if out_scale is None else torch.int8)
-    assert got.shape == want.shape == (frames, 14, 14, 256)
+    assert got.shape == want.shape == (frames, 14, 14, c0)
     assert torch.equal(got, want)
 
 
@@ -159,9 +170,11 @@ def test_stem_u8_refuses(cuda):
     with pytest.raises(ValueError, match="int8"):
         stem_gemm_u8(col, w.float(), scale, bias)
     with pytest.raises(ValueError, match="multiple"):
-        stem_gemm_u8(col, w[:, :48].contiguous(), scale[:48], bias[:48])
+        stem_gemm_u8(col, w[:48].contiguous(), scale[:48], bias[:48])
     with pytest.raises(ValueError, match="do not match"):
         stem_gemm_u8(col[..., :640].contiguous(), w, scale, bias)
+    with pytest.raises(ValueError, match=r"K-major \(C0, K\) expected"):
+        stem_gemm_u8(col, w.T.contiguous(), scale, bias)
 
 
 def _conv_i8_case(n, s, c, c_out, stride, residual, device, seed=0):
@@ -183,7 +196,15 @@ def _conv_i8_case(n, s, c, c_out, stride, residual, device, seed=0):
         (128, 14, 256, 512, 2, False, 0.02),  # down1
         (128, 7, 512, 512, 1, False, 0.02),  # s1 block a
         (128, 7, 512, 512, 1, True, None),  # s1 block b: f32 out
+        (4096, 14, 256, 256, 1, False, 0.02),  # the same five at batch 256
+        (4096, 14, 256, 256, 1, True, 0.02),
+        (4096, 14, 256, 512, 2, False, 0.02),
+        (4096, 7, 512, 512, 1, False, 0.02),
+        (4096, 7, 512, 512, 1, True, None),
         (3, 7, 512, 512, 1, True, 0.02),  # M = 147: a ragged last row tile
+        (3, 14, 256, 512, 2, False, 0.02),  # ragged M at stride 2
+        (3, 7, 160, 288, 1, True, 0.02),  # a partial 128-byte row of C; a partial 256-wide B box
+        (3, 7, 160, 288, 1, False, None),
         (2, 5, 96, 160, 2, True, None),  # odd plane at stride 2; C not a multiple of 64
         (4, 9, 32, 32, 1, False, None),
     ],

@@ -76,7 +76,7 @@ def test_cpu_tensors_take_the_plain_int8_paths():
     launch nothing."""
     rng = np.random.default_rng(1)
     col = torch.from_numpy(rng.integers(0, 256, (2, 3, 3, 48), dtype=np.uint8))
-    w = torch.from_numpy(rng.integers(-127, 128, (48, 24), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (24, 48), dtype=np.int8))  # (C0, K)
     scale, bias = torch.full((24,), 1e-3), torch.zeros(24)
     x = torch.from_numpy(rng.integers(-127, 128, (2, 5, 5, 24), dtype=np.int8))
     wc = torch.from_numpy(rng.integers(-127, 128, (40, 9 * 24), dtype=np.int8))

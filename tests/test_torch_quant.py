@@ -147,7 +147,8 @@ def test_quantized_tree_from_numpy_packs_once():
     params, stats = _net((32, 64), 8, 1, norm)
     q = jax.device_get(Q.quantize_tpucnn(params, stats, Q.calibrate_tpucnn(params, stats, norm)))
     t = quantized_tree_from_numpy(q)
-    assert t["stem"]["w_packed"].shape == (8 * 8 * 3, 32) and t["stem"]["w_packed"].dtype == torch.int8
+    assert t["stem"]["w_packed"].shape == (32, 8 * 8 * 3) and t["stem"]["w_packed"].dtype == torch.int8
+    np.testing.assert_array_equal(t["stem"]["w_packed"].numpy(), np.asarray(q["stem"]["w_q"]).reshape(8 * 8 * 3, 32).T)
     conv = t["s1b0"]["b"]
     np.testing.assert_array_equal(conv["w_packed"].numpy(), np.asarray(q["s1b0"]["b"]["w_q"]).reshape(9 * 64, 64).T)
     xs = np.float32(q["act_scales"]["s1b0.mid"])

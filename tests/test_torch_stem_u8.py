@@ -1,6 +1,7 @@
 """The port's uint8 patch-major stem (``tpuhar_torch/ops/stem.py``) vs the JAX package's
 ``tpuhar/ops/stem.py``, on the fixture of ``tests/test_stem.py`` (3×64×64×3 uint8 with
-a block of black pixels, p=16, C0=32), and the byte-map preflight twin.
+a block of black pixels, p=16, C0=32), and the byte-map preflight twin. The port takes
+the weights K-major, ``(C0, K)`` (``pack_stem_u8``); the JAX package ``(K, C0)``.
 
 The CPU path is the plain version: the byte map in uint8, the GEMM in float64. Every
 768-term int8 dot product is exact in either accumulator, and the epilogue runs the
@@ -14,9 +15,10 @@ import torch
 
 from tpuhar.ops import quant as Q
 from tpuhar.ops.stem import stem_gemm_u8 as jax_stem_gemm_u8
+from tpuhar.ops.stem import pack_stem_weights as jax_pack_stem_weights
 from tpuhar.ops.stem import stem_gemm_u8_pallas, to_patch_major
 from tpuhar_torch.ops import stem as stem_mod
-from tpuhar_torch.ops.stem import pack_stem_weights, stem_gemm_u8, verify_byte_map
+from tpuhar_torch.ops.stem import pack_stem_u8, pack_stem_weights, stem_gemm_u8, verify_byte_map
 
 torch.set_num_threads(2)
 
@@ -35,9 +37,10 @@ def fixture():
         np.asarray(Q.int8_conv(x_q, w_q, jnp.float32(1.0), w_s, strides=(p, p), padding="VALID")) + bias, 0
     )
     col = to_patch_major(u8, p)
+    w_kc = np.array(w_q).reshape(p * p * 3, c0)  # the JAX package's (K, C0)
     return dict(
-        col=col, w_packed=np.array(w_q).reshape(p * p * 3, c0), w_scale=np.array(w_s).reshape(-1),
-        bias=bias, y_conv=y_conv,
+        col=col, w_kc=w_kc, w_packed=pack_stem_u8(torch.from_numpy(np.array(w_q))).numpy(),
+        w_scale=np.array(w_s).reshape(-1), bias=bias, y_conv=y_conv,
     )
 
 
@@ -56,7 +59,7 @@ def test_matches_jax_stem_gemm_u8(fixture, out_scale, relu):
     out_dtype = jnp.float32 if out_scale is None else jnp.int8
     want = np.asarray(
         jax_stem_gemm_u8(
-            jnp.asarray(f["col"]), jnp.asarray(f["w_packed"]), jnp.asarray(f["w_scale"]),
+            jnp.asarray(f["col"]), jnp.asarray(f["w_kc"]), jnp.asarray(f["w_scale"]),
             jnp.asarray(f["bias"]), sub=128, clip_lo=-127, relu=relu, out_scale=out_scale,
             out_dtype=out_dtype, mxu_dtype=jnp.int8,
         )
@@ -70,7 +73,7 @@ def test_matches_pallas_interpret_and_int8_conv(fixture):
     f = fixture
     want = np.asarray(
         stem_gemm_u8_pallas(
-            jnp.asarray(f["col"]), jnp.asarray(f["w_packed"]), jnp.asarray(f["w_scale"]),
+            jnp.asarray(f["col"]), jnp.asarray(f["w_kc"]), jnp.asarray(f["w_scale"]),
             jnp.asarray(f["bias"]), mxu_dtype=jnp.int8, interpret=True,
         )
     )
@@ -89,7 +92,7 @@ def test_int8_out_equals_quantize_activations(fixture):
         got,
         np.asarray(
             jax_stem_gemm_u8(
-                jnp.asarray(f["col"]), jnp.asarray(f["w_packed"]), jnp.asarray(f["w_scale"]),
+                jnp.asarray(f["col"]), jnp.asarray(f["w_kc"]), jnp.asarray(f["w_scale"]),
                 jnp.asarray(f["bias"]), out_scale=0.07, out_dtype=jnp.int8,
             )
         ),
@@ -135,3 +138,19 @@ def test_pack_stem_weights_matches_patch_major_order(fixture):
     np.testing.assert_array_equal(
         col @ pack_stem_weights(kernel), np.einsum("hwc,hwcn->n", frames[0].astype(np.int64), kernel)
     )
+
+
+def test_pack_stem_u8_is_the_k_major_transpose(fixture):
+    """``pack_stem_u8`` is the JAX package's ``pack_stem_weights`` transposed to
+    ``(C0, K)``, contiguous, and the plain stem on it equals the ``(K, C0)`` product."""
+    rng = np.random.default_rng(3)
+    kernel = rng.integers(-127, 128, (16, 16, 3, 32), dtype=np.int8)
+    got = pack_stem_u8(torch.from_numpy(kernel))
+    assert got.shape == (32, 768) and got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_pack_stem_weights(jnp.asarray(kernel))).T)
+    f = fixture
+    x = np.clip(f["col"].astype(np.int64) - 128, -127, 127).reshape(-1, 768)
+    acc = stem_gemm_u8(
+        torch.from_numpy(f["col"]), torch.from_numpy(f["w_packed"]), torch.ones(32), torch.zeros(32), relu=False,
+    ).numpy().reshape(-1, 32)
+    np.testing.assert_array_equal(acc, (x @ f["w_kc"].astype(np.int64)).astype(np.float32))

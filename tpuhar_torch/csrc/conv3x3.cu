@@ -256,7 +256,7 @@ extern "C" int tpuhar_conv3x3_bn_act(const void* x, const void* w, const void* s
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C_out), static_cast<cuuint64_t>(9) * C};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C_out) * 2};
   const cuuint32_t box[2] = {64, BK};
-  if (!encode_tensor_map(&w_map, w, 2, dims, strides, box))
+  if (!encode_tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, dims, strides, box))
     return static_cast<int>(cudaErrorInvalidValue);
   conv3x3_bn_act_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
                           static_cast<cudaStream_t>(stream)>>>(

@@ -1,4 +1,4 @@
-// Fused int8 3x3 SAME conv on Hopper (sm_90a), int8 tensor cores.
+// Fused int8 3x3 SAME conv on Hopper (sm_90a), int8 tensor cores through wgmma.
 //
 // The int8 form of the TPU kernel tpuhar/ops/conv3x3.py: conv3x3_bn_act, and what XLA
 // ran for ops/quant.py: int8_conv in the int8 tpu_cnn tower (down1 and every residual
@@ -12,238 +12,180 @@
 // scale/bias (C_out,) f32, residual (N, So, So, C_out) int8, out (N, So, So, C_out)
 // int8 or f32, So = ceil(S / stride). The source pixel of output (yo, xo) and tap
 // (dy, dx) is (yo*stride + dy - pad_lo, xo*stride + dx - pad_lo), with XLA's SAME
-// split: pad_lo = 1 at stride 1, 0 at stride 2 on an even plane.
+// split: pad_lo = 1 at stride 1, 0 at stride 2 on an even plane. The sums are exact in
+// int32: |acc| <= 4608 * 127^2 < 2^31.
+//
+// What bounds it: operations. At batch 256 (4096 frames) a 14x14x256 conv is 0.95 TOP
+// against about 0.4 GB of x, weights, residual and out: at the card's int8 peak the
+// products take 0.48 ms, the bytes 0.12 ms. What competes with the tensor cores is the
+// operand traffic from L2: the nine taps read x nine times and every 128-row tile reads
+// all the weights (576 KB at C = 256).
 //
 // Design: the implicit GEMM of csrc/conv3x3.cu in int8. Rows are M = N*So*So output
-// pixels, K is 9 taps x C, columns are C_out. For each K chunk (one tap, 64 channels)
-// the block gathers the tap-shifted rows of x into shared memory with cp.async,
-// zero-filling every row whose tap falls off the plane and the ragged last row tile,
-// so edges are exact with no padded copy of x; the weights come the same way, 16
-// bytes of one output channel's K run at a time. Both tiles keep each 16-byte K
-// column as its own slab, so every 8x16-byte ldmatrix read is 128 contiguous bytes.
-// Warps multiply with mma.sync m16n8k32 s8 (int32 accumulators in registers, exact:
-// |acc| <= 4608 * 127^2 < 2^31), double-buffered so the next chunk's loads overlap
-// this chunk's MMAs. The epilogue stages each 16x16 accumulator tile in shared memory
-// and runs in JAX's order with the _rn intrinsics (never contracted into an FMA), so
-// it is bit-exact against the plain PyTorch version, which runs each multiply, add and
-// division as its own op.
-//
-// What bounds it: compute. At batch 256 (4096 frames) a 14x14x256 conv is 0.95 TOP
-// against about 0.4 GB of int8 traffic. This tile design (mma.sync from shared memory,
-// no TMA, no wgmma) is a first step; the int8 rate of wgmma is later work.
+// pixels, K is 9 taps x C, columns are C_out. A block owns 128 rows x 256 channels and
+// runs three warpgroups:
+//  - one producer (registers cut to 40 by setmaxnreg) fills a ring of four 48 KB stages
+//    in dynamic shared memory. A stage holds one K chunk (one tap, 128 channels: one
+//    128-byte row a pixel, four wgmma k-steps): A, the 128 tap-shifted rows of x, and B,
+//    the 256 x 128-byte slice of the weights, both in the 128-byte swizzle wgmma reads.
+//    8-bit wgmma has no transpose bit, so both operands are K-major; the packed weights
+//    already are, and B comes by TMA from a 2-D map over the (C_out, 9*C) matrix as it
+//    lies (one thread, one 32 KB box; rows past C_out arrive as zeros). A is gathered by
+//    all 128 threads with 16-byte cp.async: each thread keeps, for each of its 8 rows,
+//    the source offset of tap (0, 0) and the nine tap-validity bits; a row whose tap
+//    falls off the plane and the rows of a ragged last tile are zero-filled, so SAME
+//    padding is exact with no padded copy of x, and zero is the pad in int8 code space
+//    as in JAX. When C is not a multiple of 128, the 16-byte chunks of a row past C are
+//    zero-filled too; B's box then holds the first channels of the next tap (or zeros
+//    past 9*C) there, and those products are 0 * w. Both copies arrive on the stage's
+//    "full" mbarrier by themselves (cp.async.mbarrier.arrive.noinc, TMA's byte count),
+//    so the producer runs the ring's full depth ahead.
+//  - two consumers (232 registers each) own 64 rows each and issue wgmma m64n256k32
+//    s8 x s8 from shared memory (128 s32 accumulators a thread). One wgmma group stays
+//    in flight while the next stage is waited for; a finished stage goes back to the
+//    producer through its "empty" mbarrier. No block-wide barrier sits in the K loop.
+//  - epilogue (csrc/epilogue_i8.cuh): the ring is free by then, and each consumer stages
+//    its 64 x 256 s32 accumulators in one half of it, across two stages (64 KB, more than
+//    one stage); the residual comes in and the int8 or f32 tile goes out by coalesced
+//    accesses straight to device memory.
+// One block per SM at a time (193 KB of shared memory), and the grid is one block a
+// tile, as in the bf16 kernel: a persistent block that runs the next tile's loads during
+// the epilogue measured slower at 14x14x256 and 7x7x512 on an H100.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue_i8.cuh"
+#include "hopper.cuh"
+
+using namespace hopper;
+
 namespace {
 
-constexpr int BM = 128;  // output rows (pixels) per block
-constexpr int BN = 128;  // output channels per block
-constexpr int BK = 64;   // input channels per K chunk (within one tap)
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 64 x 32 outputs per warp
-constexpr int FM = WM / 16, FN = WN / 8;             // m16 x n8 MMA tiles per warp
-// A tile: BK/16 slabs of BM rows x 16 bytes; B tile: BK/16 slabs of BN rows x 16
-// bytes. 32 bytes of padding per slab spread a quarter warp's cp.async stores over
-// the banks.
-constexpr int SLAB = 128 * 16 + 32;
-constexpr int A_TILE = (BK / 16) * SLAB;
-constexpr int B_TILE = (BK / 16) * SLAB;
-constexpr int A_VECS = BM * BK / 16 / THREADS;  // 16-byte copies per thread per chunk
-constexpr int B_VECS = BN * BK / 16 / THREADS;
-static_assert(BM == 128 && BN == 128, "slab size");
-static_assert(A_VECS * THREADS * 16 == BM * BK, "A tile split");
-static_assert(B_VECS * THREADS * 16 == BN * BK, "B tile split");
+constexpr int BM = 128;  // output rows (pixels) per block: 64 per consumer warpgroup
+constexpr int BN = 256;  // output channels per block
+constexpr int BK = 128;  // input channels per K chunk (within one tap): one 128-byte row
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;
+constexpr int A_BYTES = BM * BK;
+constexpr int B_BYTES = BN * BK;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int SMEM_BYTES = RING_BYTES + 1024;  // + room to align to 1024
+static_assert(2 * epilogue_i8::smem_bytes<1>() <= RING_BYTES, "both consumers' tiles fit in the ring");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-// four 8x16-byte matrices; lane l gives the address of row l % 8 of matrix l / 8 and
-// receives, from matrix i, bytes 4*(l % 4) .. +3 of row l / 4 in r[i]
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv3x3_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  const int8_t* __restrict__ res, void* __restrict__ out, int M, int S,
-                  int So, int C, int C_out, int stride, int pad_lo, int relu,
-                  float res_scale, int int8_out, float out_scale) {
-  __shared__ __align__(128) signed char As[2][A_TILE];
-  __shared__ __align__(128) signed char Bs[2][B_TILE];
-  __shared__ __align__(128) int Cs[WARPS_M * WARPS_N][16 * 16];
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_i8_kernel(const int8_t* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, const int8_t* __restrict__ res,
+                  void* __restrict__ out, int M, int S, int So, int C, int C_out, int stride,
+                  int pad_lo, int n_tiles, int relu, float res_scale, int int8_out,
+                  float out_scale, const __grid_constant__ CUtensorMap w_map) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[STAGES], empty_bar[STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t smem_base = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int n0 = blockIdx.x * BN;  // n-tiles of one row tile run next to each other
-  const int m0 = blockIdx.y * BM;
-  const int K = 9 * C;
-
-  // the A rows this thread copies: output pixel, its frame, and its tap origin
-  int a_row[A_VECS], a_kq[A_VECS], a_m[A_VECS], a_img[A_VECS], a_y0[A_VECS], a_x0[A_VECS];
-#pragma unroll
-  for (int i = 0; i < A_VECS; ++i) {
-    const int idx = tid + i * THREADS;
-    a_row[i] = idx / (BK / 16);
-    a_kq[i] = idx % (BK / 16);
-    a_m[i] = m0 + a_row[i];
-    a_img[i] = a_m[i] / (So * So);
-    const int rem = a_m[i] % (So * So);
-    a_y0[i] = (rem / So) * stride - pad_lo;
-    a_x0[i] = (rem % So) * stride - pad_lo;
-  }
-  // the B rows (output channels) this thread copies
-  int b_row[B_VECS], b_kq[B_VECS];
-#pragma unroll
-  for (int i = 0; i < B_VECS; ++i) {
-    const int idx = tid + i * THREADS;
-    b_row[i] = idx / (BK / 16);
-    b_kq[i] = idx % (BK / 16);
-  }
-
+  const int wg = tid >> 7;
+  // neighbouring blocks share a row tile, so its second read of x finds it in L2
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
   const int k_chunks = (C + BK - 1) / BK;
   const int steps = 9 * k_chunks;
 
-  auto load = [&](int step, int buf) {
-    const int tap = step / k_chunks;
-    const int c0 = (step % k_chunks) * BK;
-    const int dy = tap / 3, dx = tap % 3;
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int yy = a_y0[i] + dy, xx = a_x0[i] + dx, c = c0 + a_kq[i] * 16;
-      const bool ok = a_m[i] < M && yy >= 0 && yy < S && xx >= 0 && xx < S && c < C;
-      const int8_t* src =
-          ok ? x + (static_cast<size_t>(a_img[i] * S + yy) * S + xx) * C + c : x;
-      cp_async16(&As[buf][a_kq[i] * SLAB + a_row[i] * 16], src, ok);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 128 + 1);  // every producer thread, and the TMA's issuer
+      mbar_init(&empty_bar[s], 8);       // lane 0 of every consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int n = n0 + b_row[i], c = c0 + b_kq[i] * 16;
-      const bool ok = n < C_out && c < C;
-      const int8_t* src = ok ? w + static_cast<size_t>(n) * K + tap * C + c : w;
-      cp_async16(&Bs[buf][b_kq[i] * SLAB + b_row[i] * 16], src, ok);
-    }
-  };
-
-  int acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // ldmatrix addressing: matrix mi = lane / 8 of an x4 load, row lane % 8 within it
-  const int mi = lane >> 3, mr = lane & 7;
-
-  load(0, 0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) load(step + 1, buf ^ 1);
-    cp_async_commit();  // an empty group on the last step keeps the wait count uniform
-    cp_async_wait_prev();
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {  // one m16n8k32 K step: slabs 2ks, 2ks+1
-      uint32_t a[FM][4], b[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)  // matrices: rows 0-7 / 8-15 x K bytes 0-15 / 16-31
-        ldmatrix_x4(a[i], &As[buf][(2 * ks + (mi >> 1)) * SLAB +
-                                   (wm * WM + i * 16 + (mi & 1) * 8 + mr) * 16]);
-#pragma unroll
-      for (int j = 0; j < FN; j += 2) {  // matrices: n-tile j / j+1 x K bytes 0-15 / 16-31
-        uint32_t r[4];
-        ldmatrix_x4(r, &Bs[buf][(2 * ks + (mi & 1)) * SLAB +
-                                (wn * WN + j * 8 + (mi >> 1) * 8 + mr) * 16]);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-    __syncthreads();  // the next iteration's loads overwrite this buffer
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // epilogue: each warp stages one 16x16 tile (two n8 MMA tiles) at a time in shared
-  // memory; a lane then owns 8 consecutive channels of one row
-  int* cs = Cs[warp];
-  const int g = lane >> 2, t = lane & 3;  // the MMA's row group and column pair
-  const int er = lane >> 1, ec = (lane & 1) * 8;
+  if (wg == 2) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<40>();
+    const int pt = tid - 256;
+    const int chunk = pt & 7;  // this thread's 16-byte chunk of every row it copies
+    const int row0 = pt >> 3;  // A rows row0 + 16 i
+    const uint32_t swz = static_cast<uint32_t>((chunk ^ (row0 & 7)) << 4);
+
+    // for each of this thread's 8 A rows: the offset in x of its chunk at tap (0, 0)
+    // (negative where that tap is off the plane) and nine tap-validity bits, three rows
+    // a register
+    int src[8];
+    uint32_t valid[3] = {0u, 0u, 0u};
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + row0 + 16 * i;
+      src[i] = 0;
+      if (m < M) {
+        const int img = m / (So * So);
+        const int rem = m - img * So * So;
+        const int yo = rem / So;
+        const int y0 = yo * stride - pad_lo, x0 = (rem - yo * So) * stride - pad_lo;
+        uint32_t bits = 0;
 #pragma unroll
-    for (int j = 0; j < FN; j += 2) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        cs[g * 16 + h * 8 + 2 * t] = acc[i][j + h][0];
-        cs[g * 16 + h * 8 + 2 * t + 1] = acc[i][j + h][1];
-        cs[(g + 8) * 16 + h * 8 + 2 * t] = acc[i][j + h][2];
-        cs[(g + 8) * 16 + h * 8 + 2 * t + 1] = acc[i][j + h][3];
+        for (int tap = 0; tap < 9; ++tap) {
+          const int yy = y0 + tap / 3, xt = x0 + tap % 3;
+          if (yy >= 0 && yy < S && xt >= 0 && xt < S) bits |= 1u << tap;
+        }
+        valid[i / 3] |= bits << (9 * (i % 3));
+        src[i] = ((img * S + y0) * S + x0) * C + chunk * 16;
       }
-      __syncwarp();
-      const int m = m0 + wm * WM + i * 16 + er;
-      const int n = n0 + wn * WN + j * 8 + ec;
-      if (m < M && n < C_out) {  // C_out % 32 == 0, so n < C_out means n + 8 <= C_out
-        const size_t off = static_cast<size_t>(m) * C_out + n;
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = __fadd_rn(__fmul_rn(__int2float_rn(cs[er * 16 + ec + e]), scale[n + e]),
-                           bias[n + e]);
-        if (res != nullptr) {
-          const uint2 r = *reinterpret_cast<const uint2*>(res + off);
-          const int8_t* rq = reinterpret_cast<const int8_t*>(&r);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = __fadd_rn(v[e], __fmul_rn(static_cast<float>(rq[e]), res_scale));
-        }
-        if (relu) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
-        }
-        if (int8_out) {
-          alignas(8) int8_t q[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            q[e] = static_cast<int8_t>(min(max(__float2int_rn(__fdiv_rn(v[e], out_scale)), -127), 127));
-          *reinterpret_cast<uint2*>(static_cast<int8_t*>(out) + off) =
-              *reinterpret_cast<const uint2*>(q);
-        } else {
-          float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + off);
-          o[0] = make_float4(v[0], v[1], v[2], v[3]);
-          o[1] = make_float4(v[4], v[5], v[6], v[7]);
-        }
-      }
-      __syncwarp();
     }
+
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&empty_bar[s], ((it / STAGES) & 1) ^ 1);
+      const int tap = it / k_chunks;
+      const int c0 = (it - tap * k_chunks) * BK;
+      const int dy = tap / 3, dx = tap - (tap / 3) * 3;
+      const int tap_off = (dy * S + dx) * C + c0;
+      const bool chunk_ok = c0 + chunk * 16 < C;
+      const uint32_t a_dst = smem_base + s * STAGE_BYTES + row0 * 128 + swz;
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full_bar[s], B_BYTES);
+        tma_load_2d(smem_base + s * STAGE_BYTES + A_BYTES, &w_map, &full_bar[s], tap * C + c0, n0);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool ok = chunk_ok && ((valid[i / 3] >> (9 * (i % 3) + tap)) & 1u);
+        cp_async16(a_dst + i * 16 * 128, ok ? x + (src[i] + tap_off) : x, ok);
+      }
+      cp_async_arrive(&full_bar[s]);
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<232>();
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    const int lane = tid & 31;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full_bar[s], (it / STAGES) & 1);
+      fence_proxy_async();  // the gathered rows were written through the generic proxy
+      const uint32_t a_tile = smem_base + s * STAGE_BYTES + wg * (64 * 128);
+      const uint32_t b_tile = smem_base + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_m64n256k32_ss_s8(acc, wgmma_desc_k8(a_tile, kk), wgmma_desc_k8(b_tile, kk),
+                               (it | kk) != 0);
+      wgmma_commit();
+      if (it > 0) {
+        wgmma_wait<1>();  // the group of stage it - 1 has read its operands
+        if (lane == 0) mbar_arrive(&empty_bar[(it - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+
+    bar_sync(1, 256);  // both consumers have left the ring
+    epilogue_i8::store_tile<1>(acc, smem + wg * (RING_BYTES / 2), 2 + wg, m0 + wg * 64, n0, M,
+                                  C_out, scale, bias, res, res_scale, relu, int8_out, out_scale, out);
   }
 }
 
@@ -254,11 +196,26 @@ extern "C" int tpuhar_conv3x3_i8(const void* x, const void* w, const void* scale
                                  int S, int So, int C, int C_out, int stride, int pad_lo,
                                  int relu, float res_scale, int int8_out, float out_scale,
                                  void* stream) {
-  const dim3 grid((C_out + BN - 1) / BN, (M + BM - 1) / BM);
-  conv3x3_i8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const int8_t*>(residual), out, M, S, So, C, C_out, stride, pad_lo, relu,
-      res_scale, int8_out, out_scale);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (C_out + BN - 1) / BN;
+  const long long blocks = static_cast<long long>((M + BM - 1) / BM) * n_tiles;
+  if (C % 32 != 0 || C_out % 32 != 0 || blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the weights as a (C_out, 9*C) int8 matrix, read in boxes of 256 channels x 128 K
+  // bytes that land in the 128-byte swizzle; rows past C_out and K past 9*C arrive as
+  // zeros
+  CUtensorMap w_map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(9) * C, static_cast<cuuint64_t>(C_out)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(9) * C};
+  const cuuint32_t box[2] = {BK, BN};
+  if (!encode_tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 2, dims, strides, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_i8_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const int8_t*>(residual), out, M, S, So, C,
+      C_out, stride, pad_lo, n_tiles, relu, res_scale, int8_out, out_scale, w_map);
   return static_cast<int>(cudaGetLastError());
 }

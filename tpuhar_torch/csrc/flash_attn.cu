@@ -355,7 +355,7 @@ bool operand_map(CUtensorMap* map, const Operand& t, int rows) {
   }
   const cuuint32_t r = rows;
   const cuuint32_t box[4] = {D, hi ? 1 : r, hi ? r : 1, 1};
-  return encode_tensor_map(map, t.base, 4, dims, strides, box);
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t.base, 4, dims, strides, box);
 }
 
 }  // namespace

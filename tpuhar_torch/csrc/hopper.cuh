@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of this
 // directory: mbarriers, TMA loads, cp.async with zero fill, the generic -> async proxy
-// fence, named barriers, register reallocation, wgmma (descriptors, fences, and the three
-// instruction shapes the kernels issue) and the host's tensor-map encoder. The device
-// side is inline PTX; nothing here launches.
+// fence, named barriers, register reallocation, ldmatrix, wgmma (descriptors, fences, and
+// the bf16 and int8 instruction shapes the kernels issue) and the host's tensor-map
+// encoder. The device side is inline PTX; nothing here launches.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,6 +89,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// four 8 x 16-byte matrices from shared memory: lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, from matrix i, bytes 4 (l % 4) .. +3 of its row l / 4 in r[i]
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem));
+}
+
 // ---- named barriers (id 0 is __syncthreads) and register reallocation ---------------
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -113,6 +121,12 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem, uint32_t lbo, uint
   return static_cast<uint64_t>((smem & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
+// 8-bit operands have no transpose bit: wgmma reads s8/u8 A and B K-major only. A tile of
+// 128-byte swizzled rows (one row per M or N index, 128 K values a row) is read in k-steps
+// of 32 bytes, step kk starting 32 kk bytes into the tile.
+__device__ __forceinline__ uint64_t wgmma_desc_k8(uint32_t tile, int kk) {
+  return wgmma_desc(tile + 32 * kk, 16, 1024);
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -126,9 +140,14 @@ __device__ __forceinline__ void wgmma_wait() {  // at most N groups still in fli
 
 // Accumulator layout of a 64 x N tile: thread t of the warpgroup (warp w = t / 32, lane l)
 // holds, for each 8-column group j, d[4j], d[4j+1] = row 16w + l/4, columns 8j + 2(l%4),
-// +1, and d[4j+2], d[4j+3] = the same columns of row 16w + l/4 + 8. The same layout,
-// packed to bf16 pairs, is the register A operand of a k-step over columns 16kk..16kk+15:
-// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]}.
+// +1, and d[4j+2], d[4j+3] = the same columns of row 16w + l/4 + 8 (f32, or s32 in the
+// int8 forms). The same layout, packed to bf16 pairs, is the register A operand of a
+// k-step over columns 16kk..16kk+15: {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
+// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]}. The int8 register A operand of a k-step
+// (32 K values) holds four bytes a register: a[0] = row 16w + l/4, K 4(l%4) .. +3; a[1]
+// the same K of row + 8; a[2], a[3] the same rows at K + 16: what ldmatrix_x4 gives from
+// the matrices (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15), (rows 0-7, bytes 16-31),
+// (rows 8-15, bytes 16-31) of the warp's 16 rows.
 
 // d (64 x 256, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 256, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
@@ -189,6 +208,124 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 256, s32) (+)= A (64 x 32, shared, K-major) * B (32 x 256, shared, K-major), int8
+__device__ __forceinline__ void wgmma_m64n256k32_ss_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 256, s32) (+)= A (64 x 32, registers) * B (32 x 256, shared, K-major), int8
+__device__ __forceinline__ void wgmma_m64n256k32_rs_s8(int (&d)[128], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 112, f32) (+)= A (64 x 16, registers) * B (16 x 112, shared, K-major)
 __device__ __forceinline__ void wgmma_m64n112k16_rs(float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b,
                                                 int accumulate) {
@@ -245,12 +382,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
 }
 
 // ---- host: tensor maps ---------------------------------------------------------------
-// A bf16 tensor of `rank` dimensions (innermost first; `strides` in bytes for dimensions
-// 1.., multiples of 16) read or written in boxes that lie in shared memory in the 128-byte
-// swizzle (box[0] = 64 elements = one 128-byte row). cuTensorMapEncodeTiled lives in
-// libcuda; its address comes from the runtime, so the library links against no stub of it.
-inline bool encode_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                              const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, or _UINT8 for any 8-bit type: TMA
+// copies bytes, and cuda.h has no signed 8-bit type) and `rank` dimensions (innermost
+// first; `strides` in bytes for dimensions 1.., multiples of 16) read or written in boxes
+// that lie in shared memory in the 128-byte swizzle (box[0] = one 128-byte row: 64 bf16
+// or 128 8-bit elements). cuTensorMapEncodeTiled lives in libcuda; its address comes from
+// the runtime, so the library links against no stub of it.
+inline bool encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -264,7 +403,7 @@ inline bool encode_tensor_map(CUtensorMap* map, const void* base, int rank, cons
     encode = reinterpret_cast<EncodeTiled>(p);
   }
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,195 +1,170 @@
-// uint8 patch-major stem GEMM on Hopper (sm_90a), int8 tensor cores.
+// uint8 patch-major stem GEMM on Hopper (sm_90a), int8 tensor cores through wgmma.
 //
 // Replaces the TPU kernel tpuhar/ops/stem.py: stem_gemm_u8_pallas (body `kernel`) and
 // its XLA twin stem_gemm_u8, which the JAX serving program runs:
 //   x   = max(u8, 1) ^ 0x80            (= clip(u8 - 128, -127, 127))
-//   acc = x @ w                         (int8 x int8, int32 accumulate; K = p*p*3 = 768)
+//   acc = x @ w.T                       (int8 x int8, int32 accumulate; K = p*p*3 = 768)
 //   y   = relu(acc * scale + bias)      (f32, per output channel)
 //   out = int8_out ? clip(rint(y / out_scale), -127, 127) : y
-// on u8 rows x (M, K), int8 weights w (K, C0), scale/bias (C0,) f32, out (M, C0).
+// on u8 rows x (M, K), int8 weights w (C0, K) (K-major: the transpose of the JAX
+// package's (K, C0), packed once by ops/stem.pack_stem_u8), scale/bias (C0,) f32,
+// out (M, C0).
 //
-// Design: a tiled GEMM. Each block owns 128 rows x 128 channels; its threads read the
-// rows as 16-byte vectors into registers, apply the byte map there four bytes at a
-// time (__vmaxu4 with 0x01010101, then an XOR with 0x80808080) and store the int8
-// codes to shared memory, so the map is never materialised in device memory. The K loop is
-// double-buffered through registers: the next chunk's loads are issued before this
-// chunk's MMAs (wmma s8 m16n16k16, int32 accumulators). In shared memory every 16-byte
-// column slab of a tile is stored contiguously, so each 16x16 fragment is 256
-// contiguous, 32-byte-aligned bytes (ld = 16). The epilogue uses the _rn intrinsics
-// (never contracted into an FMA), so it is bit-exact against the plain PyTorch version,
-// which runs the multiply, the add and the division as separate ops.
+// What bounds it: bytes. At batch 256 (802,816 rows) it reads 616 MB of pixels and
+// writes 205 MB of int8 codes, 0.25 ms at the card's memory rate, against 0.32 TOP, 0.16
+// ms at its int8 peak.
 //
-// What bounds it: not its bytes, although it was designed to be. At batch 256 (802,816
-// rows) it reads 616 MB of pixels, writes 205 MB of int8 codes and does
-// 2*802816*768*256 = 0.32 TOP. On an H100 SXM (700 W) that takes about 1.75 ms: 352 GB/s
-// of pixels (0.47 TB/s with the output), far below HBM bandwidth, and about 180 TOP/s,
-// far below the int8 tensor-core peak. Which part holds it back (wmma issue, the
-// register double-buffer, the second read of each row tile) has not been measured.
-// The n-tiles of one row tile are neighbours in the grid, so the second one reads the
-// rows from L2. TMA and wgmma are later work.
+// Design: a warp-specialised GEMM on the pieces of csrc/conv3x3_i8.cu. A tile is 128
+// rows x 256 channels (all of C0 = 256), so each pixel leaves device memory once. The
+// block is persistent, one an SM, and walks the tiles; it runs three warpgroups:
+//  - one producer thread (its warpgroup's registers cut to 40 by setmaxnreg) fills a
+//    ring of three 48 KB stages by TMA: a K chunk of 128 bytes is A, a 128 x 128 box of a
+//    2-D u8 map over the (M, K) pixels, and B, a 256 x 128 box of a 2-D int8 map over the
+//    (C0, K) weights, both in the 128-byte swizzle. 8-bit wgmma reads B K-major only,
+//    hence the (C0, K) layout. No thread spends an instruction on an address. The K loop
+//    is only six chunks, so the producer runs on into the next tile's chunks while the
+//    consumers drain the epilogue: on an H100 this was 8.5% faster than one block a tile
+//    with four stages and the epilogue in the freed ring.
+//  - two consumers (232 registers each) own 64 rows each. For each k-step they ldmatrix
+//    the raw bytes of their rows into the A-fragment registers, apply the byte map there
+//    (__vmaxu4 with 0x01010101, then an XOR with 0x80808080, four pixels an instruction)
+//    and issue wgmma m64n256k32 s8 with A from registers and B from shared memory (the RS
+//    form). So the map is never materialised, in device memory or in shared memory, and
+//    each pixel byte is read from shared memory once. The A registers are double-buffered
+//    so that one wgmma group stays in flight while the next stage is waited for.
+//    TMA fills rows past M and K columns past the map's extent with zero bytes, which the
+//    map turns into -127, not 0: rows past M are never stored, and the weights' K columns
+//    past K arrive as zeros too, so those products are -127 * 0.
+//  - epilogue (csrc/epilogue_i8.cuh), in two 128-channel halves through a region of each
+//    consumer's own beside the ring (the ring is busy with the next tile), with coalesced
+//    stores straight to device memory.
+// 144 KB of ring and 68 KB of epilogue staging: one block an SM.
+#include <cuda.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "epilogue_i8.cuh"
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int BM = 128;  // rows per block
-constexpr int BN = 128;  // output channels per block
-constexpr int BK = 64;   // K bytes per chunk
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 64 x 32 outputs per warp
-constexpr int FM = WM / 16, FN = WN / 16;
-// A tile: BK/16 slabs of BM rows x 16 bytes; B tile: BN/16 slabs of BK rows x 16
-// bytes. 32 bytes of padding per slab keep slabs 32-byte aligned and spread the
-// 16-byte stores of a quarter warp over the banks.
-constexpr int A_SLAB = BM * 16 + 32;
-constexpr int B_SLAB = BK * 16 + 32;
-constexpr int A_TILE = (BK / 16) * A_SLAB;
-constexpr int B_TILE = (BN / 16) * B_SLAB;
-constexpr int A_VECS = BM * BK / 16 / THREADS;  // 16-byte vectors per thread per chunk
-constexpr int B_VECS = BK * BN / 16 / THREADS;
-static_assert(A_VECS * THREADS * 16 == BM * BK, "A tile split");
-static_assert(B_VECS * THREADS * 16 == BK * BN, "B tile split");
+constexpr int BM = 128;  // rows per block: 64 per consumer warpgroup
+constexpr int BN = 256;  // output channels per block
+constexpr int BK = 128;  // K bytes per chunk: one 128-byte row, four wgmma k-steps
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;
+constexpr int A_BYTES = BM * BK;
+constexpr int B_BYTES = BN * BK;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int EPI_PARTS = 2;  // the epilogue's staging: half a tile at a time
+constexpr int EPI_BYTES = epilogue_i8::smem_bytes<EPI_PARTS>();
+constexpr int SMEM_BYTES = RING_BYTES + 2 * EPI_BYTES + 1024;  // + room to align to 1024
 
 // four pixels at once: max(u8, 1) ^ 0x80 per byte
 __device__ __forceinline__ uint32_t byte_map(uint32_t w) {
   return __vmaxu4(w, 0x01010101u) ^ 0x80808080u;
 }
 
-__global__ void __launch_bounds__(THREADS)
-stem_u8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               void* __restrict__ out, int M, int K, int C0, int relu,
-               int int8_out, float out_scale) {
-  __shared__ __align__(128) signed char As[2][A_TILE];
-  __shared__ __align__(128) signed char Bs[2][B_TILE];
-  __shared__ __align__(128) int Cs[WARPS_M * WARPS_N][16 * 16];
+// One K chunk of a consumer: its rows' bytes from the stage's A tile into `a` (the
+// ldmatrix address of this lane at k-step 0 is `a_lane`, the swizzle's XOR `a_swz`),
+// mapped, then four RS wgmmas against the stage's B tile, committed as one group.
+__device__ __forceinline__ void mma_chunk(int (&acc)[BN / 2], uint32_t (&a)[4][4], uint32_t a_lane,
+                                          int a_chunk, int a_swz, uint32_t b_tile, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 32; ++kk) {
+    ldmatrix_x4(a[kk], a_lane + (((2 * kk + a_chunk) ^ a_swz) << 4));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[kk][q] = byte_map(a[kk][q]);
+  }
+  wgmma_fence();  // the A registers were written by this thread
+#pragma unroll
+  for (int kk = 0; kk < BK / 32; ++kk)
+    wgmma_m64n256k32_rs_s8(acc, a[kk], wgmma_desc_k8(b_tile, kk), !(first && kk == 0));
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+stem_u8_kernel(const float* __restrict__ scale, const float* __restrict__ bias,
+               void* __restrict__ out, int M, int K, int C0, int n_tiles, int relu,
+               int int8_out, float out_scale, const __grid_constant__ CUtensorMap x_map,
+               const __grid_constant__ CUtensorMap w_map) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[STAGES], empty_bar[STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t smem_base = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int n0 = blockIdx.x * BN;  // n-tiles of one row tile run next to each other
-  const int m0 = blockIdx.y * BM;
+  const int wg = tid >> 7;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles;
+  const int steps = (K + BK - 1) / BK;
 
-  // vector i of a thread: A row a_row, 16-byte column a_kq; B row b_k, column slab b_nq
-  int a_row[A_VECS], a_kq[A_VECS], b_k[B_VECS], b_nq[B_VECS];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < A_VECS; ++i) {
-    const int idx = tid + i * THREADS;
-    a_row[i] = idx / (BK / 16);
-    a_kq[i] = idx % (BK / 16);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);  // the TMA's issuer
+      mbar_init(&empty_bar[s], 8);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
   }
-#pragma unroll
-  for (int i = 0; i < B_VECS; ++i) {
-    const int idx = tid + i * THREADS;
-    b_k[i] = idx / (BN / 16);
-    b_nq[i] = idx % (BN / 16);
-  }
-
-  uint4 ra[A_VECS], rb[B_VECS];
-  auto load = [&](int step) {
-    const int k0 = step * BK;
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int m = m0 + a_row[i];
-      ra[i] = m < M ? __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K +
-                                                           k0 + a_kq[i] * 16))
-                    : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int n = n0 + b_nq[i] * 16;
-      rb[i] = n < C0 ? __ldg(reinterpret_cast<const uint4*>(
-                           w + static_cast<size_t>(k0 + b_k[i]) * C0 + n))
-                     : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      uint4 v = ra[i];
-      v.x = byte_map(v.x);
-      v.y = byte_map(v.y);
-      v.z = byte_map(v.z);
-      v.w = byte_map(v.w);
-      *reinterpret_cast<uint4*>(&As[buf][a_kq[i] * A_SLAB + a_row[i] * 16]) = v;
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i)
-      *reinterpret_cast<uint4*>(&Bs[buf][b_nq[i] * B_SLAB + b_k[i] * 16]) = rb[i];
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int steps = K / BK;
-  load(0);
-  store(0);
   __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) load(step + 1);  // in flight during this chunk's MMAs
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], &As[buf][kk * A_SLAB + (wm * WM + i * 16) * 16], 16);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[buf][(wn * (WN / 16) + j) * B_SLAB + kk * 16 * 16], 16);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read in the previous step, before its closing barrier
-    if (step + 1 < steps) store(buf ^ 1);
-    __syncthreads();
-  }
 
-  // epilogue: each warp stages one 16x16 tile at a time; a lane then owns 8
-  // consecutive channels of one row
-  int* cs = Cs[warp];
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * WM + i * 16 + er;
-      const int n = n0 + wn * WN + j * 16 + ec;
-      if (m < M && n < C0) {  // C0 % 32 == 0, so n < C0 means n + 8 <= C0
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = __fadd_rn(__fmul_rn(__int2float_rn(cs[er * 16 + ec + e]), scale[n + e]),
-                           bias[n + e]);
-          if (relu) v[e] = fmaxf(v[e], 0.f);
-        }
-        const size_t off = static_cast<size_t>(m) * C0 + n;
-        if (int8_out) {
-          alignas(8) int8_t q[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            q[e] = static_cast<int8_t>(min(max(__float2int_rn(__fdiv_rn(v[e], out_scale)), -127), 127));
-          *reinterpret_cast<uint2*>(static_cast<int8_t*>(out) + off) =
-              *reinterpret_cast<const uint2*>(q);
-        } else {
-          float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + off);
-          o[0] = make_float4(v[0], v[1], v[2], v[3]);
-          o[1] = make_float4(v[4], v[5], v[6], v[7]);
+  if (wg == 2) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<40>();
+    if (tid == 256) {
+      int g = 0;  // K chunks issued so far, over all this block's tiles: the ring position
+      // n-tiles of one row tile are neighbours, so the second read of its pixels finds
+      // them in L2
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+        for (int it = 0; it < steps; ++it, ++g) {
+          const int s = g % STAGES;
+          mbar_wait(&empty_bar[s], ((g / STAGES) & 1) ^ 1);
+          const uint32_t dst = smem_base + s * STAGE_BYTES;
+          mbar_arrive_expect_tx(&full_bar[s], STAGE_BYTES);
+          tma_load_2d(dst, &x_map, &full_bar[s], it * BK, m0);
+          tma_load_2d(dst + A_BYTES, &w_map, &full_bar[s], it * BK, n0);
         }
       }
-      __syncwarp();
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<232>();
+    const int lane = tid & 31;
+    // ldmatrix: lane l addresses row l % 8 of matrix l / 8 (rows +8 for odd matrices,
+    // bytes +16 for the upper two) of its warp's 16 rows; the rows start on a multiple
+    // of 8, so the swizzle's XOR is the row's index within its group of 8
+    const int mi = lane >> 3, mr = lane & 7;
+    const int row = wg * 64 + ((tid & 127) >> 5) * 16 + (mi & 1) * 8 + mr;
+    uint8_t* epi = smem + RING_BYTES + wg * EPI_BYTES;
+    uint32_t a0[4][4], a1[4][4];
+    int g = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+      int acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      for (int it = 0; it < steps; ++it, ++g) {
+        const int s = g % STAGES;
+        mbar_wait(&full_bar[s], (g / STAGES) & 1);
+        const uint32_t stage = smem_base + s * STAGE_BYTES;
+        if (it & 1)
+          mma_chunk(acc, a1, stage + row * 128, mi >> 1, mr, stage + A_BYTES, false);
+        else
+          mma_chunk(acc, a0, stage + row * 128, mi >> 1, mr, stage + A_BYTES, it == 0);
+        if (it > 0) {
+          wgmma_wait<1>();  // the group of chunk g - 1 has read B and its A registers
+          if (lane == 0) mbar_arrive(&empty_bar[(g - 1) % STAGES]);
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty_bar[(g - 1) % STAGES]);  // the tile's last chunk
+      epilogue_i8::store_tile<EPI_PARTS>(acc, epi, 2 + wg, m0 + wg * 64, n0, M, C0, scale, bias,
+                                         nullptr, 0.f, relu, int8_out, out_scale, out);
     }
   }
 }
@@ -199,10 +174,30 @@ stem_u8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
 extern "C" int tpuhar_stem_u8(const void* x, const void* w, const void* scale,
                               const void* bias, void* out, int M, int K, int C0, int relu,
                               int int8_out, float out_scale, void* stream) {
-  const dim3 grid((C0 + BN - 1) / BN, (M + BM - 1) / BM);
-  stem_u8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, K, C0,
-      relu, int8_out, out_scale);
+  cudaError_t err = cudaFuncSetAttribute(stem_u8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (C0 + BN - 1) / BN;
+  const long long tiles = static_cast<long long>((M + BM - 1) / BM) * n_tiles;
+  if (K % 64 != 0 || C0 % 32 != 0 || tiles > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  // pixels (M, K) u8 and weights (C0, K) int8, both read in boxes of 128 K bytes that
+  // land in the 128-byte swizzle; rows past M or C0 and K past K arrive as zeros
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(C0)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t x_box[2] = {BK, BM}, w_box[2] = {BK, BN};
+  if (!encode_tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 2, x_dims, strides, x_box) ||
+      !encode_tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 2, w_dims, strides, w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stem_u8_kernel<<<static_cast<unsigned>(tiles < sms ? tiles : sms), THREADS, SMEM_BYTES,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, K, C0, n_tiles,
+      relu, int8_out, out_scale, x_map, w_map);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@ then the affine, residual and ReLU in f32); a CUDA tensor launches the bf16 kern
 ``conv3x3_i8`` is its int8 form, which also takes the place of the XLA int8 convs of
 the JAX package's quantized tower (its ``ops/quant.int8_conv``, stride 1 and 2):
 ``act(acc · scale + bias [+ residual · res_scale])``, requantized to int8 or stored
-f32. The CPU takes ``conv3x3_i8_reference``; a CUDA tensor launches the kernel of
-``csrc/conv3x3_i8.cu`` or raises.
+f32. The CPU takes ``conv3x3_i8_reference``; a CUDA tensor launches the ``wgmma`` s8
+kernel of ``csrc/conv3x3_i8.cu`` or raises.
 
 Each wrapper's ``.launches`` counts its kernel's launches. Unlike the TPU function
 there is no quiet fallback for shapes a kernel does not take.
@@ -196,6 +196,31 @@ def conv3x3_i8_reference(
     return y if out_scale is None else quantize_activations(y, out_scale)
 
 
+def check_conv3x3_i8_shapes(x_shape, w_shape, stride: int = 1, residual_shape=None) -> None:
+    """Raise ``ValueError`` on shapes the int8 kernel does not take: ``x`` is
+    ``(N, S, S, C)`` and the weights ``(C_out, 9·C)`` (``pack_conv3x3_i8``), with ``C``
+    and ``C_out`` multiples of 32 (a partial 128-byte row of channels is zero-filled in
+    the kernel), stride 1 or 2, the residual ``(N, S', S', C_out)`` with ``S' =
+    ⌈S / stride⌉``, and ``x`` indexable with 32-bit offsets."""
+    if len(x_shape) != 4:
+        raise ValueError(f"conv3x3_i8 kernel: x must be (N, S, S, C), got {tuple(x_shape)}")
+    N, S, S2, C = x_shape
+    if S != S2:
+        raise ValueError(f"conv3x3_i8 kernel: square planes only, got {(S, S2)}")
+    if len(w_shape) != 2 or w_shape[1] != 9 * C:
+        raise ValueError(f"conv3x3_i8 kernel: weights {tuple(w_shape)} != (C_out, {9 * C})")
+    C_out = w_shape[0]
+    if C % 32 or C_out % 32 or min(C, C_out) <= 0:
+        raise ValueError(f"conv3x3_i8 kernel: C={C} and C_out={C_out} must be multiples of 32")
+    if stride not in (1, 2):
+        raise ValueError(f"conv3x3_i8 kernel: stride {stride} is not 1 or 2")
+    So = -(-S // stride)
+    if residual_shape is not None and tuple(residual_shape) != (N, So, So, C_out):
+        raise ValueError(f"conv3x3_i8 kernel: residual {tuple(residual_shape)} != {(N, So, So, C_out)}")
+    if N * S * S * C >= 2**31:
+        raise ValueError(f"conv3x3_i8 kernel: x of {N * S * S * C} elements exceeds 2^31")
+
+
 def conv3x3_i8(
     x: torch.Tensor,
     w_packed: torch.Tensor,
@@ -228,8 +253,6 @@ def conv3x3_i8(
             x, w_packed, scale, bias, stride=stride, residual=residual,
             res_scale=res_scale, relu=relu, out_scale=out_scale,
         )
-    N, S, S2, C = x.shape
-    C_out = w_packed.shape[0]
     tensors = {"x": x, "w_packed": w_packed}
     if residual is not None:
         tensors["residual"] = residual
@@ -238,25 +261,15 @@ def conv3x3_i8(
             raise ValueError(f"conv3x3_i8 kernel: {name} must be a contiguous int8 CUDA tensor")
         if t.data_ptr() % 16:
             raise ValueError(f"conv3x3_i8 kernel: {name} must be 16-byte aligned")
-    if S != S2:
-        raise ValueError(f"conv3x3_i8 kernel: square planes only, got {(S, S2)}")
-    if C % 32 or C_out % 32:
-        raise ValueError(f"conv3x3_i8 kernel: C={C} and C_out={C_out} must be multiples of 32")
-    if tuple(w_packed.shape) != (C_out, 9 * C):
-        raise ValueError(f"conv3x3_i8 kernel: weights {tuple(w_packed.shape)} != {(C_out, 9 * C)}")
-    if stride not in (1, 2):
-        raise ValueError(f"conv3x3_i8 kernel: stride {stride} is not 1 or 2")
-    So = -(-S // stride)
-    if residual is not None:
-        if tuple(residual.shape) != (N, So, So, C_out):
-            raise ValueError(f"conv3x3_i8 kernel: residual {tuple(residual.shape)} != {(N, So, So, C_out)}")
-        if res_scale is None:
-            raise ValueError("conv3x3_i8 kernel: a residual needs its res_scale")
+    check_conv3x3_i8_shapes(x.shape, w_packed.shape, stride, None if residual is None else residual.shape)
+    if residual is not None and res_scale is None:
+        raise ValueError("conv3x3_i8 kernel: a residual needs its res_scale")
     if out_scale is not None and not out_scale > 0:
         raise ValueError(f"conv3x3_i8 kernel: out_scale must be positive, got {out_scale}")
+    N, S, _, C = x.shape
+    C_out = w_packed.shape[0]
+    So = -(-S // stride)
     M = N * So * So
-    if M >= 65535 * 128:
-        raise ValueError(f"conv3x3_i8 kernel: {M} output rows exceed the grid")
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     if scale.shape != (C_out,) or bias.shape != (C_out,):

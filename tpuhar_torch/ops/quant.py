@@ -38,7 +38,7 @@ from .conv3x3 import (  # noqa: F401 (int8_conv, quantize_activations: the plain
     pack_conv3x3_i8,
     quantize_activations,
 )
-from .stem import pack_stem_weights, stem_gemm_u8
+from .stem import pack_stem_u8, stem_gemm_u8
 
 
 def quantize_weights(w: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +185,9 @@ def quantized_tree_from_numpy(q: Dict, device="cpu") -> Dict:
     forwards' tree on ``device``.
 
     Each conv keeps ``w_q`` (int8 HWIO), ``w_scale`` and ``bias`` (f32) and gains
-    what its kernel takes, made once here: ``w_packed`` (the int8 GEMM matrix,
-    ``(p²·3, C0)`` for the stem, ``(C_out, 9·C)`` for a 3×3 conv) and, for 3×3 convs,
+    what its kernel takes, made once here: ``w_packed`` (the int8 GEMM matrix, K-major
+    as int8 ``wgmma`` reads it: ``(C0, p²·3)`` for the stem, ``pack_stem_u8``, and
+    ``(C_out, 9·C)`` for a 3×3 conv, ``pack_conv3x3_i8``) and, for 3×3 convs,
     ``x_scale`` (its input site's scale, a 0-d f32 tensor on ``device``) and ``xs_ws``
     (``x_scale · w_scale`` in f32, the rescale ``int8_conv`` applies). Site scales
     become Python floats that hold the exact f32 values.
@@ -202,7 +203,7 @@ def quantized_tree_from_numpy(q: Dict, device="cpu") -> Dict:
         }
 
     stem = leaves(q["stem"])
-    stem["w_packed"] = pack_stem_weights(stem["w_q"]).contiguous()
+    stem["w_packed"] = pack_stem_u8(stem["w_q"])
     out: Dict = {
         "act_scales": scales,
         "layout": (stages, blocks),

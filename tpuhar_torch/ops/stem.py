@@ -6,13 +6,16 @@ The host ships each clip patch-major, ``(..., H/p, W/p, p²·3)``, so that the
 ``stem_gemm_u8`` is the int8 serving stem on that wire: the byte map
 ``max(u8, 1) ^ 0x80`` gives the int8 codes ``clip(u8 − 128, −127, 127)`` (the JAX
 package's ``sub=128, clip_lo=-127``, the only map its int8 path uses), then the int8
-GEMM, ``acc · scale + bias``, ReLU and an optional requant to int8. A takes the plain path (``stem_gemm_u8_reference``); a CUDA tensor launches the kernel
-of ``csrc/stem_u8.cu``, the port of ``stem_gemm_u8_pallas`` and of its XLA twin
-``stem_gemm_u8``, or raises. ``stem_gemm_u8.launches`` counts the kernel's
+GEMM against the K-major ``(C0, K)`` weights (``pack_stem_u8``: int8 ``wgmma`` reads
+its B operand K-major only), ``acc · scale + bias``, ReLU and an optional requant to
+int8. A CPU tensor takes the plain path (``stem_gemm_u8_reference``); a CUDA tensor
+launches the kernel of ``csrc/stem_u8.cu``, the port of ``stem_gemm_u8_pallas`` and of
+its XLA twin ``stem_gemm_u8``, or raises. ``stem_gemm_u8.launches`` counts the kernel's
 launches. Only the uint8 wire is ported: the centered int8 wire is not.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -28,6 +31,13 @@ def pack_stem_weights(kernel_hwio):
     if p != p2:
         raise ValueError(f"square patch kernels only, got {tuple(kernel_hwio.shape)}")
     return kernel_hwio.reshape(p * p * cin, c0)
+
+
+def pack_stem_u8(kernel_hwio: torch.Tensor) -> torch.Tensor:
+    """``(p, p, C_in, C0)`` int8 HWIO kernel → the ``(C0, p²·C_in)`` matrix the uint8
+    stem kernel reads: the transpose of ``pack_stem_weights``, row ``n`` output channel
+    ``n``'s K run."""
+    return pack_stem_weights(kernel_hwio).T.contiguous()
 
 
 def to_patch_major(frames: np.ndarray, patch: int = 16) -> np.ndarray:
@@ -59,12 +69,12 @@ def stem_gemm_u8_reference(
     relu: bool = True,
     out_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain version: the byte map in uint8, the GEMM in float64 (exact: every
-    768-term int8 dot is below 2²⁴), then ``acc·scale + bias``, ReLU and, with
-    ``out_scale``, ``clip(round(y / out_scale), −127, 127)`` as int8."""
+    """Plain version: the byte map in uint8, the GEMM against ``w_packed`` ``(C0, K)``
+    in float64 (exact: every 768-term int8 dot is below 2²⁴), then ``acc·scale + bias``,
+    ReLU and, with ``out_scale``, ``clip(round(y / out_scale), −127, 127)`` as int8."""
     _check_wire(col_u8)
     x = torch.bitwise_xor(torch.clamp(col_u8, min=1), 0x80).view(torch.int8)
-    acc = (x.double() @ w_packed.double()).float()
+    acc = (x.double() @ w_packed.double().T).float()
     y = acc * scale.float() + bias.float()
     if relu:
         y = torch.relu(y)
@@ -72,6 +82,27 @@ def stem_gemm_u8_reference(
         return y
     s = torch.tensor(out_scale, dtype=torch.float32, device=y.device)
     return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+
+
+def check_stem_u8_shapes(col_shape, w_shape) -> None:
+    """Raise ``ValueError`` on shapes the uint8 stem kernel does not take: pixels
+    ``(..., K)`` against K-major weights ``(C0, K)`` (``pack_stem_u8``), ``K`` a multiple
+    of 64 and ``C0`` of 32."""
+    if len(w_shape) != 2 or len(col_shape) < 1:
+        raise ValueError(f"stem_u8 kernel: pixels (..., K) and weights (C0, K), got {tuple(col_shape)}, {tuple(w_shape)}")
+    C0, K = w_shape
+    if col_shape[-1] != K:
+        if col_shape[-1] == C0:
+            raise ValueError(
+                f"stem_u8 kernel: weights {tuple(w_shape)} look like (K, C0); K-major (C0, K) "
+                "expected (ops/stem.pack_stem_u8)"
+            )
+        raise ValueError(f"stem_u8 kernel: pixels {tuple(col_shape)} do not match weights (C0, K) = {(C0, K)}")
+    if K % 64 or C0 % 32 or min(K, C0) <= 0:
+        raise ValueError(f"stem_u8 kernel: K={K} must be a multiple of 64 and C0={C0} of 32")
+    M = math.prod(col_shape[:-1])
+    if M >= 2**31:
+        raise ValueError(f"stem_u8 kernel: {M} rows exceed 2^31")
 
 
 def stem_gemm_u8(
@@ -87,7 +118,7 @@ def stem_gemm_u8(
 
     Args:
       col_u8: ``(..., K)`` uint8 patch-major pixels (``to_patch_major``).
-      w_packed: ``(K, C0)`` int8 (``pack_stem_weights`` of the quantized kernel).
+      w_packed: ``(C0, K)`` int8 (``pack_stem_u8`` of the quantized kernel).
       scale, bias: ``(C0,)`` f32, applied as ``acc · scale + bias``.
       relu: apply ReLU.
       out_scale: requantize to int8 with this scale; ``None`` returns f32.
@@ -98,19 +129,14 @@ def stem_gemm_u8(
             col_u8, w_packed, scale, bias, relu=relu, out_scale=out_scale
         )
     _check_wire(col_u8)
-    K, C0 = w_packed.shape
     for name, t, dtype in (("col_u8", col_u8, torch.uint8), ("w_packed", w_packed, torch.int8)):
         if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"stem_u8 kernel: {name} must be a contiguous {dtype} CUDA tensor")
         if t.data_ptr() % 16:
             raise ValueError(f"stem_u8 kernel: {name} must be 16-byte aligned")
-    if col_u8.shape[-1] != K:
-        raise ValueError(f"stem_u8 kernel: pixels {tuple(col_u8.shape)} do not match weights {(K, C0)}")
-    if K % 64 or C0 % 32:
-        raise ValueError(f"stem_u8 kernel: K={K} must be a multiple of 64 and C0={C0} of 32")
+    check_stem_u8_shapes(col_u8.shape, w_packed.shape)
+    C0, K = w_packed.shape
     M = col_u8.numel() // K
-    if M >= 65535 * 128:
-        raise ValueError(f"stem_u8 kernel: {M} rows exceed the grid")
     if out_scale is not None and not out_scale > 0:
         raise ValueError(f"stem_u8 kernel: out_scale must be positive, got {out_scale}")
     scale = scale.to(device=col_u8.device, dtype=torch.float32).contiguous()
@@ -137,7 +163,8 @@ stem_gemm_u8.launches = 0
 
 def verify_byte_map(device) -> None:
     """Preflight: every uint8 value through ``stem_gemm_u8``'s byte map and an
-    identity-weight GEMM on ``device``, against ``clip(u8 − 128, −127, 127)``.
+    identity-weight GEMM (K = C0 = 256) on ``device``, against ``clip(u8 − 128, −127,
+    127)``.
 
     Raises ``RuntimeError`` on any mismatch. The JAX package's int8-space map once
     miscompiled on its backend for half the byte range; this proves the route that

@@ -31,7 +31,23 @@ Phases; any failed check raises and the exit code is non-zero:
    requests of raw NHWC clips, with the launch counts of that run;
 9. the same ViT parameters in f32 on the CPU (plain paths) at batch 1, against the card;
 10. step time, inferences/s and peak memory: bf16 and ViT at batch 8 and 256,
-    int8-resident at 8 and 256, the baseline int8 forward at 256.
+    int8-resident at 8 and 256, the baseline int8 forward at 256;
+11. the int8 tree the card serves against the one the CPU builds from the same
+    parameters and clips (every site's ``x_scale`` and ``w_q``, exactly);
+12. the flash-attention backward kernels (dK/dV and dQ) against autograd through the
+    plain attention on the card, with the forward's log-sum-exp, at the pretraining
+    shapes and the ragged tiny ones, with their times beside the plain backward, the
+    backward of ``F.scaled_dot_product_attention`` and the bound;
+13. cross-modal SigLIP pretraining of ``videomae_base`` at full width and depth
+    (``entry.build_pretrain_task(pretrain_config())``): ``CrossModalTrainer.fit`` over one
+    epoch of four seeded batches of 16 and one validation batch, with its launch counts
+    (12 flash forwards a forward, 12 launches of each backward kernel a train step),
+    finite losses, every parameter moved, and a checkpoint written and restored;
+14. the same first step at batch 4 against the plain path on the card (f32, attention
+    without flash, TF32 off), beside the bf16 step with the plain attention: the loss,
+    the SigLIP scalars' gradients and the whole gradient; and each of the step's flash
+    backwards against the plain f32 backward on its own operands;
+15. the train step's time at batch 16, samples/s and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -39,9 +55,11 @@ The line before the last is a JSON object with one entry per kernel; the last li
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,8 +67,15 @@ import torch.nn.functional as F
 
 from tpuhar_torch import _ext
 from tpuhar_torch.bridge import init_params, load_variables
-from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config, vit_config
-from tpuhar_torch.models.crossmodal import FusionClassifier
+from tpuhar_torch.entry import (
+    build_forward,
+    build_int8_forward,
+    build_pretrain_task,
+    flagship_config,
+    pretrain_config,
+    vit_config,
+)
+from tpuhar_torch.models.crossmodal import CrossModalModel, FusionClassifier
 from tpuhar_torch.models.video import VIT_CONFIGS
 from tpuhar_torch.ops.conv3x3 import (
     conv3x3_bn_act,
@@ -58,12 +83,25 @@ from tpuhar_torch.ops.conv3x3 import (
     conv3x3_i8,
     conv3x3_i8_reference,
 )
+from tpuhar_torch.ops import flash_lean as flash_lean_module
 from tpuhar_torch.ops.featurize import featurize_windows
-from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_reference
+from tpuhar_torch.ops.flash_lean import (
+    flash_lean,
+    flash_lean_backward,
+    flash_lean_backward_reference,
+    flash_lean_bwd_dkv,
+    flash_lean_bwd_dq,
+    flash_lean_reference,
+    flash_lean_with_stats,
+)
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
 from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
 from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, to_patch_major, verify_byte_map
-from tpuhar_torch.serving_quant import quantized_forward
+from tpuhar_torch.ops.video import normalize_clip
+from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
+from tpuhar_torch.train.checkpoint import restore_checkpoint
+from tpuhar_torch.train.loop import CrossModalTrainer
+from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
 CONV_RTOL = 2e-2  # bf16 out: |kernel - plain| / max |plain|
@@ -107,6 +145,53 @@ FLASH_RTOL = 1e-2
 # whole query tiles (384)
 FLASH_SHAPES = [(8, 12, 1568), (1, 12, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384)]
 FLASH_TIMED_SHAPE = (8, 12, 1568)
+# the flash backward, bf16 out: each of dq, dk, dv against autograd through the plain
+# attention, |kernel - plain| / max |plain|: P and dS round to bf16 before their products
+# (as on the TPU) and the plain version's gradients round to bf16 once; the log-sum-exp
+# of the forward against torch.logsumexp in f32, absolute (ex2.approx)
+FLASH_BWD_RTOL = 2e-2
+LSE_ATOL = 1e-3
+# (B, H, N): videomae_base at the pretraining batch 16, at 8 and 1, and the ragged tiny
+# shapes of the forward's cases
+FLASH_BWD_SHAPES = [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568)] + [s for s in FLASH_SHAPES if s[2] < 1568]
+FLASH_BWD_TIMED_SHAPE = (16, 12, 1568)
+SM_SCALE = 0.125  # 1/sqrt(64)
+# pretraining: one epoch of four batches of 16 (and one validation batch), the depth
+# cut to one epoch from the configuration's ten
+PRETRAIN_BATCH, PRETRAIN_TRAIN_BATCHES, PRETRAIN_EPOCHS = 16, 4, 1
+PRETRAIN_TIMED_STEPS = 5
+# the first step on the card (bf16, flash kernels) against the plain path on the card
+# (f32, attention without flash, TF32 off), batch 4, the same parameters, batch and
+# dropout masks:
+# - the loss, relative;
+# - the SigLIP scalars' gradients, sums over the B² pairs: the bias's Σ g_ij, the
+#   temperature's e^t·Σ g_ij·s_ij (g_ij = ∂loss/∂logit_ij, s_ij the cosine of pair ij),
+#   held to 5e-3 of Σ|g_ij| and e^t·Σ|g_ij|, the most their terms can weigh (|s_ij| ≤ 1).
+#   Relative to its own value the temperature's is ill-conditioned at init, where every
+#   s_ij is near 0 (~0.03): bf16's ~1e-3 error in the cosines moved it by 6%;
+# - the whole gradient, as one vector, by cosine: at least 0.8, a bound on its direction
+#   only. At init and batch 4 the step's gradients are ill-conditioned: the train-mode
+#   BatchNorm of the projection heads over 4 rows leaves them as small differences that
+#   any bf16 rounding moves, so no bf16 form of the step lands near f32 (on an H100 the
+#   same bf16 step with the plain attention, no hand kernel, had whole-gradient cosine
+#   0.943, 251 of its 260 leaves below 0.99, the lowest at 0.57; the JAX package's own
+#   bf16 step against its f32 step on the CPU, videomae_tiny, has 72 of 140 leaves below
+#   0.99 and one at 0.77). That yardstick's cosines and the card's, leaf by leaf, are
+#   printed, not held. The precision of the hand kernels is held by the next check, on the
+#   step's own operands;
+# - each of the step's flash backwards against the plain backward in f32 on that layer's
+#   own q, k, v and dO, relative as in the kernel phase. In f32: the plain backward in
+#   bf16 rounds dP to bf16 before dS = P∘(dP − di), and where attention is near uniform,
+#   as at init, dP − di is a small difference: it was 0.6-8.7% off the f32 backward on
+#   these operands, where the kernels keep dP in f32.
+# Leaves whose plain gradient RMS is below 1e-4 of the largest leaf's (a bias a
+# BatchNorm follows, the key bias of an attention: 0 in exact arithmetic) hold only
+# rounding noise and are listed, not compared.
+PRETRAIN_CHECK_BATCH = 4
+PRETRAIN_LOSS_RTOL = 2e-2
+SCALAR_GRAD_RTOL = 5e-3
+WHOLE_COSINE_MIN = 0.8
+GRAD_NOISE_FLOOR = 1e-4
 # the card's peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -356,6 +441,231 @@ def check_flash() -> dict:
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed, "shape": "(8, 12, 1568, 64) bf16"}
 
 
+def check_flash_backward() -> dict:
+    """The dK/dV and dQ kernels (and the forward's log-sum-exp they read) against
+    autograd through the plain attention, on (B, H, N, 64) bf16 views of (B, N, H·64)
+    buffers, as the ViT's attention hands them over; times at the pretraining shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
+    timed = None
+    for B, H, N in FLASH_BWD_SHAPES:
+        q, k, v, dout = (
+            torch.randn((B, N, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+            for _ in range(4)
+        )
+        out, lse, out_f32 = flash_lean_with_stats(q, k, v, SM_SCALE)
+        lse_err = (lse - torch.logsumexp((q.float() @ k.float().mT) * SM_SCALE, dim=-1)).abs().max().item()
+        if not torch.equal(out_f32.to(torch.bfloat16), out):
+            raise AssertionError(f"flash forward ({B}, {H}, {N}): the f32 output does not round to the bf16 one")
+        got = dict(zip(("dq", "dk", "dv"), flash_lean_backward(q, k, v, out_f32, dout, lse, SM_SCALE)))
+        want = dict(zip(("dq", "dk", "dv"), flash_lean_backward_reference(q, k, v, dout, SM_SCALE)))
+        errs = {}
+        for name in got:
+            err = (got[name].float() - want[name].float()).abs().max().item()
+            errs[name] = (err, err / want[name].float().abs().max().item())
+        print(f"[kernel] flash backward ({B}, {H}, {N}, 64) bf16: lse max abs diff {lse_err:.3e}; "
+              + ", ".join(f"{n} max abs diff {e:.3e} rel {r:.3e}" for n, (e, r) in errs.items()))
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"flash lse ({B}, {H}, {N}): max abs diff {lse_err} > {LSE_ATOL}")
+        for name, (err, rel) in errs.items():
+            if not rel <= FLASH_BWD_RTOL:
+                raise AssertionError(f"flash backward {name} ({B}, {H}, {N}): relative diff {rel} > {FLASH_BWD_RTOL}")
+            w = worst["dq" if name == "dq" else "dkv"]
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        del got, want
+        if (B, H, N) == FLASH_BWD_TIMED_SHAPE:
+            _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE)
+            dkv_ms = cuda_ms(lambda: flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE), 20)
+            dq_ms = cuda_ms(lambda: flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE), 20)
+            plain_ms = cuda_ms(lambda: flash_lean_backward_reference(q, k, v, dout, SM_SCALE), 3, warmup=1)
+            # one PyTorch call: the backward of SDPA alone, its graph kept from one forward
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), 20)
+            del o, leaves
+            product = 2 * B * H * N * N * 64  # one (N, N, 64) product per (batch, head)
+            tensor = q.numel() * 2  # bytes of one (B, H, N, 64) bf16 tensor
+            stat = lse.numel() * 4  # bytes of lse or di
+            # the whole backward (q, k, v, dO, the f32 o and lse in; dq, dk, dv out): S and
+            # dP once, then dV, dK and dQ. Each kernel alone: S, dP, dV, dK (q, k, v, dO, lse
+            # and di in; dk, dv out) and S, dP, dQ and di (q, k, v, dO, the f32 o and lse in;
+            # dq, di out)
+            b_fn = bound(9 * tensor + stat, {"bf16": 5 * product})
+            b_dkv = bound(6 * tensor + 2 * stat, {"bf16": 4 * product})
+            b_dq = bound(7 * tensor + 2 * stat, {"bf16": 3 * product})
+            print(
+                f"[kernel] flash backward ({B}, {H}, {N}, 64): dK/dV kernel {dkv_ms:.4f} ms "
+                f"({4 * product / dkv_ms / 1e9:.1f} TFLOP/s, bound {b_dkv['bound_ms']:.4f} ms), dQ kernel "
+                f"{dq_ms:.4f} ms ({3 * product / dq_ms / 1e9:.1f} TFLOP/s, bound {b_dq['bound_ms']:.4f} ms, "
+                f"di included); together {dkv_ms + dq_ms:.4f} ms against the function's bound "
+                f"{b_fn['bound_ms']:.4f} ms ({b_fn['bound_by']}); plain backward {plain_ms:.4f} ms; "
+                f"SDPA backward {library_ms:.4f} ms"
+            )
+            timed = {
+                "dkv": {"ms": dkv_ms, **b_dkv},
+                "dq": {"ms": dq_ms, **b_dq},
+                "common": {"plain_ms": plain_ms, "library_ms": library_ms,
+                           "function_bound_ms": b_fn["bound_ms"], "shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} bf16"},
+            }
+    return {
+        name: {"max_abs_err": worst[name][0], "max_rel_err": worst[name][1], **timed[name], **timed["common"]}
+        for name in ("dkv", "dq")
+    }
+
+
+def check_int8_tree_device(served: dict, params) -> None:
+    """The quantized tower that ``entry.build_int8_forward(device="cuda")`` serves
+    against the one the CPU builds (as the JAX package calibrates) from the same
+    parameters and calibration clips (``build_int8_forward``'s default: 2 clips of noise
+    from seed 0): every site's ``x_scale`` and ``w_q`` equal."""
+    cfg = flagship_config()
+    d = cfg.data
+    H, W = d.video_resize
+    clips = (np.random.default_rng(0).random((2, d.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+    trees = {"cuda": served, "cpu": build_quantized_tree(params, clips, device="cpu")}
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                yield from leaves(value, path + (str(key),))
+        elif isinstance(tree, (list, tuple)):
+            for i, value in enumerate(tree):
+                yield from leaves(value, path + (str(i),))
+        elif path and path[-1] in ("x_scale", "w_q"):
+            yield "/".join(path), tree
+
+    card, host = dict(leaves(trees["cuda"])), dict(leaves(trees["cpu"]))
+    if card.keys() != host.keys() or not card:
+        raise AssertionError(f"int8 trees differ in their sites: {sorted(card.keys() ^ host.keys())}")
+    differ = [name for name in card if not torch.equal(torch.as_tensor(card[name]).cpu(), torch.as_tensor(host[name]))]
+    n_scales = sum(name.endswith("x_scale") for name in card)
+    print(f"[int8 tree] served on the card vs built on the CPU: {n_scales} x_scale and {len(card) - n_scales} w_q leaves, "
+          f"{len(differ)} differ{': ' + ', '.join(differ) if differ else ''}")
+    if differ:
+        raise AssertionError(f"the card's int8 tree differs from the CPU's at {differ}")
+
+
+def pretrain_batches(cfg, n: int, batch: int, seed: int) -> list:
+    """Seeded training batches on the card: featurized IMU windows ``(B, 6, 250)`` from
+    raw counts and uint8 NHWC clips."""
+    d = cfg.data
+    H, W = d.video_resize
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(n):
+        raw = torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0
+        imu = featurize_windows_auto(raw, kernel_size=d.median_filter_kernel, normalize=d.normalize_imu,
+                                     racc=d.Racc, rgyro=d.Rgyro)
+        video = torch.randint(0, 256, (batch, d.video_frames_per_window, H, W, 3), generator=gen,
+                              device="cuda", dtype=torch.uint8)
+        batches.append({"imu": imu, "video": video})
+    return batches
+
+
+def first_step_grads(cfg, params, batch: dict, seed: int):
+    """The loss, every parameter's gradient (f32, by name) of one training forward and
+    backward from ``params`` on ``batch`` (dropout from a card generator of ``seed``),
+    and for each SigLIP scalar the most its per-pair terms can weigh: Σ|∂loss/∂logit_ij|
+    for the bias, e^t times that for the temperature."""
+    task = build_pretrain_task(cfg, device="cuda", params=params, steps_per_epoch=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    loss_fn = contrastive_loss_fn(cfg)
+    with precision_scope(cfg.training.pretrain_matmul_precision):
+        out = task.model.forward_cast(batch["imu"], normalize_clip(batch["video"]), train=True, generator=gen)
+        loss = loss_fn(out)
+        loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float()
+             for n, p in task.model.named_parameters()}
+    # one copy of the bias per pair: the gradient of each copy is ∂loss/∂logit_ij
+    B = out["imu_proj"].shape[0]
+    detached = {k: v.detach() for k, v in out.items()}
+    pairs = detached["logit_bias"].expand(B, B).clone().requires_grad_(True)
+    per_pair, = torch.autograd.grad(loss_fn({**detached, "logit_bias": pairs}), pairs)
+    weight = per_pair.abs().sum().item()
+    scales = {"bias": weight, "temperature": detached["logit_scale"].exp().item() * weight}
+    return loss.item(), grads, scales
+
+
+def gradient_agreement(grads: dict, grads_ref: dict, skip) -> tuple:
+    """(cosine of the whole gradients as one vector, the three lowest leaf cosines, how many
+    leaves are below 0.99), over the leaves not in ``skip``."""
+    names = [n for n in grads_ref if n not in skip]
+    whole = cosine(torch.cat([grads[n].flatten() for n in names]), torch.cat([grads_ref[n].flatten() for n in names]))
+    leaves = sorted((cosine(grads[n], grads_ref[n]), n) for n in names)
+    return whole, leaves[:3], sum(c < 0.99 for c, _ in leaves)
+
+
+def check_first_step(cfg_card, params, batch: dict) -> None:
+    """The card's first step (bf16, the flash kernels) against the plain path on the card
+    (f32, attention without flash, TF32 off) on the same parameters, batch and dropout,
+    beside the same bf16 step with the plain attention (no hand kernel) as the yardstick
+    of what bf16 itself moves; and each flash backward of the card's step against the
+    plain f32 backward on that layer's own q, k, v and dO."""
+    cfg_plain = pretrain_config()
+    cfg_plain.model.compute_dtype = "float32"
+    cfg_plain.model.use_flash_attention = False
+    cfg_bf16_plain = pretrain_config()
+    cfg_bf16_plain.model.use_flash_attention = False
+    # every flash backward of the card's step, held against the plain one on its operands
+    in_situ, plain_bf16 = [], []
+    original = flash_lean_module.flash_lean_backward
+
+    def rel(got, want):
+        return max((g.float() - w).abs().max().item() / w.abs().max().item() for g, w in zip(got, want))
+
+    def checked_backward(q, k, v, out_f32, dout, lse, sm_scale):
+        got = original(q, k, v, out_f32, dout, lse, sm_scale)
+        want = flash_lean_backward_reference(q.float(), k.float(), v.float(), dout.float(), sm_scale)
+        in_situ.append(rel(got, want))
+        plain_bf16.append(rel(flash_lean_backward_reference(q, k, v, dout, sm_scale), want))
+        return got
+
+    flash_lean_module.flash_lean_backward = checked_backward
+    try:
+        loss, grads, _ = first_step_grads(cfg_card, params, batch, seed=7)
+    finally:
+        flash_lean_module.flash_lean_backward = original
+    torch.cuda.empty_cache()
+    loss_bf16, grads_bf16, _ = first_step_grads(cfg_bf16_plain, params, batch, seed=7)
+    torch.cuda.empty_cache()
+    loss_ref, grads_ref, scales = first_step_grads(cfg_plain, params, batch, seed=7)
+    depth = VIT_CONFIGS[cfg_card.model.video_backbone][0]
+    print(f"[pretrain check] the card step's {len(in_situ)} flash backwards against the plain f32 backward "
+          f"on their own operands: relative diffs {', '.join(f'{r:.2e}' for r in in_situ)}; the plain bf16 "
+          f"backward's: {', '.join(f'{r:.2e}' for r in plain_bf16)}")
+    if len(in_situ) != depth or not max(in_situ) <= FLASH_BWD_RTOL:
+        raise AssertionError(f"in-situ flash backward: {in_situ} (expected {depth} within {FLASH_BWD_RTOL})")
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"[pretrain check] batch {batch['imu'].shape[0]} loss: card bf16 {loss:.6f}, bf16 with the plain "
+          f"attention {loss_bf16:.6f}, plain f32 {loss_ref:.6f}, rel {rel:.3e}")
+    if not rel <= PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"pretrain first-step loss: relative diff {rel} > {PRETRAIN_LOSS_RTOL}")
+    for name, weight in scales.items():
+        g, g_ref = grads[name].item(), grads_ref[name].item()
+        r = abs(g - g_ref) / weight
+        print(f"[pretrain check] grad {name}: card {g:.6e}, plain {g_ref:.6e}, diff over the most its terms "
+              f"can weigh ({weight:.6e}) {r:.3e}")
+        if not r <= SCALAR_GRAD_RTOL:
+            raise AssertionError(f"grad {name}: diff {r} of its terms' weight > {SCALAR_GRAD_RTOL}")
+    rms = {n: g.norm().item() / g.numel() ** 0.5 for n, g in grads_ref.items()}
+    floor = GRAD_NOISE_FLOOR * max(rms.values())
+    noise = [n for n in grads_ref if n not in scales and rms[n] <= floor]
+    skip = set(noise) | set(scales)
+    whole, lowest, below = gradient_agreement(grads, grads_ref, skip)
+    whole_bf16, lowest_bf16, below_bf16 = gradient_agreement(grads_bf16, grads_ref, skip)
+    for what, (w, low, n) in (("card bf16 (flash kernels)", (whole, lowest, below)),
+                              ("bf16 with the plain attention", (whole_bf16, lowest_bf16, below_bf16))):
+        print(f"[pretrain check] {what} vs plain f32: whole-gradient cosine {w:.6f}; {n} of "
+              f"{len(grads_ref) - len(skip)} leaves below 0.99, the lowest "
+              + ", ".join(f"{c:.4f} ({name})" for c, name in low))
+    between = gradient_agreement(grads, grads_bf16, skip)[0]
+    print(f"[pretrain check] card bf16 vs bf16 with the plain attention: whole-gradient cosine {between:.6f}")
+    print(f"[pretrain check] {len(noise)} leaves at the rounding floor (RMS <= {floor:.3e}), not compared: "
+          + ", ".join(noise))
+    if not whole >= WHOLE_COSINE_MIN:
+        raise AssertionError(f"whole-gradient cosine {whole} < {WHOLE_COSINE_MIN}")
+
+
 def request(seed: int, batch: int):
     """Seeded raw IMU counts and a uint8 clip, made patch-major on the host."""
     rng = np.random.default_rng(seed)
@@ -425,9 +735,25 @@ def main() -> None:
         "also_replaces": "tpuhar/ops/attention.py:72",
         **check_flash(),
     }
+    bwd = check_flash_backward()
+    kernels["flash_bwd_dkv"] = {
+        "name": "flash_bwd_dkv", "route": "cuda",
+        "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv) "
+                    "through tpuhar/ops/attention.py:72",
+        **bwd["dkv"],
+    }
+    kernels["flash_bwd_dq"] = {
+        "name": "flash_bwd_dq", "route": "cuda",
+        "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq) "
+                    "through tpuhar/ops/attention.py:72",
+        **bwd["dq"],
+    }
     counters = {
         "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
         "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "flash_lean": flash_lean,
+        "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
     }
 
     def drive(path: str, fn, requests, expected: dict, cfg) -> list:
@@ -493,11 +819,6 @@ def main() -> None:
         "flash_lean": 3 * VIT_CONFIGS[cfg_vit.model.video_backbone][0], "fused_window": 3,  # one per block
         "conv3x3_bn_act": 0, "stem_gemm_u8": 0, "conv3x3_i8": 0,
     }, cfg_vit)
-    for name, k in kernels.items():
-        k["launches"] = sum(k["launches_by_path"].values())
-        if k["launches"] <= 0:
-            raise AssertionError(f"no main path launched {name}")
-
     # the card's quantized tree and logit map on the CPU's plain paths, at batch 2
     q_cpu = tree_to(fn8.quantized_tree, "cpu")
     frames = video[:2].reshape(32, 14, 14, 768)
@@ -533,6 +854,89 @@ def main() -> None:
         print(f"[cross-check] vit {key}: card bf16 vs CPU f32 max abs diff {diff:.4e}, cosine {cos:.6f}")
         if not cos >= COSINE_MIN:
             raise AssertionError(f"vit {key}: cosine {cos} < {COSINE_MIN}")
+
+    check_int8_tree_device(fn8.quantized_tree, params)
+
+    # cross-modal pretraining at full width and depth, one epoch
+    cfg_pt = pretrain_config()
+    cfg_pt.training.pretrain_epochs = PRETRAIN_EPOCHS
+    t0 = time.perf_counter()
+    params_pt = init_params(cfg_pt, torch.Generator().manual_seed(0), CrossModalModel)
+    task = build_pretrain_task(cfg_pt, device="cuda", params=params_pt, steps_per_epoch=PRETRAIN_TRAIN_BATCHES)
+    print(f"[pretrain] videomae_base cross-modal model built (weights drawn on the host, f32 masters on the "
+          f"card): {time.perf_counter() - t0:.1f} s")
+    train_batches = pretrain_batches(cfg_pt, PRETRAIN_TRAIN_BATCHES, PRETRAIN_BATCH, seed=300)
+    val_batches = pretrain_batches(cfg_pt, 1, PRETRAIN_BATCH, seed=301)
+    initial = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    save_dir = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_pretrain"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    trainer = CrossModalTrainer(cfg_pt, task.state, task.train_step, task.eval_step, save_dir,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(train_batches, val_batches)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {name: counter.launches for name, counter in counters.items()}
+    for name, n in counts.items():
+        kernels[name].setdefault("launches_by_path", {})["pretrain"] = n
+    depth = VIT_CONFIGS[cfg_pt.model.video_backbone][0]
+    forwards = PRETRAIN_TRAIN_BATCHES + len(val_batches)
+    expected = {"flash_lean": depth * forwards, "flash_bwd_dkv": depth * PRETRAIN_TRAIN_BATCHES,
+                "flash_bwd_dq": depth * PRETRAIN_TRAIN_BATCHES, "fused_window": 0, "conv3x3_bn_act": 0,
+                "stem_gemm_u8": 0, "conv3x3_i8": 0}
+    history = trainer.history
+    print(f"[pretrain] fit: {PRETRAIN_TRAIN_BATCHES} train steps of batch {PRETRAIN_BATCH} and "
+          f"{len(val_batches)} validation batch in {fit_s:.1f} s (first steps included); train loss "
+          f"{history['train']}, val loss {history['val']}; launches {counts}")
+    for name, n in expected.items():
+        if counts[name] != n:
+            raise AssertionError(f"pretrain: {name} launched {counts[name]} times, expected {n}")
+    losses = history["train"] + history["val"]
+    if len(losses) != 2 * PRETRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"pretrain: losses {history}")
+    still = [n for n, p in task.model.named_parameters() if torch.equal(p, initial[n])]
+    if still:
+        raise AssertionError(f"pretrain: {len(still)} parameters did not move: {still}")
+    print(f"[pretrain] all {len(initial)} parameters moved; optimizer at step {task.state.optimizer.count}")
+    del initial
+    for name in ("last", "best_model"):
+        for suffix in (".pt", ".json"):
+            if not (save_dir / name).with_suffix(suffix).exists():
+                raise AssertionError(f"pretrain: checkpoint {name}{suffix} was not written")
+    restored = build_pretrain_task(cfg_pt, device="cuda", params=params_pt, steps_per_epoch=PRETRAIN_TRAIN_BATCHES)
+    _, extra = restore_checkpoint(save_dir / "last", restored.state)
+    trained = task.model.state_dict()
+    differ = [n for n, t in restored.model.state_dict().items() if not torch.equal(t, trained[n])]
+    if differ or restored.state.step != task.state.step or restored.state.optimizer.count != task.state.optimizer.count:
+        raise AssertionError(f"pretrain: the restored checkpoint differs at {differ}")
+    print(f"[pretrain] checkpoint 'last' (epoch {extra['epoch']}, best val loss {extra['best_val_loss']:.6f}) "
+          f"restored: every parameter, buffer and the optimizer's step equal")
+    del restored, trained
+    shutil.rmtree(save_dir, ignore_errors=True)
+    for name, k in kernels.items():
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] <= 0:
+            raise AssertionError(f"no main path launched {name}")
+
+    small = {key: t[:PRETRAIN_CHECK_BATCH] for key, t in train_batches[0].items()}
+    gen_dropout = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(PRETRAIN_TIMED_STEPS):
+        task.train_step(task.state, train_batches[i % len(train_batches)], gen_dropout)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / PRETRAIN_TIMED_STEPS * 1e3
+    print(f"[timing] pretrain train step batch {PRETRAIN_BATCH}: {step_ms:.3f} ms, "
+          f"{PRETRAIN_BATCH / step_ms * 1e3:.1f} samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del task, trainer, train_batches, val_batches
+    torch.cuda.empty_cache()
+    check_first_step(cfg_pt, params_pt, small)
+    del small
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     programs = {"bf16": fn, "int8_resident": fn8, "int8_baseline": fn8_base, "vit_bf16": fn_vit}

@@ -1,4 +1,5 @@
-"""The operand checks of the bf16 and int8 convs, the uint8 stem and the flash kernel, as
+"""The operand checks of the bf16 and int8 convs, the uint8 stem, the flash kernels
+(forward and backward) and the fused window featurizer, as
 pure functions of shapes, strides and addresses: what the Hopper kernels take and what
 the wrappers refuse before any launch. No device is needed; the kernels themselves are held against their plain
 versions on the card by ``tests/test_torch_kernels_cuda.py``."""
@@ -6,7 +7,14 @@ import pytest
 import torch
 
 from tpuhar_torch.ops.conv3x3 import check_conv3x3_i8_shapes, check_conv3x3_shapes, conv3x3_bn_act
-from tpuhar_torch.ops.flash_lean import HEAD_DIM, check_flash_operand, check_flash_scale, flash_lean
+from tpuhar_torch.ops.flash_lean import (
+    HEAD_DIM,
+    check_flash_grad_operands,
+    check_flash_operand,
+    check_flash_scale,
+    flash_lean,
+)
+from tpuhar_torch.ops.fused_window import check_fused_window_operand, median_taps
 from tpuhar_torch.ops.stem import check_stem_u8_shapes
 
 
@@ -189,3 +197,68 @@ def test_cpu_tensors_take_the_plain_paths_whatever_their_shape():
     assert flash_lean(q, q, q).shape == (1, 2, 9, 16)
     assert flash_lean(q, q, q, sm_scale=-0.25).shape == (1, 2, 9, 16)  # any scale on the CPU
     assert (conv3x3_bn_act.launches, flash_lean.launches) == launches
+
+
+@pytest.mark.parametrize("B,H,N", [(16, 12, 1568), (1, 1, 1), (2, 3, 100), (65535, 1, 5)])
+def test_flash_grad_operands_taken(B, H, N):
+    check_flash_grad_operands(B, H, N, {"lse": ((B, H, N), True), "di": ((B, H, N), True)})
+
+
+@pytest.mark.parametrize(
+    "B,H,N,stats,match",
+    [
+        (2, 3, 100, {"lse": ((2, 3, 99), True)}, "lse"),
+        (2, 3, 100, {"lse": ((2, 3, 100), True), "di": ((3, 2, 100), True)}, "di"),
+        (2, 3, 100, {"lse": ((2, 3, 100), False)}, "contiguous"),
+        (2, 3, 100, {"lse": ((2, 3, 100), True), "di": ((2, 3, 100), False)}, "contiguous"),
+        (65536, 1, 8, {"lse": ((65536, 1, 8), True)}, "grid"),
+        (1, 65536, 8, {"lse": ((1, 65536, 8), True)}, "grid"),
+        (1, 1, 0, {"lse": ((1, 1, 0), True)}, "grid"),
+    ],
+)
+def test_flash_grad_operands_refused(B, H, N, stats, match):
+    with pytest.raises(ValueError, match=match):
+        check_flash_grad_operands(B, H, N, stats)
+
+
+@pytest.mark.parametrize("k,taps", [(-1, 1), (0, 1), (1, 1), (2, 3), (3, 3), (4, 5), (5, 5), (30, 31), (31, 31)])
+def test_median_taps_as_the_plain_filter(k, taps):
+    assert median_taps(k) == taps
+
+
+@pytest.mark.parametrize(
+    "shape,k",
+    [((256, 250, 6), 5), ((3, 2048, 6), 3), ((1, 1, 6), 31), ((2, 100_000, 6), 7),
+     ((1, 9685, 6), 1_000_001), ((1, 50_000, 6), 8661)],
+)
+def test_fused_window_operand_taken(shape, k):
+    """Any window length and any kernel size the plain featurizer takes, as long as one
+    tile's span fits in shared memory (always for windows up to 9685 samples)."""
+    check_fused_window_operand(shape, torch.float32, True, k)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,contiguous,k,match",
+    [
+        ((2, 250, 6), torch.float64, True, 5, "float32"),
+        ((2, 250), torch.float32, True, 5, "3-D"),
+        ((2, 250, 3), torch.float32, True, 5, "contiguous"),
+        ((2, 250, 6), torch.float32, False, 5, "contiguous"),
+        ((0, 250, 6), torch.float32, True, 5, "contiguous"),
+        ((1, 50_000, 6), torch.float32, True, 8663, "shared memory"),
+    ],
+)
+def test_fused_window_operand_refused(shape, dtype, contiguous, k, match):
+    with pytest.raises(ValueError, match=match):
+        check_fused_window_operand(shape, dtype, contiguous, k)
+
+
+def test_flash_f32_operand_rows_of_16_bytes():
+    """The dQ kernel reads the forward's f32 output in 16-byte chunks: strides in
+    multiples of 4 elements are taken, others refused."""
+    check_flash_operand("out_f32", (2, 3, 100, 64), (19200, 64, 192, 1), 0, (2, 3, 100, 64), itemsize=4)
+    check_flash_operand("out_f32", (1, 1, 5, 64), (0, 0, 68, 1), 16, (1, 1, 5, 64), itemsize=4)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        check_flash_operand("out_f32", (1, 1, 5, 64), (0, 0, 66, 1), 0, (1, 1, 5, 64), itemsize=4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_flash_operand("out_f32", (1, 1, 5, 64), (0, 0, 68, 1), 8, (1, 1, 5, 64), itemsize=4)

@@ -47,10 +47,33 @@ def test_fused_window_matches_plain(cuda, B, T, kw):
     torch.testing.assert_close(got, featurize_windows(raw, **kw), rtol=0, atol=1e-5)
 
 
+# every kernel size the plain version takes (even ones bump to the next odd one; 0 and 1
+# are no filter), on the default window, a window past one 1024-sample tile, and a ragged
+# last tile whose medians reach across the tile's edge
+@pytest.mark.parametrize("k", [0, 2, 3, 7, 9, 31])
+@pytest.mark.parametrize("B,T", [(4, 250), (3, 2048), (2, 1500)])
+def test_fused_window_any_kernel_size_and_length(cuda, B, T, k):
+    raw = torch.from_numpy(np.random.default_rng(T + k).normal(0, 8000, (B, T, 6)).astype(np.float32)).to(cuda)
+    before = featurize_windows_auto.launches
+    got = featurize_windows_auto(raw, kernel_size=k)
+    assert featurize_windows_auto.launches == before + 1
+    torch.testing.assert_close(got, featurize_windows(raw, kernel_size=k), rtol=0, atol=1e-5)
+
+
+def test_fused_window_ties_and_zero_pads(cuda):
+    """Repeated values and windows shorter than the median: the rank search and the
+    implicit zero pads pick the plain version's median exactly."""
+    rng = np.random.default_rng(7)
+    raw = torch.from_numpy(rng.integers(-3, 4, (5, 9, 6)).astype(np.float32) * 1000).to(cuda)
+    for k in (3, 5, 7, 11, 25):
+        torch.testing.assert_close(
+            featurize_windows_auto(raw, kernel_size=k, normalize=False),
+            featurize_windows(raw, kernel_size=k, normalize=False), rtol=0, atol=0,
+        )
+
+
 def test_fused_window_refuses(cuda):
     raw = torch.zeros((2, 250, 6), device=cuda)
-    with pytest.raises(NotImplementedError):
-        featurize_windows_auto(raw, kernel_size=3)
     with pytest.raises(ValueError):
         featurize_windows_auto(raw.double())
     with pytest.raises(ValueError):
@@ -405,3 +428,112 @@ def test_vit_slice_on_card_matches_cpu_f32(cuda):
     for key in ("logits", "embeddings"):
         cos = torch.nn.functional.cosine_similarity(got[key].cpu().flatten(), want[key].flatten(), dim=0)
         assert cos.item() >= 0.99, key
+
+
+# the backward's shapes: videomae_base at the pretraining batch (16), at 8 and at 1, and
+# the ragged tiny shapes of the forward's cases (N below one 64-row tile, ragged, whole
+# tiles)
+FLASH_BWD_SHAPES = [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384)]
+
+
+@pytest.mark.parametrize("B,H,N", [(8, 12, 1568), (2, 3, 100), (1, 1, 1)])
+def test_flash_lse_matches_logsumexp(cuda, B, H, N):
+    """The forward's optional outputs: the log-sum-exp against ``torch.logsumexp`` of the
+    f32 scaled scores (1e-3 absolute: the kernel's exponentials are ``ex2.approx``), the
+    f32 output rounding to the bf16 one exactly, and the output bit for bit the one
+    ``flash_lean`` gives with null pointers."""
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_with_stats
+
+    q, k, v = _attention_case(B, H, N, cuda, strided=True)
+    out, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    want = torch.logsumexp((q.float() @ k.float().mT) * 0.125, dim=-1)
+    assert lse.shape == (B, H, N) and lse.dtype == torch.float32 and lse.is_contiguous()
+    assert (lse - want).abs().max().item() <= 1e-3
+    assert out_f32.dtype == torch.float32 and out_f32.transpose(1, 2).is_contiguous()
+    assert torch.equal(out_f32.to(torch.bfloat16), out)
+    assert torch.equal(out, flash_lean(q, k, v))
+
+
+@pytest.mark.parametrize("B,H,N", FLASH_BWD_SHAPES)
+def test_flash_backward_matches_plain(cuda, B, H, N):
+    """dq, dk and dv of the two kernels against autograd through the plain version on the
+    card: max |kernel − plain| / max |plain| ≤ 2e-2 each (bf16 out; P and dS round to
+    bf16 before their products, as on the TPU)."""
+    from tpuhar_torch.ops.flash_lean import (
+        flash_lean_backward,
+        flash_lean_backward_reference,
+        flash_lean_bwd_dkv,
+        flash_lean_bwd_dq,
+        flash_lean_with_stats,
+    )
+
+    q, k, v = _attention_case(B, H, N, cuda, strided=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn((B, N, H, 64), generator=gen, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    out, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    before = flash_lean_bwd_dkv.launches, flash_lean_bwd_dq.launches
+    got = flash_lean_backward(q, k, v, out_f32, dout, lse, 0.125)
+    assert (flash_lean_bwd_dkv.launches, flash_lean_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)  # the dQ kernel's rowsum(O∘dO)
+    torch.testing.assert_close(di, (out_f32 * dout.float()).sum(dim=-1), rtol=1e-5, atol=1e-4)
+    want = flash_lean_backward_reference(q, k, v, dout, 0.125)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == (B, H, N, 64) and g.dtype == torch.bfloat16, name
+        assert g.transpose(1, 2).is_contiguous(), name  # a (B, N, H, 64) buffer
+        rel = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel.item() <= 2e-2, (name, rel.item())
+
+
+def test_flash_function_gradients_through_attention(cuda):
+    """``FlashSelfAttention`` with grad enabled: one forward launch with the LSE and one
+    launch of each backward kernel, and its input gradient close to the plain
+    attention's on the same parameters."""
+    from tpuhar_torch.models.layers import MultiHeadDotProductAttention
+    from tpuhar_torch.ops.attention import FlashSelfAttention
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq
+
+    torch.manual_seed(0)
+    flash = FlashSelfAttention(192, 3).to(cuda, torch.bfloat16)
+    plain = MultiHeadDotProductAttention(192, 3).to(cuda, torch.bfloat16)
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn((2, 100, 192), device=cuda).to(torch.bfloat16)
+    grads = []
+    before = flash_lean.launches, flash_lean_bwd_dkv.launches, flash_lean_bwd_dq.launches
+    for module, args in ((flash, ()), (plain, (None,))):
+        xi = x.clone().requires_grad_(True)
+        out = module(xi) if not args else module(xi, xi)
+        out.float().square().sum().backward()
+        grads.append(xi.grad.float())
+    assert (flash_lean.launches, flash_lean_bwd_dkv.launches, flash_lean_bwd_dq.launches) == tuple(
+        n + 1 for n in before
+    )
+    cos = torch.nn.functional.cosine_similarity(grads[0].flatten(), grads[1].flatten(), dim=0)
+    assert cos.item() >= 0.99
+
+
+def test_flash_backward_refuses(cuda):
+    from tpuhar_torch.ops.flash_lean import flash_lean_bwd_dkv, flash_lean_bwd_dq, flash_lean_with_stats
+
+    q, k, v = _attention_case(1, 2, 64, cuda)
+    out, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    di = torch.zeros_like(lse)
+    # (dO, lse) into each kernel: dK/dV also reads di, dQ the forward's f32 output
+    calls = (lambda dout, lse: flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125),
+             lambda dout, lse: flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125))
+    for call in calls:
+        with pytest.raises(ValueError, match="bfloat16"):
+            call(out.float(), lse)
+        with pytest.raises(ValueError, match="float32"):
+            call(out, lse.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            call(out, lse.transpose(1, 2).contiguous().transpose(1, 2))
+        with pytest.raises(ValueError, match="broadcast"):
+            call(out[:, :1].expand(1, 2, 64, 64), lse)
+    with pytest.raises(ValueError, match="positive"):
+        flash_lean_bwd_dkv(q, k, v, out, lse, di, 0.0)
+    with pytest.raises(ValueError, match="positive"):
+        flash_lean_bwd_dq(q, k, v, out_f32, out, lse, 0.0)
+    with pytest.raises(ValueError, match="out_f32"):  # the bf16 output in place of the f32 one
+        flash_lean_bwd_dq(q, k, v, out, out, lse, 0.125)
+    with pytest.raises(ValueError, match="di"):
+        flash_lean_bwd_dkv(q, k, v, out, lse, di[:, :1], 0.125)

@@ -25,14 +25,15 @@ ATOL = 1e-4
 BATCH = 2
 
 
-def _config():
+def _config(gelu_from_vit_config: bool = True):
     from __graft_entry__ import _flagship_config
 
     cfg = _flagship_config(tiny=True)
     serving = vit_config().model
     m = cfg.model
     m.compute_dtype = "float32"
-    m.gelu_approximate = serving.gelu_approximate
+    if gelu_from_vit_config:
+        m.gelu_approximate = serving.gelu_approximate
     m.use_flash_attention, m.flash_kernel = serving.use_flash_attention, serving.flash_kernel
     return cfg
 
@@ -57,4 +58,24 @@ def test_vit_forward_matches_jax(fold):
     assert set(got) == set(want) == {"logits", "msp", "energy", "embeddings"}
     for key, value in want.items():
         assert tuple(got[key].shape) == value.shape and got[key].dtype == torch.float32, key
+        np.testing.assert_allclose(got[key].numpy(), value, atol=ATOL, rtol=0, err_msg=key)
+
+
+def test_vit_forward_serves_the_tanh_gelu_at_the_default_flag():
+    """``gelu_approximate`` left at its default (False) on both sides: the reference
+    serves every ViT backbone with the tanh GELU, on a copy of the config, and so must
+    ``build_forward``; the caller's config is left as it was."""
+    from __graft_entry__ import _build_forward
+
+    cfg = _config(gelu_from_vit_config=False)
+    assert cfg.model.gelu_approximate is False
+    jax_fn, (_, video_example) = _build_forward(cfg, BATCH)
+    rng = np.random.default_rng(1)
+    imu = rng.normal(0, 8000.0, (BATCH, 250, 6)).astype(np.float32)
+    video = rng.integers(0, 256, video_example.shape, dtype=np.uint8)
+    want = {k: np.asarray(v) for k, v in jax.jit(jax_fn)(imu, video).items()}
+    fn, _ = build_forward(cfg, BATCH, device="cpu", params=jax.device_get(jax_fn._variables_prefold))
+    got = fn(torch.from_numpy(imu), torch.from_numpy(video))
+    assert cfg.model.gelu_approximate is False
+    for key, value in want.items():
         np.testing.assert_allclose(got[key].numpy(), value, atol=ATOL, rtol=0, err_msg=key)

@@ -29,8 +29,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # entry point -> argtypes; every pointer and the stream are c_void_p, so a 64-bit
 # address is never cut to a 32-bit int
 SIGNATURES = {
-    # raw, out, B, T, C, acc_scale, gyro_scale, medfilt, normalize, stream
-    "tpuhar_fused_window": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    # raw, out, B, T, C, acc_scale, gyro_scale, median taps, tile, normalize, stream
+    "tpuhar_fused_window": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # x, w, scale, bias, residual, out, M, S, C, C_out, relu, stream
     "tpuhar_conv3x3_bn_act": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream
@@ -40,9 +40,16 @@ SIGNATURES = {
     "tpuhar_conv3x3_i8": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P,
     ),
-    # q, k, v, out, B, H, N, sm_scale, then the (batch, head, token) element strides
-    # of q, k, v and out, stream
-    "tpuhar_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _F, *(_L,) * 12, _P),
+    # q, k, v, out, lse and out in f32 (both null on the serving path), B, H, N, sm_scale,
+    # then the (batch, head, token) element strides of q, k, v and out (out in f32 has
+    # out's), stream
+    "tpuhar_flash_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *(_L,) * 12, _P),
+    # q, k, v, dO, lse, di, dk, dv, B, H, N, sm_scale, then the (batch, head, token)
+    # element strides of q, k, v, dO, dk and dv, stream
+    "tpuhar_flash_bwd_dkv": (*(_P,) * 8, _I, _I, _I, _F, *(_L,) * 18, _P),
+    # q, k, v, o (f32), dO, lse, di (written), dq, B, H, N, sm_scale, the strides of q, k,
+    # v, o, dO and dq, stream
+    "tpuhar_flash_bwd_dq": (*(_P,) * 8, _I, _I, _I, _F, *(_L,) * 18, _P),
 }
 
 

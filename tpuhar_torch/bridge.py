@@ -14,14 +14,15 @@ names, so the tree maps onto it by name:
   BatchNorm ``scale``/``bias``/``mean``/``var``, the IMU ``PatchEmbedding``
   ``kernel (C, P, D)``/``bias (C, 1, D)``, ``cls_token``, ``pos_encoding``.
 
-``fold_normalization`` (``ops/fold.py``) rewrites the same tree. This module imports
-no JAX.
+``fold_normalization`` (``ops/fold.py``) rewrites the same tree. ``variables_to_numpy``
+and ``grads_to_numpy`` take a model's tensors and gradients back to that layout. This
+module imports no JAX.
 """
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,7 +86,7 @@ def load_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             value = _linear_value(mod, name, value, key)
         if tuple(value.shape) != tuple(t.shape):
             raise ValueError(f"{'/'.join(key)}: shape {value.shape} != {tuple(t.shape)}")
-        t.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        t.copy_(torch.from_numpy(value.copy(order="C")))  # 0-d stays 0-d
     return model
 
 
@@ -107,7 +108,9 @@ def _linear_value(mod: nn.Linear, name: str, value: np.ndarray, key) -> np.ndarr
 
 def _draw(mod: nn.Module, name: str, shape: Tuple[int, ...], generator: torch.Generator) -> np.ndarray:
     t = torch.empty(shape, dtype=torch.float32)
-    if name == "kernel":  # lecun_normal, fan_in = every axis but the output one
+    if name in getattr(mod, "init_values", {}):  # a constant the module declares
+        t.fill_(mod.init_values[name])
+    elif name == "kernel":  # lecun_normal, fan_in = every axis but the output one
         std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
         nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     elif name in ("cls_token", "pos_encoding"):  # normal, σ as the module declares it
@@ -121,17 +124,19 @@ def _draw(mod: nn.Module, name: str, shape: Tuple[int, ...], generator: torch.Ge
     return t.numpy()
 
 
-def init_params(config, generator: torch.Generator) -> Dict:
-    """A fresh flax-layout variable tree for ``FusionClassifier(config)``, drawn
-    from ``generator`` with flax's initialisers and in flax's leaf shapes: truncated
-    lecun-normal kernels (a ``DenseGeneral``'s drawn as its ``(in, out)`` matrix, as
-    flax draws it), zero biases, LayerNorm 1/0, ``cls_token``/``pos_encoding`` ~
-    N(0, σ) with the module's ``init_std`` (σ = 1 unless it says otherwise),
-    BatchNorm scale/bias 1/0 and running stats 0/1. Values are f32 numpy arrays."""
+def init_params(config, generator: torch.Generator, model_cls: Optional[type] = None) -> Dict:
+    """A fresh flax-layout variable tree for ``model_cls(config)`` (default
+    ``FusionClassifier``; ``CrossModalModel`` for pretraining), drawn from ``generator``
+    with flax's initialisers and in flax's leaf shapes: truncated lecun-normal kernels (a
+    ``DenseGeneral``'s drawn as its ``(in, out)`` matrix, as flax draws it), zero biases,
+    LayerNorm 1/0, ``cls_token``/``pos_encoding`` ~ N(0, σ) with the module's
+    ``init_std`` (σ = 1 unless it says otherwise), BatchNorm scale/bias 1/0 and running
+    stats 0/1, and the constants a module declares in ``init_values`` (the SigLIP
+    ``temperature`` log 10 and ``bias`` −10). Values are f32 numpy arrays."""
     from .models.crossmodal import FusionClassifier
 
     with torch.device("meta"):  # shapes only; nothing is allocated
-        model = FusionClassifier(config, dtype=torch.float32)
+        model = (model_cls or FusionClassifier)(config, dtype=torch.float32)
     variables = {"params": {}, "batch_stats": {}}
     for key, mod, name, t, is_param in _tensors(model):
         shape = tuple(t.shape)
@@ -141,3 +146,32 @@ def init_params(config, generator: torch.Generator) -> Dict:
         value = value.reshape(getattr(mod, "flax_shapes", {}).get(key[-1], value.shape))
         _put(variables["params" if is_param else "batch_stats"], key, value)
     return variables
+
+
+def _to_flax(mod: nn.Module, name: str, leaf: str, value: np.ndarray) -> np.ndarray:
+    """A tensor of the port in its flax leaf's layout: the inverse of ``load_variables``."""
+    if isinstance(mod, nn.Linear) and name == "weight":
+        value = value.T
+    shape = getattr(mod, "flax_shapes", {}).get(leaf)
+    return (value.reshape(shape) if shape else value).copy(order="C")
+
+
+def variables_to_numpy(model: nn.Module) -> Dict:
+    """The model's parameters and buffers as a flax-layout tree ``{"params": ...,
+    "batch_stats": ...}`` of f32 numpy arrays (``load_variables`` reads it back)."""
+    tree = {"params": {}, "batch_stats": {}}
+    for key, mod, name, t, is_param in _tensors(model):
+        value = _to_flax(mod, name, key[-1], t.detach().float().cpu().numpy())
+        _put(tree["params" if is_param else "batch_stats"], key, value)
+    return tree
+
+
+def grads_to_numpy(model: nn.Module) -> Dict:
+    """The parameters' ``.grad`` as a flax-layout params tree of f32 numpy arrays, as
+    ``jax.grad`` gives it; a parameter without a gradient gives zeros."""
+    tree = {}
+    for key, mod, name, t, is_param in _tensors(model):
+        if is_param:
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            _put(tree, key, _to_flax(mod, name, key[-1], g.detach().float().cpu().numpy()))
+    return tree

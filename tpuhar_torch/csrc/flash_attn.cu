@@ -53,6 +53,16 @@
 //    past N (on a ragged last item) hands its tiles straight back.
 //  - O * (1 / l) in f32, rounded to bf16, is staged through the warp's own 16 rows of an
 //    O tile, so each row leaves as 16-byte stores; ragged Q rows are not stored.
+//  - Training passes two more outputs, for the backward kernels (csrc/flash_attn_bwd.cu):
+//    `lse`, each row's log-sum-exp of the scaled scores, m * sm_scale + ln(l) in f32, at
+//    lse[(b * H + h) * N + row], which they recompute P from; and `o32`, O * (1 / l) in
+//    f32 before its rounding to bf16, through the element strides of `o`, which the dQ
+//    kernel forms di = rowsum(O o dO) from (from the bf16 O, di is off by the rounding,
+//    and where attention is near uniform dP - di is a small difference that this moves
+//    by percents). The serving path passes nulls and stores nothing more; O is computed
+//    the same either way. The stores are compiled in one instantiation of the kernel
+//    (kStats), picked on the host from the pointers, so the serving form's code is the
+//    forward-only kernel's, register allocation included.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,8 +103,10 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x on the special-function 
   return y;
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_kernel(__nv_bfloat16* __restrict__ o, int H, int N, int q_tiles, int items,
+flash_attn_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ lse, float* __restrict__ o32,
+                  int H, int N, int q_tiles, int items,
                   float scale_log2, Strides so, int heads_inner,
                   const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
@@ -305,6 +317,29 @@ flash_attn_kernel(__nv_bfloat16* __restrict__ o, int H, int N, int q_tiles, int 
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
       }
       const float inv_l[2] = {1.f / l_run[0], 1.f / l_run[1]};
+      if (kStats && (lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + wg * 64 + r0 + 8 * r;
+          // ln(sum_j e^(s_j sm_scale)) = (m scale_log2 + log2 l) ln 2
+          if (row < N)
+            lse[static_cast<long long>(bh) * N + row] =
+                (m_run[r] * scale_log2 + log2f(l_run[r])) * 0.69314718055994531f;
+        }
+      }
+      if constexpr (kStats) {
+        float* ob32 = o32 + b * so.b + h * so.h;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + wg * 64 + r0 + 8 * r;
+          if (row < N) {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+              *reinterpret_cast<float2*>(ob32 + row * so.n + 8 * j + 2 * (lane & 3)) =
+                  make_float2(acc[4 * j + 2 * r] * inv_l[r], acc[4 * j + 2 * r + 1] * inv_l[r]);
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int within = 4 * (lane & 3);  // byte offset of this thread's pair in the chunk
@@ -361,7 +396,7 @@ bool operand_map(CUtensorMap* map, const Operand& t, int rows) {
 }  // namespace
 
 extern "C" int tpuhar_flash_attn(const void* q, const void* k, const void* v, void* out,
-                                 int B, int H, int N, float sm_scale,
+                                 void* lse, void* o32, int B, int H, int N, float sm_scale,
                                  long long sqb, long long sqh, long long sqn,
                                  long long skb, long long skh, long long skn,
                                  long long svb, long long svh, long long svn,
@@ -376,7 +411,10 @@ extern "C" int tpuhar_flash_attn(const void* q, const void* k, const void* v, vo
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(flash_attn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_attn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     sms_of[device] = sms;
@@ -393,8 +431,12 @@ extern "C" int tpuhar_flash_attn(const void* q, const void* k, const void* v, vo
   const int order = heads_inner(qt) | heads_inner(kt) << 1 | heads_inner(vt) << 2;
   const float scale_log2 = sm_scale * 1.4426950408889634f;  // log2(e)
   const int blocks = items < sms ? static_cast<int>(items) : sms;
-  flash_attn_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(out), H, N, q_tiles, static_cast<int>(items), scale_log2,
-      Strides{sob, soh, son}, order, q_map, k_map, v_map);
+  // lse and o32 come together (training) or not at all (serving)
+  if ((lse == nullptr) != (o32 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lse != nullptr ? flash_attn_kernel<true> : flash_attn_kernel<false>;
+  kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), static_cast<float*>(o32), H, N,
+      q_tiles, static_cast<int>(items), scale_log2, Strides{sob, soh, son}, order, q_map, k_map,
+      v_map);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""The serving forwards of the port (twins of ``__graft_entry__._build_forward``).
+"""The entry points of the port: the serving forwards (twins of
+``__graft_entry__._build_forward``) and the pretraining task.
 
 Raw IMU counts ``(B, 250, 6)`` and a uint8 clip go through the fused window
 featurizer, the IMU transformer, the video tower (ImageNet normalization folded into
@@ -8,10 +9,12 @@ runs the tower in the compute dtype: the flagship's ``tpu_cnn`` (``flagship_conf
 the clip shipped patch-major) or the ``videomae_base`` ViT (``vit_config``, the clip
 NHWC, attention through the flash kernel); ``build_int8_forward`` runs the ``tpu_cnn``
 tower's int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
-reports as its headline.
+reports as its headline. ``build_pretrain_task`` builds the cross-modal SigLIP
+pretraining of ``pretrain_config`` (``tpuhar/cli.py: Pipeline.run_pretraining``).
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -19,12 +22,13 @@ import torch
 
 from .bridge import init_params, load_variables
 from .config import Config
-from .models.crossmodal import FusionClassifier
+from .models.crossmodal import CrossModalModel, FusionClassifier
 from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import to_patch_major
 from .ops.video import prepare_clip
+from .train.factory import build_crossmodal_task
 
 
 def flagship_config(compute_dtype: str = "bfloat16"):
@@ -58,6 +62,34 @@ def vit_config(compute_dtype: str = "bfloat16"):
     return cfg
 
 
+def pretrain_config():
+    """The pretraining stage's configuration: ``Config()`` (``videomae_base``, bf16
+    compute with f32 parameters, BatchNorm projection heads, the exact-erf GELU that
+    training keeps, IMU dropout 0.1, SigLIP with trainable scalars, batch 16, AdamW at
+    1e-4 with weight decay 0.01, clipping at 1.0) with the flash attention of the stock
+    Pallas kernel (``flash_kernel="library"``, the one whose backward the TPU runs) and
+    weights drawn from a seed (``video_pretrained=False``)."""
+    cfg = Config()
+    m = cfg.model
+    m.use_flash_attention = True
+    m.flash_kernel = "library"
+    m.video_pretrained = False
+    return cfg
+
+
+def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int):
+    """The pretraining task of ``cfg`` on ``device`` (``train/factory.Task``: the model
+    with f32 master weights, its ``TrainState`` and ``train_step``/``eval_step``).
+
+    ``params`` is a flax-layout variable tree of ``CrossModalModel`` (``None`` draws one
+    with ``init_params`` from ``torch.Generator().manual_seed(seed)``);
+    ``steps_per_epoch`` sets the schedule. Batches are ``{"imu": (B, C, T) featurized f32,
+    "video": (B, T, H, W, 3) uint8}`` on ``device``."""
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed), CrossModalModel)
+    return build_crossmodal_task(cfg, steps_per_epoch, params, device=device)
+
+
 def build_forward(
     cfg,
     batch: int,
@@ -75,8 +107,14 @@ def build_forward(
     ``init_params`` from ``torch.Generator().manual_seed(seed)``. With
     ``fold_normalize`` the clip is consumed raw: patch-major ``(B, T, H/16, W/16,
     768)`` for a ``tpu_cnn`` tower, NHWC ``(B, T, H, W, 3)`` for a ViT; unfolded, it
-    is NHWC and normalized on the device.
+    is NHWC and normalized on the device. A ViT backbone (any name with ``/`` or
+    ``videomae``) serves with the tanh GELU, as ``__graft_entry__._build_forward`` and
+    ``InferenceEngine`` serve it: the override is made on a copy of ``cfg``.
     """
+    bb = cfg.model.video_backbone
+    if "/" in bb or "videomae" in bb.lower():
+        cfg = copy.deepcopy(cfg)
+        cfg.model.gelu_approximate = True
     d = cfg.data
     dtype = getattr(torch, cfg.model.compute_dtype)
     if params is None:

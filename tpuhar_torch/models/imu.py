@@ -39,7 +39,8 @@ class IMUTransformerEncoder(nn.Module):
 
     Returns ``(cls_embedding (B, D) f32, tokens (B, 1 + C·N, D))``.
     ``replicate_pos_truncation`` reproduces quirk Q1: the table is sized
-    ``N + 1`` and the token stream is cut to it.
+    ``N + 1`` and the token stream is cut to it. ``dropout`` acts in the blocks with
+    ``train=True``, its masks drawn from ``generator``.
     """
 
     def __init__(
@@ -52,6 +53,7 @@ class IMUTransformerEncoder(nn.Module):
         num_heads: int = 8,
         num_layers: int = 4,
         replicate_pos_truncation: bool = False,
+        dropout: float = 0.0,
         *,
         dtype=torch.float32,
     ):
@@ -64,18 +66,19 @@ class IMUTransformerEncoder(nn.Module):
         self.pos_encoding = nn.Parameter(torch.empty(1, pos_len, d_model, dtype=dtype), requires_grad=False)
         for i in range(num_layers):
             self.add_module(
-                f"block{i}", TransformerEncoderBlock(d_model, num_heads, 4 * d_model, dtype=dtype)
+                f"block{i}",
+                TransformerEncoderBlock(d_model, num_heads, 4 * d_model, dropout=dropout, dtype=dtype),
             )
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False, generator=None):
         patches = self.patch_embed(x)
         B, C, N, D = patches.shape
         tokens = torch.cat([self.cls_token.expand(B, 1, D), patches.reshape(B, C * N, D)], dim=1)
         pos_len = min(tokens.shape[1], self.pos_encoding.shape[1])
         tokens = tokens[:, :pos_len] + self.pos_encoding[:, :pos_len]
         for i in range(self.num_layers):
-            tokens = getattr(self, f"block{i}")(tokens)
+            tokens = getattr(self, f"block{i}")(tokens, train=train, generator=generator)
         tokens = self.final_norm(tokens)
         return tokens[:, 0].float(), tokens
 
@@ -96,5 +99,6 @@ def build_imu_encoder(config, dtype) -> IMUTransformerEncoder:
         num_heads=m.imu_nhead,
         num_layers=m.imu_num_layers,
         replicate_pos_truncation=m.replicate_pos_truncation,
+        dropout=m.imu_dropout,
         dtype=dtype,
     )

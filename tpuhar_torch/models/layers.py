@@ -3,6 +3,14 @@
 Each module's attribute names are its flax submodule names, so ``bridge`` maps a
 flax variable tree onto it by name. Modules take the compute ``dtype`` at
 construction, as flax modules do; LayerNorm eps is flax's 1e-6, BatchNorm's 1e-5.
+
+Training (``train=True``) follows flax's train mode: BatchNorm normalizes with the
+batch's statistics and updates its running ones, and dropout draws its masks from an
+explicit ``torch.Generator`` (``dropout``). For training, parameters are kept as f32
+leaves and cast to the dtype each module was built in at use
+(``models.crossmodal.CrossModalModel.forward_cast``), as flax casts its f32 parameters
+to ``dtype``; the serving forwards build the modules in the compute dtype and cast
+nothing.
 """
 from __future__ import annotations
 
@@ -19,9 +27,27 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
 BN_EPS = 1e-5
 
 
+BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): ra = 0.9·ra + 0.1·batch
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None, shape=None) -> torch.Tensor:
+    """flax's dropout: keep each element with probability ``1 − rate`` and scale the
+    kept ones by ``1/(1 − rate)``; the mask is drawn from ``generator`` in ``shape``
+    (default ``x.shape``) and broadcast over ``x``."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with flax's variable names: params
-    ``scale``/``bias``, running stats ``mean``/``var``. Kept and applied in f32."""
+    """BatchNorm over the last axis with flax's variable names: params
+    ``scale``/``bias``, running stats ``mean``/``var``. Kept and applied in f32.
+
+    ``train=True`` is flax's train mode: the batch's mean and biased variance over every
+    axis but the last, in f32 as E[x²] − E[x]² (clipped at 0), normalize ``x``, and the
+    running stats move to ``0.9·ra + 0.1·batch`` (the biased variance; torch's
+    ``BatchNorm1d`` keeps the unbiased one)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -30,9 +56,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(features))
         self.register_buffer("var", torch.empty(features))
 
-    def forward(self, x):
-        s = self.scale * torch.rsqrt(self.var + BN_EPS)
-        return ((x.float() - self.mean) * s + self.bias).to(x.dtype)
+    def forward(self, x, *, train: bool = False):
+        xf = x.float()
+        if train:
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        s = self.scale * torch.rsqrt(var + BN_EPS)
+        return ((xf - mean) * s + self.bias).to(x.dtype)
 
 
 def norm_layer(kind: str, features: int, *, dtype=torch.float32) -> nn.Module:
@@ -45,16 +81,19 @@ def norm_layer(kind: str, features: int, *, dtype=torch.float32) -> nn.Module:
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """``flax.linen.MultiHeadDotProductAttention`` at eval: q/k/v ``DenseGeneral``
-    to ``(H, Dh)`` with per-head bias, the query scaled by ``1/sqrt(Dh)`` before the
-    dot, a softmax over keys (in f32), and an ``out`` ``DenseGeneral`` back to D."""
+    """``flax.linen.MultiHeadDotProductAttention``: q/k/v ``DenseGeneral`` to
+    ``(H, Dh)`` with per-head bias, the query scaled by ``1/sqrt(Dh)`` before the dot, a
+    softmax over keys (in f32), and an ``out`` ``DenseGeneral`` back to D. With
+    ``train=True`` and a ``dropout_rate``, the attention weights go through flax's
+    ``broadcast_dropout``: one ``(Nq, Nk)`` mask shared over batch and heads."""
 
-    def __init__(self, d_model: int, num_heads: int, *, dtype=torch.float32):
+    def __init__(self, d_model: int, num_heads: int, *, dropout_rate: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.query, self.key, self.value, self.out = head_projections(d_model, num_heads, dtype=dtype)
 
-    def forward(self, inputs_q, inputs_kv):
+    def forward(self, inputs_q, inputs_kv, *, train: bool = False, generator=None):
         B, Nq, D = inputs_q.shape
         H = self.num_heads
         Dh = D // H
@@ -66,24 +105,31 @@ class MultiHeadDotProductAttention(nn.Module):
         k = heads(self.key(inputs_kv))
         v = heads(self.value(inputs_kv))
         w = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1).to(v.dtype)
+        if train:
+            w = dropout(w, self.dropout_rate, generator, shape=(1, 1, *w.shape[-2:]))
         return self.out((w @ v).transpose(1, 2).reshape(B, Nq, D))
 
 
 class TransformerEncoderBlock(nn.Module):
     """Post-norm encoder layer with ReLU:
-    ``x = LN(x + SelfAttn(x)); x = LN(x + W2 relu(W1 x))``."""
+    ``x = LN(x + Drop(SelfAttn(x))); x = LN(x + Drop(W2 Drop(relu(W1 x))))``; the
+    dropouts (and the attention weights' one) act only with ``train=True``."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dtype=torch.float32):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadDotProductAttention(d_model, num_heads, dtype=dtype)
+        self.dropout_rate = dropout
+        self.self_attn = MultiHeadDotProductAttention(d_model, num_heads, dropout_rate=dropout, dtype=dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.linear1 = nn.Linear(d_model, d_ff, dtype=dtype)
         self.linear2 = nn.Linear(d_ff, d_model, dtype=dtype)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
 
-    def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+    def forward(self, x, *, train: bool = False, generator=None):
+        rate = self.dropout_rate if train else 0.0
+        attn = dropout(self.self_attn(x, x, train=train, generator=generator), rate, generator)
+        x = self.norm1(x + attn)
+        h = dropout(torch.relu(self.linear1(x)), rate, generator)
+        return self.norm2(x + dropout(self.linear2(h), rate, generator))
 
 
 class PreNormBlock(nn.Module):
@@ -116,7 +162,9 @@ class PreNormBlock(nn.Module):
         self.mlp_in = nn.Linear(d_model, d_ff, dtype=dtype)
         self.mlp_out = nn.Linear(d_ff, d_model, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False):
+        """``train`` changes nothing: the ViT's blocks have no dropout (flax's
+        ``VideoViT`` builds them with rate 0) and no BatchNorm."""
         h = self.norm1(x)
         x = x + (self.self_attn(h) if self.use_flash else self.self_attn(h, h))
         h = F.gelu(self.mlp_in(self.norm2(x)), approximate=self.gelu)
@@ -140,6 +188,31 @@ class CrossAttentionBlock(nn.Module):
         q = q + self.cross_attn(self.norm_q(q), self.norm_kv(kv))
         h = F.gelu(self.mlp_in(self.norm_mlp(q)), approximate="tanh")
         return q + self.mlp_out(h)
+
+
+class ProjectionHead(nn.Module):
+    """Contrastive projection head: ``Dense → Norm → ReLU → Dense`` (flax's
+    ``ProjectionHead``); the norm is BatchNorm (``bn``, train mode with ``train=True``) or
+    LayerNorm (``ln``)."""
+
+    def __init__(self, in_features: int, hidden_dim: int, out_dim: int, *, norm: str = "batch", dtype=torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_dim, dtype=dtype)
+        self.norm_name = "bn" if norm == "batch" else "ln"
+        self.add_module(self.norm_name, norm_layer(norm, hidden_dim, dtype=dtype))
+        self.fc2 = nn.Linear(hidden_dim, out_dim, dtype=dtype)
+
+    def forward(self, x, *, train: bool = False):
+        x = self.fc1(x.to(self.fc1.weight.dtype))
+        norm = getattr(self, self.norm_name)
+        x = norm(x, train=train) if isinstance(norm, BatchNorm) else norm(x)
+        return self.fc2(torch.relu(x))
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """``x / max(‖x‖, eps)`` along ``dim`` (``torch.nn.functional.normalize``'s
+    semantics, as flax's ``l2_normalize``)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=eps)
 
 
 class ClassifierHead(nn.Module):

@@ -132,10 +132,10 @@ class VideoViT(nn.Module):
         if use_final_norm:
             self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False):
         tokens = self.tubelet(x) + self.pos_encoding
         for i in range(self.depth):
-            tokens = getattr(self, f"block{i}")(tokens)
+            tokens = getattr(self, f"block{i}")(tokens, train=train)
         if self.use_final_norm:
             tokens = self.final_norm(tokens)
         return tokens.mean(dim=1).float(), tokens
@@ -148,6 +148,8 @@ class VideoEncoder(nn.Module):
     temporal mean. ViT (``num_tokens`` sizes its positional table): the ``vit``
     submodule, then one projection applied to the pooled embedding and to the tokens.
     ``(B, T, ...)`` → ``(emb (B, video_d_model) f32, tokens (B, N, video_d_model))``.
+    Training (``train=True``) takes a normalized float NHWC clip with nothing folded
+    into the weights, and is ported for the ViT only.
     """
 
     def __init__(
@@ -178,11 +180,13 @@ class VideoEncoder(nn.Module):
             raise NotImplementedError(f"video backbone {backbone!r} is not ported")
         self.projection = nn.Linear(width, video_d_model, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False):
         x = x.to(self.dtype)
         if self.is_vit:
-            emb, tokens = self.vit(x)
+            emb, tokens = self.vit(x, train=train)
             return self.projection(emb.to(self.dtype)).float(), self.projection(tokens)
+        if train:
+            raise NotImplementedError("training the tpu_cnn towers is not ported")
         B, T = x.shape[:2]
         feats = self.backbone(x.reshape(B * T, *x.shape[2:]))
         tokens = self.projection(feats.reshape(B, T, -1))

@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .flash_lean import flash_lean
+from .flash_lean import FlashLean, flash_lean
 
 
 def head_projections(d_model: int, num_heads: int, *, dtype=torch.float32) -> Tuple[nn.Linear, ...]:
@@ -39,7 +39,10 @@ class FlashSelfAttention(nn.Module):
 
     The projections stay in their ``(B, N, H·Dh)`` layout: the heads are strided
     views, the kernel reads them as they are and writes ``(B, N, H, Dh)``, so no
-    transposing copy surrounds it.
+    transposing copy surrounds it. With grad enabled the attention goes through
+    ``FlashLean`` (the forward also stores each row's log-sum-exp, and the backward runs
+    the dK/dV and dQ kernels); under ``no_grad`` or ``inference_mode`` through
+    ``flash_lean``, which stores nothing more.
     """
 
     def __init__(self, d_model: int, num_heads: int, *, dtype=torch.float32):
@@ -54,5 +57,9 @@ class FlashSelfAttention(nn.Module):
         def heads(t):  # (B, N, H·Dh) → a (B, H, N, Dh) view
             return t.view(B, N, H, D // H).transpose(1, 2)
 
-        ctx = flash_lean(heads(self.query(x)), heads(self.key(x)), heads(self.value(x)))
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        if torch.is_grad_enabled():
+            ctx = FlashLean.apply(q, k, v, 1.0 / (D // H) ** 0.5)
+        else:
+            ctx = flash_lean(q, k, v)
         return self.out(ctx.transpose(1, 2).reshape(B, N, D))

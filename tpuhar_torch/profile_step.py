@@ -1,6 +1,7 @@
-"""Where the time of a serving step goes, on one CUDA device.
+"""Where the time of a serving step or of a pretraining step goes, on one CUDA device.
 
-    python -m tpuhar_torch.profile_step
+    python -m tpuhar_torch.profile_step              # the four serving programs
+    python -m tpuhar_torch.profile_step --pretrain   # the pretraining step
 
 Builds the serving forwards from random weights of seed 0: the flagship's
 ``entry.build_forward`` (``bf16``) and ``entry.build_int8_forward`` in its
@@ -16,19 +17,27 @@ programs, NHWC for the ViT), and for each program at batch 256 and 8 it prints:
   per step; and the device busy share, the device time over the span from the first
   device op's start to the last one's end.
 
+``--pretrain`` profiles the pretraining program instead (``pretrain``):
+``entry.build_pretrain_task(pretrain_config())`` at batch 16 (the ``videomae_base``
+cross-modal model, f32 master weights, bf16 compute, flash attention forward and
+backward), one ``train_step`` a step (10 timed after 2 warm-up, then 3 profiled), with
+the peak device memory and the flash backward kernels' share.
+
 The first line is the card's name and power limit as ``nvidia-smi`` gives them.
 Without a CUDA device it raises.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
+import sys
 from collections import defaultdict
 from typing import Callable, Dict
 
 import torch
 
 from .bridge import init_params
-from .entry import build_forward, build_int8_forward, flagship_config, vit_config
+from .entry import build_forward, build_int8_forward, build_pretrain_task, flagship_config, pretrain_config, vit_config
 
 PROGRAMS = ("bf16", "int8_resident", "int8_baseline", "vit_bf16")
 BATCHES = (256, 8)
@@ -83,7 +92,54 @@ def device_profile(fn: Callable, args, steps: int) -> Dict:
             "busy": device_us / span_us, "rows": rows}
 
 
-def main() -> None:
+def print_profile(name: str, batch: int, ms: float, prof: Dict, steps: int, smi: str, unit: str = "inf/s") -> None:
+    print(f"\n[{name} batch {batch}] step {ms:.3f} ms unprofiled, {batch / ms * 1e3:.1f} {unit}; "
+          f"device {prof['device_ms']:.3f} ms/step in {prof['ops']:.0f} ops, busy "
+          f"{100 * prof['busy']:.1f}% ({steps} profiled steps; {smi})")
+    for r in prof["rows"][:TOP]:
+        print(f"  {100 * r['share']:5.1f}%  {r['ms']:8.3f} ms  {r['launches']:5.1f}x  {r['name'][:100]}")
+    rest = prof["rows"][TOP:]
+    if rest:
+        print(f"  {100 * sum(r['share'] for r in rest):5.1f}%  {sum(r['ms'] for r in rest):8.3f} ms"
+              f"  {sum(r['launches'] for r in rest):5.1f}x  the other {len(rest)} names")
+
+
+def profile_pretrain(smi: str, batch: int = 16) -> None:
+    """The pretraining step at ``batch``: step time, samples/s, peak memory and the
+    device profile, with the flash backward kernels' share."""
+    cfg = pretrain_config()
+    task = build_pretrain_task(cfg, device="cuda", seed=0, steps_per_epoch=100)
+    d = cfg.data
+    H, W = d.video_resize
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    data = {
+        "imu": torch.randn((batch, d.imu_channels, d.imu_window_size), generator=gen, device="cuda"),
+        "video": torch.randint(0, 256, (batch, d.video_frames_per_window, H, W, 3),
+                               generator=gen, device="cuda", dtype=torch.uint8),
+    }
+    dropout = torch.Generator(device="cuda").manual_seed(0)
+
+    def step(b):
+        task.train_step(task.state, b, dropout)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = step_ms(step, (data,), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = device_profile(step, (data,), 3)
+    print_profile("pretrain", batch, ms, prof, 3, smi, unit="samples/s")
+    bwd = [r for r in prof["rows"] if "flash_bwd" in r["name"]]
+    fwd = [r for r in prof["rows"] if "flash_attn_kernel" in r["name"]]
+    print(f"[pretrain batch {batch}] peak memory {peak:.2f} GiB; flash backward kernels "
+          f"{sum(r['ms'] for r in bwd):.3f} ms/step ({100 * sum(r['share'] for r in bwd):.1f}% of device time, "
+          f"{sum(r['launches'] for r in bwd):.0f} launches), flash forward "
+          f"{sum(r['ms'] for r in fwd):.3f} ms/step ({sum(r['launches'] for r in fwd):.0f} launches)")
+
+
+def main(argv=None) -> None:
+    """``argv``: the command-line arguments (none: the serving programs)."""
+    parser = argparse.ArgumentParser(description="Profile a serving or pretraining step on one CUDA device.")
+    parser.add_argument("--pretrain", action="store_true", help="profile the pretraining step instead")
+    args = parser.parse_args([] if argv is None else argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,6 +149,9 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    if args.pretrain:
+        profile_pretrain(smi)
+        return
 
     configs = {"flagship": flagship_config(), "vit": vit_config()}
     params = {}
@@ -107,25 +166,16 @@ def main() -> None:
         H, W = d.video_resize
         clip = (H, W, 3) if kind == "vit" else (H // 16, W // 16, 768)
         for batch in BATCHES:
-            args = (
+            inputs = (
                 torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0,
                 torch.randint(0, 256, (batch, d.video_frames_per_window, *clip),
                               generator=gen, device="cuda", dtype=torch.uint8),
             )
-            ms = step_ms(fn, args)
-            prof = device_profile(fn, args, STEPS)
-            print(f"\n[{name} batch {batch}] step {ms:.3f} ms unprofiled, {batch / ms * 1e3:.1f} inf/s; "
-                  f"device {prof['device_ms']:.3f} ms/step in {prof['ops']:.0f} ops, busy "
-                  f"{100 * prof['busy']:.1f}% ({STEPS} profiled steps; {smi})")
-            for r in prof["rows"][:TOP]:
-                print(f"  {100 * r['share']:5.1f}%  {r['ms']:8.3f} ms  {r['launches']:5.1f}x  {r['name'][:100]}")
-            rest = prof["rows"][TOP:]
-            if rest:
-                print(f"  {100 * sum(r['share'] for r in rest):5.1f}%  {sum(r['ms'] for r in rest):8.3f} ms"
-                      f"  {sum(r['launches'] for r in rest):5.1f}x  the other {len(rest)} names")
+            ms = step_ms(fn, inputs)
+            print_profile(name, batch, ms, device_profile(fn, inputs, STEPS), STEPS, smi)
         del fn
         torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,7 +1,8 @@
 """Quantized serving path: the int8 ``tpu_cnn`` tower + the fusion stack
 (``tpuhar/serving_quant.py``).
 
-``build_quantized_forward`` calibrates per-site activation scales on a few clips,
+``build_quantized_forward`` calibrates per-site activation scales on a few clips (on
+the CPU, as the JAX package does),
 quantizes the tower with the ImageNet normalization folded into its stem (the stem
 consumes raw uint8), and returns ``fn(imu_raw, video_u8) -> {logits, msp, energy,
 embeddings}``. The clip arrives as the uint8 patch-major wire ``(B, T, H/p, W/p,
@@ -31,6 +32,7 @@ from .ops.quant import (
     quant_tpucnn_forward,
     quant_tpucnn_forward_resident,
     quantize_tpucnn,
+    tree_to,
 )
 from .ops.stem import to_patch_major
 from .ops.video import IMAGENET_MEAN, IMAGENET_STD, normalize_clip
@@ -138,6 +140,25 @@ def quantized_forward(
     return forward
 
 
+def build_quantized_tree(variables: Dict, calib_clips_u8: np.ndarray, *, device) -> Dict:
+    """The quantized ``tpu_cnn`` tower of ``variables`` (flax layout, before folding) on
+    ``device``, with the ImageNet normalization folded into the stem. It is calibrated
+    on the first 64 frames of ``calib_clips_u8`` and quantized on the CPU, as the JAX
+    package does (``tpuhar/serving_quant.py``): a calibration on the card sums in another
+    order, moves observed maxima and with them site scales and codes (7 of the 11
+    ``x_scale``/``w_q`` leaves of the flagship's tree differed on an H100)."""
+    backbone = variables["params"]["video_encoder"]["backbone"]
+    stats = variables["batch_stats"]["video_encoder"]["backbone"]
+    clips = np.asarray(calib_clips_u8)
+    with full_f32():
+        norm = normalize_clip(torch.from_numpy(clips))
+        act_stats = calibrate_tpucnn(backbone, stats, norm.reshape(-1, *clips.shape[2:4], 3)[:64])
+        q = quantize_tpucnn(
+            backbone, stats, act_stats, input_fold=(IMAGENET_MEAN, IMAGENET_STD), device="cpu"
+        )
+    return tree_to(q, device)
+
+
 def build_quantized_forward(
     cfg,
     variables: Dict,
@@ -160,8 +181,8 @@ def build_quantized_forward(
     ``fn.quantized_tree`` the quantized tower.
 
     ``resident=True`` serves through ``quant_tpucnn_forward_resident`` (int8 between
-    the convs), else ``quant_tpucnn_forward``. Calibration and recalibration run on
-    ``device`` with TF32 off. The returned ``fn`` takes the clip as the uint8
+    the convs), else ``quant_tpucnn_forward``. The activation calibration runs on the CPU
+    (``build_quantized_tree``), the logit recalibration on ``device`` with TF32 off. The returned ``fn`` takes the clip as the uint8
     patch-major wire ``(B, T, H/p, W/p, p²·3)`` (``ops/stem.to_patch_major``).
     """
     _check_backbone(cfg)
@@ -169,16 +190,9 @@ def build_quantized_forward(
     dtype = getattr(torch, cfg.model.compute_dtype)
     model = load_variables(FusionClassifier(cfg, dtype=dtype), variables).to(device).eval()
     venc = variables["params"]["video_encoder"]
-    backbone = venc["backbone"]
-    stats = variables["batch_stats"]["video_encoder"]["backbone"]
 
     clips = np.asarray(calib_clips_u8)
-    with full_f32():
-        norm = normalize_clip(torch.from_numpy(clips).to(device))
-        act_stats = calibrate_tpucnn(backbone, stats, norm.reshape(-1, *clips.shape[2:4], 3)[:64])
-        q = quantize_tpucnn(
-            backbone, stats, act_stats, input_fold=(IMAGENET_MEAN, IMAGENET_STD), device=device
-        )
+    q = build_quantized_tree(variables, clips, device=device)
 
     recal = None
     if recalibrate:
@@ -191,6 +205,7 @@ def build_quantized_forward(
                 .astype(np.float32)
             )
         imu_t = torch.from_numpy(imu_cal).to(device)
+        norm = normalize_clip(torch.from_numpy(clips).to(device))
         raw = quantized_forward(cfg, model, q, venc["projection"], device=device, resident=resident)
         with full_f32(), torch.inference_mode():
             imu = featurize_windows_auto(

@@ -1,0 +1,164 @@
+"""The pretraining loop (``tpuhar/train/loop.py``): epochs over any iterable of dict
+batches, early stopping, checkpoints and history.
+
+``CrossModalTrainer.fit``: best = the lowest validation loss, early stop after
+``patience`` epochs without an improvement of more than ``min_delta``; every epoch
+writes ``last``, an improvement ``best_model`` (with ``save_best_only``), and every
+``save_every`` epochs ``checkpoint_epoch_N``; ``training_history.json`` at the end.
+``fit(resume=True)`` restores ``last`` and continues from the epoch after it. Losses
+stay on the device through an epoch and are read once at its end.
+"""
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import checkpoint as ckpt
+from .steps import TrainState
+
+
+class EarlyStopper:
+    """Patience-based early stopping; ``mode`` in {"min", "max"}; ``min_delta`` is the
+    least change that counts as an improvement."""
+
+    def __init__(self, patience: int, mode: str = "min", min_delta: float = 0.0):
+        self.patience = patience
+        self.mode = mode
+        self.min_delta = min_delta
+        self.best: Optional[float] = None
+        self.counter = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True if ``value`` is a new best."""
+        improved = (
+            self.best is None
+            or (self.mode == "min" and value < self.best - self.min_delta)
+            or (self.mode == "max" and value > self.best + self.min_delta)
+        )
+        if improved:
+            self.best = value
+            self.counter = 0
+        else:
+            self.counter += 1
+        return improved
+
+    @property
+    def should_stop(self) -> bool:
+        return self.counter >= self.patience
+
+
+class BaseTrainer:
+    """Checkpoint and history plumbing. ``generator`` (a ``torch.Generator`` on the
+    model's device) feeds every train step's dropout."""
+
+    def __init__(self, config, state: TrainState, save_dir, generator: Optional[torch.Generator] = None):
+        self.config = config
+        self.state = state
+        self.save_dir = Path(save_dir)
+        self.generator = generator
+        self.current_epoch = 0
+        self.history: Dict[str, list] = {"train": [], "val": []}
+        self.verbose = True
+
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            print(msg, flush=True)
+
+    def _save(self, name: str, best_key: str, best_value: float) -> None:
+        ckpt.save_checkpoint(
+            self.save_dir / name,
+            self.state,
+            extra={"epoch": self.current_epoch, "history": self.history, best_key: best_value},
+        )
+
+    def resume(self, name: str = "last") -> bool:
+        """Restore state, epoch and history from a checkpoint; returns True if found."""
+        path = self.save_dir / name
+        if not ckpt.checkpoint_exists(path):
+            return False
+        self.state, extra = ckpt.restore_checkpoint(path, self.state)
+        self.current_epoch = int(extra.get("epoch", 0)) + 1
+        self.history = extra.get("history", {"train": [], "val": []})
+        return True
+
+    def _dump_history(self) -> None:
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        with open(self.save_dir / "training_history.json", "w") as f:
+            json.dump(self.history, f, indent=2)
+
+
+class CrossModalTrainer(BaseTrainer):
+    """The contrastive pretraining loop."""
+
+    def __init__(self, config, state, train_step, eval_step, save_dir, generator=None):
+        super().__init__(config, state, save_dir, generator)
+        self.train_step = train_step
+        self.eval_step = eval_step
+        self.best_val_loss = float("inf")
+
+    @property
+    def best_metric(self) -> float:
+        return self.best_val_loss
+
+    def train_epoch(self, loader) -> float:
+        losses = []
+        for batch in loader:
+            self.state, metrics = self.train_step(self.state, batch, self.generator)
+            losses.append(metrics["loss"])
+        return float(np.mean(torch.stack(losses).float().cpu().numpy())) if losses else 0.0
+
+    def validate(self, loader) -> float:
+        """Validation loss, each batch weighted by its valid rows (padded rows are masked
+        inside ``eval_step``, so a short final batch does not count as a full one)."""
+        losses, weights = [], []
+        for batch in loader:
+            out = self.eval_step(self.state, batch)
+            losses.append(out["loss"])
+            weights.append(float(out["n_valid"]))
+        if not losses:
+            return 0.0
+        losses = torch.stack(losses).double().cpu().numpy()
+        weights = np.asarray(weights, np.float64)
+        return float(np.sum(losses * weights) / max(np.sum(weights), 1.0))
+
+    def fit(self, train_loader, val_loader, *, resume: bool = False) -> TrainState:
+        t = self.config.training
+        if resume:
+            self.resume()
+        stopper = EarlyStopper(int(t.patience), "min", float(t.min_delta))
+        stopper.best = self.best_val_loss if self.best_val_loss < float("inf") else None
+
+        for epoch in range(self.current_epoch, int(t.pretrain_epochs)):
+            self.current_epoch = epoch
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            train_loss = self.train_epoch(train_loader)
+            val_loss = self.validate(val_loader)
+            dt = time.perf_counter() - t0
+            self.history["train"].append(train_loss)
+            self.history["val"].append(val_loss)
+            self._log(
+                f"[Pretrain] epoch={epoch} train_loss={train_loss:.4f} "
+                f"val_loss={val_loss:.4f} ({dt:.1f}s)"
+            )
+
+            improved = stopper.update(val_loss)
+            if improved:
+                self.best_val_loss = val_loss
+            self._save("last", "best_val_loss", self.best_val_loss)
+            if improved and bool(t.save_best_only):
+                self._save("best_model", "best_val_loss", self.best_val_loss)
+            if (epoch + 1) % int(t.save_every) == 0:
+                self._save(f"checkpoint_epoch_{epoch}", "best_val_loss", self.best_val_loss)
+            if stopper.should_stop:
+                self._log(f"[Pretrain] Early stopping at epoch {epoch}")
+                break
+
+        self._dump_history()
+        return self.state

@@ -36,8 +36,9 @@ Phases; any failed check raises and the exit code is non-zero:
     parameters and clips (every site's ``x_scale`` and ``w_q``, exactly);
 12. the flash-attention backward kernels (dK/dV and dQ) against autograd through the
     plain attention on the card, with the forward's log-sum-exp, at the pretraining
-    shapes and the ragged tiny ones, with their times beside the plain backward, the
-    backward of ``F.scaled_dot_product_attention`` and the bound;
+    shapes, the ragged tiny ones and the dK/dV kernel's block boundaries, dK/dV bit for
+    bit across two calls, with their times beside the plain backward, the backward of
+    ``F.scaled_dot_product_attention`` and the bound;
 13. cross-modal SigLIP pretraining of ``videomae_base`` at full width and depth
     (``entry.build_pretrain_task(pretrain_config())``): ``CrossModalTrainer.fit`` over one
     epoch of four seeded batches of 16 and one validation batch, with its launch counts
@@ -151,9 +152,15 @@ FLASH_TIMED_SHAPE = (8, 12, 1568)
 # of the forward against torch.logsumexp in f32, absolute (ex2.approx)
 FLASH_BWD_RTOL = 2e-2
 LSE_ATOL = 1e-3
-# (B, H, N): videomae_base at the pretraining batch 16, at 8 and 1, and the ragged tiny
-# shapes of the forward's cases
-FLASH_BWD_SHAPES = [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568)] + [s for s in FLASH_SHAPES if s[2] < 1568]
+# (B, H, N): videomae_base at the pretraining batch 16, at 8, at 1 and on 3 heads, the
+# ragged tiny shapes of the forward's cases, and the boundaries of the dK/dV kernel's
+# 128-row key blocks and 64-row query tiles (129: a block of one key row, whose second
+# consumer has none, and a last query tile of one row)
+FLASH_BWD_SHAPES = (
+    [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568)]
+    + [s for s in FLASH_SHAPES if s[2] < 1568]
+    + [(2, 3, n) for n in (64, 127, 128, 129, 200)]
+)
 FLASH_BWD_TIMED_SHAPE = (16, 12, 1568)
 SM_SCALE = 0.125  # 1/sqrt(64)
 # pretraining: one epoch of four batches of 16 (and one validation batch), the depth
@@ -444,7 +451,8 @@ def check_flash() -> dict:
 def check_flash_backward() -> dict:
     """The dK/dV and dQ kernels (and the forward's log-sum-exp they read) against
     autograd through the plain attention, on (B, H, N, 64) bf16 views of (B, N, H·64)
-    buffers, as the ViT's attention hands them over; times at the pretraining shape."""
+    buffers, as the ViT's attention hands them over; at the pretraining shape, dK/dV bit
+    for bit across two calls (no atomics) and the times."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
     timed = None
@@ -475,6 +483,10 @@ def check_flash_backward() -> dict:
         del got, want
         if (B, H, N) == FLASH_BWD_TIMED_SHAPE:
             _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE)
+            first, again = (flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("flash dK/dV: two calls on the same operands differ")
+            del first, again
             dkv_ms = cuda_ms(lambda: flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE), 20)
             dq_ms = cuda_ms(lambda: flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE), 20)
             plain_ms = cuda_ms(lambda: flash_lean_backward_reference(q, k, v, dout, SM_SCALE), 3, warmup=1)

@@ -199,7 +199,11 @@ def test_cpu_tensors_take_the_plain_paths_whatever_their_shape():
     assert (conv3x3_bn_act.launches, flash_lean.launches) == launches
 
 
-@pytest.mark.parametrize("B,H,N", [(16, 12, 1568), (1, 1, 1), (2, 3, 100), (65535, 1, 5)])
+@pytest.mark.parametrize(
+    "B,H,N",
+    [(16, 12, 1568), (1, 1, 1), (2, 3, 100), (65535, 1, 5), (65535, 1, 1), (1, 65535, 1), (65535, 65535, 1),
+     (2, 3, 129)],
+)
 def test_flash_grad_operands_taken(B, H, N):
     check_flash_grad_operands(B, H, N, {"lse": ((B, H, N), True), "di": ((B, H, N), True)})
 
@@ -213,6 +217,10 @@ def test_flash_grad_operands_taken(B, H, N):
         (2, 3, 100, {"lse": ((2, 3, 100), True), "di": ((2, 3, 100), False)}, "contiguous"),
         (65536, 1, 8, {"lse": ((65536, 1, 8), True)}, "grid"),
         (1, 65536, 8, {"lse": ((1, 65536, 8), True)}, "grid"),
+        (65536, 1, 1, {"lse": ((65536, 1, 1), True)}, "grid"),
+        (1, 65536, 1, {"lse": ((1, 65536, 1), True)}, "grid"),
+        (65535, 65536, 1, {"lse": ((65535, 65536, 1), True)}, "grid"),
+        (65536, 65535, 1, {"lse": ((65536, 65535, 1), True)}, "grid"),
         (1, 1, 0, {"lse": ((1, 1, 0), True)}, "grid"),
     ],
 )

@@ -430,10 +430,16 @@ def test_vit_slice_on_card_matches_cpu_f32(cuda):
         assert cos.item() >= 0.99, key
 
 
-# the backward's shapes: videomae_base at the pretraining batch (16), at 8 and at 1, and
-# the ragged tiny shapes of the forward's cases (N below one 64-row tile, ragged, whole
-# tiles)
-FLASH_BWD_SHAPES = [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384)]
+# the backward's shapes: videomae_base at the pretraining batch (16), at 8, at 1 and on 3
+# heads (a last block of 32 key rows: its second consumer warpgroup has none, and a last
+# query tile of 32 rows), the ragged tiny shapes of the forward's cases (N below one
+# 64-row tile, ragged, whole tiles), and the boundaries of the dK/dV kernel's 128-row key
+# blocks and 64-row query tiles: N = 64, 127, 128, 129 (a second block of one key row,
+# a last query tile of one valid row) and 200
+FLASH_BWD_SHAPES = [
+    (16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384),
+    (2, 3, 64), (2, 3, 127), (2, 3, 128), (2, 3, 129), (2, 3, 200),
+]
 
 
 @pytest.mark.parametrize("B,H,N", [(8, 12, 1568), (2, 3, 100), (1, 1, 1)])
@@ -482,6 +488,28 @@ def test_flash_backward_matches_plain(cuda, B, H, N):
         assert g.transpose(1, 2).is_contiguous(), name  # a (B, N, H, 64) buffer
         rel = (g.float() - w.float()).abs().max() / w.float().abs().max()
         assert rel.item() <= 2e-2, (name, rel.item())
+
+
+@pytest.mark.parametrize("N", [129, 1568])
+def test_flash_dkv_is_deterministic(cuda, N):
+    """dk and dv of the dK/dV kernel bit for bit equal across two calls (no atomics, a fixed
+    order of sums), and the same from contiguous ``(B, H, N, 64)`` operands as from the
+    strided views of ``(B, N, H, 64)`` buffers (the other order of a tensor map's
+    dimensions)."""
+    from tpuhar_torch.ops.flash_lean import flash_lean_bwd_dkv, flash_lean_bwd_dq, flash_lean_with_stats
+
+    q, k, v = _attention_case(2, 3, N, cuda, strided=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn((2, N, 3, 64), generator=gen, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    _, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)
+    first = flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125)
+    again = flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125)
+    packed = flash_lean_bwd_dkv(*(t.contiguous() for t in (q, k, v, dout)), lse, di, 0.125)
+    assert not q.is_contiguous() and q.contiguous().stride()[1] > q.contiguous().stride()[2]
+    for name, a, b, c in zip(("dk", "dv"), first, again, packed):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
 
 
 def test_flash_function_gradients_through_attention(cuda):

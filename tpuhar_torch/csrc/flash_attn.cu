@@ -69,9 +69,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_maps.cuh"
 #include "hopper.cuh"
 
 using namespace hopper;
+using flash_maps::heads_inner;
+using flash_maps::Operand;
+using flash_maps::operand_map;
 
 namespace {
 
@@ -362,35 +366,6 @@ flash_attn_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ lse, float*
       __syncwarp();  // the rows are read before the next work item overwrites them
     }
   }
-}
-
-// One operand, (B, H, N, 64) with element strides (sb, sh, sn, 1).
-struct Operand {
-  const void* base;
-  int B, H, N;
-  long long sb, sh, sn;
-};
-// the dimension with the smaller stride comes first in the map (the (B, N, H*64)
-// projections have the heads inside the tokens)
-bool heads_inner(const Operand& t) { return t.H > 1 && (t.N == 1 || t.sh < t.sn); }
-
-// The tensor map of one operand, read in boxes of `rows` tokens x 64 of one (batch,
-// head); tokens past N arrive as zeros. Encoded on every call, about a microsecond each.
-bool operand_map(CUtensorMap* map, const Operand& t, int rows) {
-  const bool hi = heads_inner(t);
-  const cuuint64_t n = t.N, h = t.H, sn = t.sn * 2, sh = t.sh * 2;
-  const cuuint64_t dims[4] = {D, hi ? h : n, hi ? n : h, static_cast<cuuint64_t>(t.B)};
-  cuuint64_t strides[3] = {hi ? sh : sn, hi ? sn : sh, static_cast<cuuint64_t>(t.sb) * 2};
-  // a dimension of one element is never stepped over: give it the packed stride, whatever
-  // the view says
-  cuuint64_t packed = D * 2;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) strides[i] = packed;
-    packed = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t r = rows;
-  const cuuint32_t box[4] = {D, hi ? 1 : r, hi ? r : 1, 1};
-  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t.base, 4, dims, strides, box);
 }
 
 }  // namespace

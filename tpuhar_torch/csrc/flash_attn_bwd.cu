@@ -29,34 +29,58 @@
 // written once. At (16, 12, 1568) that is 0.31 ms of tensor-core work at 989 TFLOP/s
 // against 0.10 ms of memory traffic.
 //
-// Design (simple and right first; wgmma and TMA are a later step): two kernels, so that
-// no block writes what another writes and the result needs no atomics.
-//  - dK/dV: one block per (64 key rows, head, batch), four warps of 16 key rows each.
-//    K and V of the block's rows go once from shared memory into registers (the A
-//    operands of S^T = K Q^T and dP^T = V dO^T); the block then walks over the query
-//    tiles of 64 rows, Q, dO, lse and di brought into a two-stage ring in shared memory by
-//    cp.async (rows past N arrive as zeros and their P is set to 0), the next tile on its
-//    way while this one is multiplied. dV += P^T dO and dK += dS^T Q take P^T and dS^T
-//    straight from the accumulators of the products before them: the m16n8 accumulator
-//    layout, packed to bf16 pairs, is the m16n8k16 A operand.
-//  - dQ: one block per (64 query rows, head, batch), the same shape with the roles
-//    swapped: Q and dO in registers, K and V in the ring, key columns past N masked.
-//    Before its loop it reads the block's rows of the f32 O too and forms di (two
-//    threads a row).
-//  All products are mma.sync m16n8k16 bf16 -> f32; the B operands come from shared
-//    memory by ldmatrix (.trans where the tile lies with k along its rows), from rows
-//    padded to 144 bytes so that the eight rows of an 8x8 matrix hit distinct banks.
+// Design: two kernels, so that no block writes what another writes and the result needs
+// no atomics.
+//  - dK/dV (wgmma, TMA): one block per (128 key rows, head, batch), three warpgroups,
+//    launched with 168 registers a thread; setmaxnreg moves them to where they are
+//    needed (24 + 240 + 240 = 3 x 168). Two consumer warpgroups own 64 key rows each;
+//    each Q/dO tile brought in serves all 128, which halves the L2 traffic of Q and dO
+//    against 64-row blocks. K and V of the block's rows arrive once by TMA and go from
+//    shared memory into registers: the register A operands of S^T = K Q^T and
+//    dP^T = V dO^T. One producer warp (registers cut to 24) walks the query tiles of 64
+//    rows: lane 0 brings Q and dO by TMA into a four-stage ring, from 4-D tensor maps
+//    over the strided views (csrc/flash_maps.cuh: rows past N arrive as zeros, every
+//    128-byte row in the swizzle wgmma reads), and the warp brings the tile's lse and di
+//    by 4-byte cp.async (a (B, H, N) row starts on a 16-byte boundary only where
+//    N % 4 == 0, which TMA needs), all counted on the stage's full mbarrier. Per tile a
+//    consumer starts S^T and dP^T (wgmma m64n64k16, B K-major), takes P's exponentials
+//    while dP^T runs, forms dS, and starts dV += P^T dO and dK += dS^T Q with P^T and
+//    dS^T straight from the accumulators (their layout, packed to bf16 pairs, is the
+//    register A layout) and B = the dO or Q tile as it lies (MN-major); then lane 0 of
+//    each warp hands the stage back through its empty mbarrier. While one consumer
+//    computes, the other's products hold the tensor cores. Query rows past N need no
+//    mask: their Q and dO are zeros and their lse and di arrive as 0, so P = 1 there
+//    meets dP = 0, dS = 0 and a zero dO row. A consumer whose 64 key rows all lie past N
+//    (the last block at N = 1568 holds 32 rows) hands every stage straight back.
+//    dK and dV are rounded to bf16 once and stored through strides, 4 bytes a thread.
+//  - dQ (mma.sync): one block per (64 query rows, head, batch), four warps of 16 query
+//    rows each. Q and dO of the block's rows go once from shared memory into registers;
+//    the block walks over the key tiles of 64 rows, K and V brought into a two-stage ring
+//    in shared memory by cp.async (rows past N arrive as zeros; key columns past N are
+//    masked), the next tile on its way while this one is multiplied. dQ += dS K takes dS
+//    straight from the accumulators of the products before it: the m16n8 accumulator
+//    layout, packed to bf16 pairs, is the m16n8k16 A operand. Before its loop it reads the
+//    block's rows of the f32 O too and forms di (two threads a row). Its products are
+//    mma.sync m16n8k16 bf16 -> f32; the B operands come from shared memory by ldmatrix
+//    (.trans where the tile lies with k along its rows), from rows padded to 144 bytes so
+//    that the eight rows of an 8x8 matrix hit distinct banks.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_maps.cuh"
 #include "hopper.cuh"
 
 using namespace hopper;
+using flash_maps::heads_inner;
+using flash_maps::Operand;
+using flash_maps::operand_map;
 
 namespace {
 
 constexpr int D = 64;          // head_dim
+// the dQ kernel
 constexpr int BR = 64;         // rows a block owns: 16 per warp
 constexpr int BC = 64;         // rows of the other operand per step of the loop
 constexpr int THREADS = 128;   // four warps
@@ -196,89 +220,6 @@ __device__ __forceinline__ void store_rows(const OutView& out, int b, int h, int
   }
 }
 
-// lse (scaled by log2 e) and di of rows row0 .. row0 + 63 into shared memory; rows past N
-// read as 0 (their P is masked to 0 where it matters)
-__device__ __forceinline__ void load_rows(float* lse2, float* di, const float* lse_src,
-                                          const float* di_src, int row0, int N) {
-  for (int i = threadIdx.x; i < BC; i += THREADS) {
-    const int row = row0 + i;
-    lse2[i] = row < N ? lse_src[row] * LOG2E : 0.f;
-    di[i] = row < N ? di_src[row] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, OutView dk, OutView dv, int H, int N,
-                     float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 s_q[2][TILE];
-  __shared__ __align__(16) __nv_bfloat16 s_do[2][TILE];
-  __shared__ float s_lse2[2][BC], s_di[2][BC];
-  const int kv0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const __nv_bfloat16* qb = q.p + b * q.sb + h * q.sh;
-  const __nv_bfloat16* kb = k.p + b * k.sb + h * k.sh;
-  const __nv_bfloat16* vb = v.p + b * v.sb + h * v.sh;
-  const __nv_bfloat16* dob = dout.p + b * dout.sb + h * dout.sh;
-  const float* lse_bh = lse + bh * N;
-  const float* di_bh = di + bh * N;
-  const float scale_log2 = sm_scale * LOG2E;
-  const int q_tiles = (N + BC - 1) / BC;
-
-  // this block's K and V rows through stage 1, into registers; query tile 0 into stage 0
-  load_tile(s_q[1], kb, k.sn, kv0, N);
-  load_tile(s_do[1], vb, v.sn, kv0, N);
-  load_tile(s_q[0], qb, q.sn, 0, N);
-  load_tile(s_do[0], dob, dout.sn, 0, N);
-  cp_async_commit();
-  load_rows(s_lse2[0], s_di[0], lse_bh, di_bh, 0, N);
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a(ka, s_q[1], warp, lane);
-  load_a(va, s_do[1], warp, lane);
-  __syncthreads();  // stage 1 is free for query tile 1
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int j = 0; j < q_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < q_tiles) {
-      load_tile(s_q[st ^ 1], qb, q.sn, (j + 1) * BC, N);
-      load_tile(s_do[st ^ 1], dob, dout.sn, (j + 1) * BC, N);
-      cp_async_commit();
-      load_rows(s_lse2[st ^ 1], s_di[st ^ 1], lse_bh, di_bh, (j + 1) * BC, N);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float p[BC / 8][4], ds[BC / 8][4];
-    mma_abt(p, ka, s_q[st], lane);    // S^T: 16 key rows x 64 query columns
-    mma_abt(ds, va, s_do[st], lane);  // dP^T
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * (lane & 3) + (e & 1);  // query row within the tile
-        const float pe = j * BC + col < N ? ex2(fmaf(p[n][e], scale_log2, -s_lse2[st][col])) : 0.f;
-        p[n][e] = pe;
-        ds[n][e] = pe * (ds[n][e] - s_di[st][col]) * sm_scale;
-      }
-    mma_xt(dv_acc, p, s_do[st], lane);  // dV += P^T dO
-    mma_xt(dk_acc, ds, s_q[st], lane);  // dK += dS^T Q
-    __syncthreads();  // the stage is read; the next iteration refills it
-  }
-  store_rows(dk, b, h, kv0 + 16 * warp, N, dk_acc, lane);
-  store_rows(dv, b, h, kv0 + 16 * warp, N, dv_acc, lane);
-}
-
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(View q, View k, View v, View32 o, View dout, const float* __restrict__ lse,
                     float* __restrict__ di, OutView dq, int H, int N, float sm_scale) {
@@ -380,6 +321,204 @@ flash_bwd_dq_kernel(View q, View k, View v, View32 o, View dout, const float* __
   store_rows(dq, b, h, q0 + 16 * warp, N, dq_acc, lane);
 }
 
+// ---- dK/dV: wgmma, with Q, dO, lse and di in a ring fed by one producer warp -----------
+constexpr int KV_ROWS = 128;                    // key rows a block owns
+constexpr int CONSUMERS = KV_ROWS / 64;         // consumer warpgroups, 64 key rows each
+constexpr int BQ = 64;                          // query rows of one tile of the ring
+constexpr int STAGES = 4;
+constexpr int DKV_THREADS = 128 * (CONSUMERS + 1);
+constexpr int KV_BYTES = KV_ROWS * D * 2;       // the block's K or V rows: 16 KB
+constexpr int QT_BYTES = BQ * D * 2;            // a Q or dO tile: 8 KB
+constexpr int STAGE_BYTES = 2 * QT_BYTES;       // Q then dO
+// K, V, the ring, and room to align to 1024 bytes
+constexpr int DKV_SMEM = 2 * KV_BYTES + STAGES * STAGE_BYTES + 1024;
+
+// the 4 k-steps (16 head columns each) of the register A operand from this thread's
+// rows r0 and r0 + 8 of 64 swizzled 128-byte rows at `rows`
+__device__ __forceinline__ void load_a_swizzled(uint32_t (&a)[D / 16][4], const uint8_t* rows, int r0,
+                                                int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = *reinterpret_cast<const uint32_t*>(
+          rows + (r0 + 8 * (e & 1)) * 128 + (((2 * kk + (e >> 1)) ^ (r0 & 7)) << 4) + 4 * (lane & 3));
+}
+
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+flash_bwd_dkv_kernel(const float* __restrict__ lse, const float* __restrict__ di, OutView dk,
+                     OutView dv, int H, int N, float sm_scale, int heads_inner,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[STAGES], empty_bar[STAGES], kv_full;
+  __shared__ __align__(16) float s_lse[STAGES][BQ];
+  __shared__ __align__(16) float s_di[STAGES][BQ];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t k_tile = smem_addr(smem);  // then the V rows, then STAGES x (Q tile, dO tile)
+  const uint32_t v_tile = k_tile + KV_BYTES;
+  const uint32_t ring = v_tile + KV_BYTES;
+  const int kv0 = blockIdx.x * KV_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int q_tiles = (N + BQ - 1) / BQ;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's lane 0 with the tiles' byte count, and the 32 lanes' cp.async of
+      // lse and di
+      mbar_init(&full_bar[s], 1 + 32);
+      mbar_init(&empty_bar[s], 4 * CONSUMERS);  // lane 0 of every consumer warp
+    }
+    mbar_init(&kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<24>();
+    if (tid < 128 * CONSUMERS + 32) {  // the producer warpgroup's first warp
+      // a map's dimensions are (64, heads, tokens, batch) where its bit of heads_inner is
+      // set, else (64, tokens, heads, batch)
+      auto load = [&](uint32_t dst, const CUtensorMap* map, uint64_t* bar, int bit, int row) {
+        if (heads_inner >> bit & 1)
+          tma_load_4d(dst, map, bar, 0, h, row, b);
+        else
+          tma_load_4d(dst, map, bar, 0, row, h, b);
+      };
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&kv_full, 2 * KV_BYTES);
+        load(k_tile, &k_map, &kv_full, 1, kv0);
+        load(v_tile, &v_map, &kv_full, 2, kv0);
+      }
+      const long long bh = static_cast<long long>(b) * H + h;
+      const float* lse_bh = lse + bh * N;
+      const float* di_bh = di + bh * N;
+      for (int t = 0; t < q_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty_bar[s], ((t / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full_bar[s], STAGE_BYTES);
+          load(ring + s * STAGE_BYTES, &q_map, &full_bar[s], 0, t * BQ);
+          load(ring + s * STAGE_BYTES + QT_BYTES, &do_map, &full_bar[s], 3, t * BQ);
+        }
+        // lse and di by 4-byte cp.async (a (B, H, N) row starts on a 16-byte boundary only
+        // where N % 4 == 0); rows past N read as 0, where Q and dO are 0 too, so that P = 1
+        // there meets only zeros: dP = 0, dS = 0, and P^T dO adds nothing
+#pragma unroll
+        for (int c = 0; c < BQ / 32; ++c) {
+          const int i = lane + 32 * c, row = t * BQ + i;
+          const bool valid = row < N;
+          cp_async4(smem_addr(&s_lse[s][i]), lse_bh + (valid ? row : 0), valid);
+          cp_async4(smem_addr(&s_di[s][i]), di_bh + (valid ? row : 0), valid);
+        }
+        cp_async_arrive(&full_bar[s]);
+      }
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<240>();
+    const int warp = (tid & 127) >> 5;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's key rows r0 and r0 + 8 of its 64
+    const int row0 = kv0 + 64 * wg;
+    if (row0 >= N) {
+      // the last block's consumer whose 64 key rows all lie past N: hand every tile
+      // straight back, so that the other consumer has the SM to itself
+      for (int t = 0; t < q_tiles; ++t) {
+        mbar_wait(&full_bar[t % STAGES], (t / STAGES) & 1);
+        if (lane == 0) mbar_arrive(&empty_bar[t % STAGES]);
+      }
+      return;
+    }
+    // K and V rows into registers, once, as the A operands of S^T = K Q^T and dP^T = V dO^T
+    uint32_t ka[D / 16][4], va[D / 16][4];
+    mbar_wait(&kv_full, 0);
+    load_a_swizzled(ka, smem + wg * (64 * 128), r0, lane);
+    load_a_swizzled(va, smem + KV_BYTES + wg * (64 * 128), r0, lane);
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const float scale_log2 = sm_scale * LOG2E;
+
+    // One tile a step: S^T and dP^T as two groups, P's exponentials while dP^T is still
+    // being multiplied, then dS, then dV and dK as one group, then the stage goes back.
+    // While one consumer computes, the other's products hold the tensor cores. (Starting
+    // the next tile's S^T and dP^T behind dK, so that each consumer keeps a product in
+    // flight, made ptxas serialize the wgmma: 0.63 against 0.48 ms at (16, 12, 1568, 64)
+    // on an H100.) Element i of an
+    // accumulator lies in query column 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile.
+    const int col = 2 * (lane & 3);
+    for (int t = 0; t < q_tiles; ++t) {
+      const int s = t % STAGES;
+      const uint32_t q_tile = ring + s * STAGE_BYTES, do_tile = q_tile + QT_BYTES;
+      mbar_wait(&full_bar[s], (t / STAGES) & 1);
+      // S^T = K Q^T and dP^T = V dO^T (64 key rows x 64 query columns): B is the Q or dO
+      // tile, K-major (head_dim along its 128-byte rows), 32 bytes a k-step
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_rs(st, ka[kk], wgmma_desc(q_tile + kk * 32, 16, 1024), kk != 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_rs(dpt, va[kk], wgmma_desc(do_tile + kk * 32, 16, 1024), kk != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T
+      // P = 2^(S scale log2 e - lse log2 e), in place of S^T
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(&s_lse[s][8 * j + col]);
+        const float neg_lse2[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[4 * j + e] = ex2(fmaf(st[4 * j + e], scale_log2, neg_lse2[e & 1]));
+      }
+      wgmma_wait<0>();  // dP^T
+      // dS = P (dP - di) scale, in place of dP^T
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(&s_di[s][8 * j + col]);
+        const float dis[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dis[e & 1]) * sm_scale;
+      }
+      // P^T and dS^T rounded to bf16: the accumulator layout is the register A layout of
+      // the k-steps over the tile's 64 query rows
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+      // dV += P^T dO and dK += dS^T Q: B is the dO or Q tile read as it lies (query rows
+      // along k, head_dim contiguous: MN-major), 16 rows (2048 bytes) a k-step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_m64n64k16_rs_tb(dv_acc, pa[kk], wgmma_desc(do_tile + kk * 16 * 128, 16, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_m64n64k16_rs_tb(dk_acc, dsa[kk], wgmma_desc(q_tile + kk * 16 * 128, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[s]);  // the stage goes back to the producer
+    }
+    // a warp's 16 rows of a wgmma accumulator lie as the m16n8 accumulators of mma.sync
+    using Rows = const float(&)[D / 8][4];
+    store_rows(dk, b, h, row0 + 16 * warp, N, reinterpret_cast<Rows>(dk_acc), lane);
+    store_rows(dv, b, h, row0 + 16 * warp, N, reinterpret_cast<Rows>(dv_acc), lane);
+  }
+}
+
 bool grid_fits(int B, int H, int N) {
   return B > 0 && H > 0 && N > 0 && B <= 65535 && H <= 65535;
 }
@@ -400,15 +539,31 @@ extern "C" int tpuhar_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     long long svgb, long long svgh, long long svgn,
                                     void* stream) {
   if (!grid_fits(B, H, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BR - 1) / BR, H, B);
-  flash_bwd_dkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const __nv_bfloat16*>(q), sqb, sqh, sqn},
-      View{static_cast<const __nv_bfloat16*>(k), skb, skh, skn},
-      View{static_cast<const __nv_bfloat16*>(v), svb, svh, svn},
-      View{static_cast<const __nv_bfloat16*>(dout), sdb, sdh, sdn},
+  // once per device: leave to use more than 48 KB of shared memory
+  static bool ready[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device < 0 || device >= 64)
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidDevice);
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DKV_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[device] = true;
+  }
+  const Operand qt{q, B, H, N, sqb, sqh, sqn}, kt{k, B, H, N, skb, skh, skn},
+      vt{v, B, H, N, svb, svh, svn}, dt{dout, B, H, N, sdb, sdh, sdn};
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (!operand_map(&q_map, qt, BQ) || !operand_map(&k_map, kt, KV_ROWS) ||
+      !operand_map(&v_map, vt, KV_ROWS) || !operand_map(&do_map, dt, BQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int order = heads_inner(qt) | heads_inner(kt) << 1 | heads_inner(vt) << 2 | heads_inner(dt) << 3;
+  const dim3 grid((N + KV_ROWS - 1) / KV_ROWS, H, B);
+  flash_bwd_dkv_kernel<<<grid, DKV_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lse), static_cast<const float*>(di),
       OutView{static_cast<__nv_bfloat16*>(dk), skgb, skgh, skgn},
-      OutView{static_cast<__nv_bfloat16*>(dv), svgb, svgh, svgn}, H, N, sm_scale);
+      OutView{static_cast<__nv_bfloat16*>(dv), svgb, svgh, svgn}, H, N, sm_scale, order, q_map,
+      k_map, v_map, do_map);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -153,9 +153,10 @@ FLASH_TIMED_SHAPE = (8, 12, 1568)
 FLASH_BWD_RTOL = 2e-2
 LSE_ATOL = 1e-3
 # (B, H, N): videomae_base at the pretraining batch 16, at 8, at 1 and on 3 heads, the
-# ragged tiny shapes of the forward's cases, and the boundaries of the dK/dV kernel's
-# 128-row key blocks and 64-row query tiles (129: a block of one key row, whose second
-# consumer has none, and a last query tile of one row)
+# ragged tiny shapes of the forward's cases, and the boundaries of the 128-row blocks
+# and 64-row tiles of both backward kernels (dK/dV: key blocks, query tiles; dQ: query
+# blocks, key tiles; 129: a block of one row, whose second consumer has none, and a last
+# tile of one row)
 FLASH_BWD_SHAPES = (
     [(16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568)]
     + [s for s in FLASH_SHAPES if s[2] < 1568]
@@ -451,8 +452,8 @@ def check_flash() -> dict:
 def check_flash_backward() -> dict:
     """The dK/dV and dQ kernels (and the forward's log-sum-exp they read) against
     autograd through the plain attention, on (B, H, N, 64) bf16 views of (B, N, H·64)
-    buffers, as the ViT's attention hands them over; at the pretraining shape, dK/dV bit
-    for bit across two calls (no atomics) and the times."""
+    buffers, as the ViT's attention hands them over; at the pretraining shape, dq and
+    ``di`` and dk and dv bit for bit across two calls (no atomics) and the times."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
     timed = None
@@ -482,7 +483,10 @@ def check_flash_backward() -> dict:
             w[0], w[1] = max(w[0], err), max(w[1], rel)
         del got, want
         if (B, H, N) == FLASH_BWD_TIMED_SHAPE:
-            _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE)
+            first, again = (flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("flash dQ: two calls on the same operands differ (dq or di)")
+            di = first[1]
             first, again = (flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE) for _ in range(2))
             if not all(torch.equal(a, b) for a, b in zip(first, again)):
                 raise AssertionError("flash dK/dV: two calls on the same operands differ")

@@ -202,7 +202,7 @@ def test_cpu_tensors_take_the_plain_paths_whatever_their_shape():
 @pytest.mark.parametrize(
     "B,H,N",
     [(16, 12, 1568), (1, 1, 1), (2, 3, 100), (65535, 1, 5), (65535, 1, 1), (1, 65535, 1), (65535, 65535, 1),
-     (2, 3, 129)],
+     (2, 3, 129), (2, 3, 128), (2, 3, 64)],
 )
 def test_flash_grad_operands_taken(B, H, N):
     check_flash_grad_operands(B, H, N, {"lse": ((B, H, N), True), "di": ((B, H, N), True)})

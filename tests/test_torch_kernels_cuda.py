@@ -431,11 +431,11 @@ def test_vit_slice_on_card_matches_cpu_f32(cuda):
 
 
 # the backward's shapes: videomae_base at the pretraining batch (16), at 8, at 1 and on 3
-# heads (a last block of 32 key rows: its second consumer warpgroup has none, and a last
-# query tile of 32 rows), the ragged tiny shapes of the forward's cases (N below one
-# 64-row tile, ragged, whole tiles), and the boundaries of the dK/dV kernel's 128-row key
-# blocks and 64-row query tiles: N = 64, 127, 128, 129 (a second block of one key row,
-# a last query tile of one valid row) and 200
+# heads (a last block of 32 rows: its second consumer warpgroup has none, and a last
+# tile of 32 rows), the ragged tiny shapes of the forward's cases (N below one 64-row
+# tile, ragged, whole tiles), and the boundaries of the 128-row blocks and 64-row tiles of
+# both backward kernels (dK/dV: key blocks, query tiles; dQ: query blocks, key tiles):
+# N = 64, 127, 128, 129 (a second block of one row, a last tile of one valid row) and 200
 FLASH_BWD_SHAPES = [
     (16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384),
     (2, 3, 64), (2, 3, 127), (2, 3, 128), (2, 3, 129), (2, 3, 200),
@@ -492,24 +492,54 @@ def test_flash_backward_matches_plain(cuda, B, H, N):
 
 @pytest.mark.parametrize("N", [129, 1568])
 def test_flash_dkv_is_deterministic(cuda, N):
-    """dk and dv of the dK/dV kernel bit for bit equal across two calls (no atomics, a fixed
-    order of sums), and the same from contiguous ``(B, H, N, 64)`` operands as from the
-    strided views of ``(B, N, H, 64)`` buffers (the other order of a tensor map's
-    dimensions)."""
+    """dk and dv of the dK/dV kernel, and dq and ``di`` of the dQ kernel, bit for bit equal
+    across two calls (no atomics, a fixed order of sums), and the same from contiguous
+    ``(B, H, N, 64)`` operands as from the strided views of ``(B, N, H, 64)`` buffers (the
+    other order of a tensor map's dimensions)."""
     from tpuhar_torch.ops.flash_lean import flash_lean_bwd_dkv, flash_lean_bwd_dq, flash_lean_with_stats
 
     q, k, v = _attention_case(2, 3, N, cuda, strided=True)
     gen = torch.Generator(device=cuda).manual_seed(5)
     dout = torch.randn((2, N, 3, 64), generator=gen, device=cuda).to(torch.bfloat16).transpose(1, 2)
     _, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
-    _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)
+    packed_ops = [t.contiguous() for t in (q, k, v, dout)]
+    assert not q.is_contiguous() and packed_ops[0].stride()[1] > packed_ops[0].stride()[2]
+    dq_first = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)
+    dq_again = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)
+    dq_packed = flash_lean_bwd_dq(*packed_ops[:3], out_f32, packed_ops[3], lse, 0.125)
+    di = dq_first[1]
     first = flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125)
     again = flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125)
-    packed = flash_lean_bwd_dkv(*(t.contiguous() for t in (q, k, v, dout)), lse, di, 0.125)
-    assert not q.is_contiguous() and q.contiguous().stride()[1] > q.contiguous().stride()[2]
-    for name, a, b, c in zip(("dk", "dv"), first, again, packed):
+    packed = flash_lean_bwd_dkv(*packed_ops, lse, di, 0.125)
+    for name, a, b, c in zip(("dq", "di", "dk", "dv"), (*dq_first, *first), (*dq_again, *again), (*dq_packed, *packed)):
         assert torch.equal(a, b), name
         assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("N", [100, 129])
+def test_flash_dq_masks_key_columns_past_n(cuda, N):
+    """Every score of every row near -128 (q about 4, k about -4 in each column): where
+    the dQ kernel's last 64-row key tile runs past N, its zero-filled key rows have S = 0
+    and exp(S - lse) overflows f32, so P must be 0 there, or dS K gives inf x 0 = NaN.
+    dq, dk and dv finite and within 2e-2 of the plain backward, as at random operands
+    (on the CPU, the kernels' roundings of dS to bf16 on these operands leave dq 4.4e-3
+    and 6.6e-3 off the plain backward: K's common -4 cancels from dS K only in exact
+    arithmetic)."""
+    from tpuhar_torch.ops.flash_lean import flash_lean_backward, flash_lean_backward_reference, flash_lean_with_stats
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, N, 3, 64)
+    q = (4 + torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16).transpose(1, 2)
+    k = (-4 + torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16).transpose(1, 2)
+    v, dout = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    _, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    assert lse.max().item() < -89  # exp(-lse) overflows f32
+    got = flash_lean_backward(q, k, v, out_f32, dout, lse, 0.125)
+    want = flash_lean_backward_reference(q, k, v, dout, 0.125)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        rel = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel.item() <= 2e-2, (name, rel.item())
 
 
 def test_flash_function_gradients_through_attention(cuda):

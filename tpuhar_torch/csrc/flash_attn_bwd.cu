@@ -9,7 +9,7 @@
 //   dS = P o (dP - di) * sm_scale,   dV = P^T dO,   dK = dS^T Q,   dQ = dS K.
 // The TPU computes di in XLA outside its kernels, from its bf16 O; here the dQ kernel
 // computes it from the forward's O in f32 (csrc/flash_attn.cu's `o32`) and the dO rows it
-// loads anyway, and writes it out for the dK/dV kernel, which runs after it on the same
+// holds anyway, and writes it out for the dK/dV kernel, which runs after it on the same
 // stream. di must be the O of the P that the backward recomputes: Sum_j dS_ij = 0 only
 // for that one, and where attention is near uniform (the deep blocks of a model at init)
 // dP - di is a small difference, so the bf16 rounding of O moved dq and dk by up to 9% of
@@ -30,44 +30,47 @@
 // against 0.10 ms of memory traffic.
 //
 // Design: two kernels, so that no block writes what another writes and the result needs
-// no atomics.
-//  - dK/dV (wgmma, TMA): one block per (128 key rows, head, batch), three warpgroups,
-//    launched with 168 registers a thread; setmaxnreg moves them to where they are
-//    needed (24 + 240 + 240 = 3 x 168). Two consumer warpgroups own 64 key rows each;
-//    each Q/dO tile brought in serves all 128, which halves the L2 traffic of Q and dO
-//    against 64-row blocks. K and V of the block's rows arrive once by TMA and go from
-//    shared memory into registers: the register A operands of S^T = K Q^T and
-//    dP^T = V dO^T. One producer warp (registers cut to 24) walks the query tiles of 64
-//    rows: lane 0 brings Q and dO by TMA into a four-stage ring, from 4-D tensor maps
-//    over the strided views (csrc/flash_maps.cuh: rows past N arrive as zeros, every
-//    128-byte row in the swizzle wgmma reads), and the warp brings the tile's lse and di
-//    by 4-byte cp.async (a (B, H, N) row starts on a 16-byte boundary only where
-//    N % 4 == 0, which TMA needs), all counted on the stage's full mbarrier. Per tile a
-//    consumer starts S^T and dP^T (wgmma m64n64k16, B K-major), takes P's exponentials
-//    while dP^T runs, forms dS, and starts dV += P^T dO and dK += dS^T Q with P^T and
-//    dS^T straight from the accumulators (their layout, packed to bf16 pairs, is the
-//    register A layout) and B = the dO or Q tile as it lies (MN-major); then lane 0 of
-//    each warp hands the stage back through its empty mbarrier. While one consumer
-//    computes, the other's products hold the tensor cores. Query rows past N need no
-//    mask: their Q and dO are zeros and their lse and di arrive as 0, so P = 1 there
-//    meets dP = 0, dS = 0 and a zero dO row. A consumer whose 64 key rows all lie past N
-//    (the last block at N = 1568 holds 32 rows) hands every stage straight back.
-//    dK and dV are rounded to bf16 once and stored through strides, 4 bytes a thread.
-//  - dQ (mma.sync): one block per (64 query rows, head, batch), four warps of 16 query
-//    rows each. Q and dO of the block's rows go once from shared memory into registers;
-//    the block walks over the key tiles of 64 rows, K and V brought into a two-stage ring
-//    in shared memory by cp.async (rows past N arrive as zeros; key columns past N are
-//    masked), the next tile on its way while this one is multiplied. dQ += dS K takes dS
-//    straight from the accumulators of the products before it: the m16n8 accumulator
-//    layout, packed to bf16 pairs, is the m16n8k16 A operand. Before its loop it reads the
-//    block's rows of the f32 O too and forms di (two threads a row). Its products are
-//    mma.sync m16n8k16 bf16 -> f32; the B operands come from shared memory by ldmatrix
-//    (.trans where the tile lies with k along its rows), from rows padded to 144 bytes so
-//    that the eight rows of an 8x8 matrix hit distinct banks.
+// no atomics. Both have one shape: one block per (128 rows of one operand pair, head,
+// batch), three warpgroups launched with 168 registers a thread, which setmaxnreg moves
+// to where they are needed (24 + 240 + 240 = 3 x 168). Two consumer warpgroups own 64 of
+// the block's rows each; the block's rows of its two held operands arrive once by TMA
+// and go from shared memory into registers, as the register A operands of the first two
+// products. One producer warp (registers cut to 24) walks the tiles of 64 rows of the
+// other two operands: lane 0 brings them by TMA into a four-stage ring, from 4-D tensor
+// maps over the strided views (csrc/flash_maps.cuh: rows past N arrive as zeros, every
+// 128-byte row in the swizzle wgmma reads), each stage counted on its full mbarrier.
+// Each tile brought in serves all 128 rows, which halves its L2 traffic against 64-row
+// blocks. Per tile a consumer starts its two products (wgmma m64n64k16, B K-major: the
+// tile's head_dim along its 128-byte rows), takes P's exponentials while the second
+// runs, forms dS, and starts its last products with A straight from the accumulators
+// (their layout, packed to bf16 pairs, is the register A layout) and B = a tile as it
+// lies (MN-major); then lane 0 of each warp hands the stage back through its empty
+// mbarrier. While one consumer computes, the other's products hold the tensor cores. A
+// consumer whose 64 rows all lie past N (the last block at N = 1568 holds 32 rows)
+// hands every stage straight back. The results are rounded to bf16 once and stored
+// through strides, 4 bytes a thread.
+//  - dK/dV holds K and V and streams Q and dO: S^T = K Q^T and dP^T = V dO^T, then
+//    dV += P^T dO and dK += dS^T Q. lse and di belong to the streamed query rows, so the
+//    producer warp brings them into the ring by 4-byte cp.async (a (B, H, N) row starts
+//    on a 16-byte boundary only where N % 4 == 0, which TMA needs), arriving on the full
+//    mbarrier beside lane 0's TMA bytes. Query rows past N need no mask: their Q and dO
+//    are zeros and their lse and di arrive as 0, so P = 1 there meets dP = 0, dS = 0 and
+//    a zero dO row.
+//  - dQ holds Q and dO and streams K and V: S = Q K^T and dP = dO V^T, then dQ += dS K.
+//    lse and di belong to the held query rows: two scalars a thread, the same for every
+//    tile, so they are read (lse) and formed (di) once, before the loop: the thread reads
+//    the f32 O at the 16 columns of each of its two rows that its dO fragment holds,
+//    and the four threads of a row sum their parts by shuffles. Query rows past N have
+//    zero Q and dO and lse and di 0: dS = 0 there, and nothing is stored. Key rows past N
+//    arrive as zero K and V rows, so dS K gets nothing from them, but P must be 0 there
+//    (2^(-lse log2 e) overflows where every score of a row is very negative, and
+//    inf x 0 is NaN): the last key tile, where N is not a multiple of 64, is peeled out
+//    of the loop and masked; no other tile is.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "flash_maps.cuh"
 #include "hopper.cuh"
@@ -79,24 +82,14 @@ using flash_maps::operand_map;
 
 namespace {
 
-constexpr int D = 64;          // head_dim
-// the dQ kernel
-constexpr int BR = 64;         // rows a block owns: 16 per warp
-constexpr int BC = 64;         // rows of the other operand per step of the loop
-constexpr int THREADS = 128;   // four warps
-constexpr int LD = D + 8;      // padded shared row in elements (144 bytes)
-constexpr int TILE = BC * LD;  // one staged (64, 64) tile, in elements
+constexpr int D = 64;  // head_dim
 constexpr float LOG2E = 1.4426950408889634f;
 
-struct View {  // a (B, H, N, 64) operand: element strides of batch, head, token
-  const __nv_bfloat16* p;
-  long long sb, sh, sn;
-};
-struct OutView {
+struct OutView {  // a (B, H, N, 64) output: element strides of batch, head, token
   __nv_bfloat16* p;
   long long sb, sh, sn;
 };
-struct View32 {  // the same, f32
+struct View32 {  // the same, an f32 input
   const float* p;
   long long sb, sh, sn;
 };
@@ -110,98 +103,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// ldmatrix.x4 with the transpose: from matrix i lane l receives, in r[i], the elements
-// (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, column l / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t smem) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col). Lane l (g = l / 4,
-// t = l % 4) holds d[0..1] = row g, columns 2t, 2t+1 and d[2..3] = row g + 8; a[0] = row g,
-// k 2t..2t+1, a[1] = row g + 8, a[2] and a[3] the same rows at k + 8; b[0] = k 2t..2t+1 of
-// column g, b[1] = k + 8.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows row0 .. row0 + 63 of one (batch, head) of `v` into a padded shared tile; rows past
-// N arrive as zeros
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long sn, int row0, int N) {
-  for (int i = threadIdx.x; i < BC * (D / 8); i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    const int row = row0 + r;
-    const bool valid = row < N;
-    cp_async16(smem_addr(dst + r * LD + c * 8), src + (valid ? row : 0) * sn + c * 8, valid);
-  }
-}
-
-// a warp's 16 rows of a padded (64, 64) tile as the A operand of four k-steps over the
-// 64 columns
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile,
-                                       int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(a[kk], smem_addr(tile + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                                 16 * kk + 8 * (lane >> 4)));
-}
-
-// acc (16 x 64) = A (the warp's 16 rows, in registers) * T^T, T a padded (64, 64) tile with
-// the product's n along its rows and k along its columns
-__device__ __forceinline__ void mma_abt(float (&acc)[BC / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* t, int lane) {
-#pragma unroll
-  for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int p = 0; p < BC / 16; ++p) {
-      uint32_t b[4];
-      ldmatrix_x4(b, smem_addr(t + (16 * p + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
-                               8 * ((lane >> 3) & 1)));
-      mma16816(acc[2 * p], a[kk], b[0], b[1]);
-      mma16816(acc[2 * p + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// acc (16 x 64) += X (16 x 64, bf16 from the f32 accumulator layout of x) * T, T a padded
-// (64, 64) tile with the product's k along its rows and n along its columns
-__device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4], const float (&x)[BC / 8][4],
-                                       const __nv_bfloat16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BC / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int p = 0; p < D / 16; ++p) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, smem_addr(t + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                                     16 * p + 8 * (lane >> 4)));
-      mma16816(acc[2 * p], a, b[0], b[1]);
-      mma16816(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // the warp's 16 rows of a (16, 64) f32 accumulator, rounded to bf16, at rows row0 .. of
@@ -218,107 +119,6 @@ __device__ __forceinline__ void store_rows(const OutView& out, int b, int h, int
       *reinterpret_cast<uint32_t*>(base + row * out.sn + 8 * n + 2 * (lane & 3)) =
           pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(View q, View k, View v, View32 o, View dout, const float* __restrict__ lse,
-                    float* __restrict__ di, OutView dq, int H, int N, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 s_k[2][TILE];
-  __shared__ __align__(16) __nv_bfloat16 s_v[2][TILE];
-  __shared__ float s_di[BR];
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const __nv_bfloat16* qb = q.p + b * q.sb + h * q.sh;
-  const __nv_bfloat16* kb = k.p + b * k.sb + h * k.sh;
-  const __nv_bfloat16* vb = v.p + b * v.sb + h * v.sh;
-  const float* ob = o.p + b * o.sb + h * o.sh;
-  const __nv_bfloat16* dob = dout.p + b * dout.sb + h * dout.sh;
-  const float scale_log2 = sm_scale * LOG2E;
-  const int kv_tiles = (N + BC - 1) / BC;
-
-  // this block's Q and dO rows through stage 1 (into registers below); key tile 0 into
-  // stage 0
-  load_tile(s_k[1], qb, q.sn, q0, N);
-  load_tile(s_v[1], dob, dout.sn, q0, N);
-  load_tile(s_k[0], kb, k.sn, 0, N);
-  load_tile(s_v[0], vb, v.sn, 0, N);
-  cp_async_commit();
-  // this thread's two rows' lse, scaled by log2 e
-  float lse2[2], di_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + 16 * warp + (lane >> 2) + 8 * half;
-    lse2[half] = row < N ? lse[bh * N + row] * LOG2E : 0.f;
-  }
-  // di = rowsum(O o dO) in f32 from the f32 O, two threads a row, 32 columns each
-  const int di_row = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
-  float4 o_part[D / 8];
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c)
-    o_part[c] = q0 + di_row < N
-                    ? *reinterpret_cast<const float4*>(ob + (q0 + di_row) * o.sn + c0 + 4 * c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-  cp_async_wait<0>();
-  __syncthreads();
-  {
-    const __nv_bfloat16* d_row = s_v[1] + di_row * LD + c0;
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      acc = fmaf(o_part[c].x, __bfloat162float(d_row[4 * c]), acc);
-      acc = fmaf(o_part[c].y, __bfloat162float(d_row[4 * c + 1]), acc);
-      acc = fmaf(o_part[c].z, __bfloat162float(d_row[4 * c + 2]), acc);
-      acc = fmaf(o_part[c].w, __bfloat162float(d_row[4 * c + 3]), acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((threadIdx.x & 1) == 0) {
-      s_di[di_row] = acc;
-      if (q0 + di_row < N) di[bh * N + q0 + di_row] = acc;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int half = 0; half < 2; ++half) di_r[half] = s_di[16 * warp + (lane >> 2) + 8 * half];
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-  load_a(qa, s_k[1], warp, lane);
-  load_a(doa, s_v[1], warp, lane);
-  __syncthreads();  // stage 1 is free for key tile 1
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  for (int j = 0; j < kv_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < kv_tiles) {
-      load_tile(s_k[st ^ 1], kb, k.sn, (j + 1) * BC, N);
-      load_tile(s_v[st ^ 1], vb, v.sn, (j + 1) * BC, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float p[BC / 8][4], ds[BC / 8][4];
-    mma_abt(p, qa, s_k[st], lane);    // S: 16 query rows x 64 key columns
-    mma_abt(ds, doa, s_v[st], lane);  // dP
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * BC + 8 * n + 2 * (lane & 3) + (e & 1);  // key row
-        const int r = e >> 1;
-        const float pe = col < N ? ex2(fmaf(p[n][e], scale_log2, -lse2[r])) : 0.f;
-        ds[n][e] = pe * (ds[n][e] - di_r[r]) * sm_scale;
-      }
-    mma_xt(dq_acc, ds, s_k[st], lane);  // dQ += dS K
-    __syncthreads();
-  }
-  store_rows(dq, b, h, q0 + 16 * warp, N, dq_acc, lane);
 }
 
 // ---- dK/dV: wgmma, with Q, dO, lse and di in a ring fed by one producer warp -----------
@@ -519,8 +319,221 @@ flash_bwd_dkv_kernel(const float* __restrict__ lse, const float* __restrict__ di
   }
 }
 
+// ---- dQ: wgmma, with K and V in a ring fed by one producer warp ------------------------
+constexpr int Q_ROWS = 64 * CONSUMERS;          // query rows a block owns, 64 a consumer
+constexpr int BK = 64;                          // key rows of one tile of the ring
+constexpr int DQ_THREADS = 128 * (CONSUMERS + 1);
+constexpr int QO_BYTES = Q_ROWS * D * 2;        // the block's Q or dO rows: 16 KB
+constexpr int KT_BYTES = BK * D * 2;            // a K or V tile: 8 KB
+constexpr int DQ_STAGE_BYTES = 2 * KT_BYTES;    // K then V
+// Q, dO, the ring, and room to align to 1024 bytes
+constexpr int DQ_SMEM = 2 * QO_BYTES + STAGES * DQ_STAGE_BYTES + 1024;
+
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(View32 o, const float* __restrict__ lse, float* __restrict__ di, OutView dq,
+                    int H, int N, float sm_scale, int heads_inner,
+                    const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[STAGES], empty_bar[STAGES], qo_full;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t q_tile = smem_addr(smem);  // then the dO rows, then STAGES x (K tile, V tile)
+  const uint32_t do_tile = q_tile + QO_BYTES;
+  const uint32_t ring = do_tile + QO_BYTES;
+  const int q0 = blockIdx.x * Q_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int kv_tiles = (N + BK - 1) / BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);               // the producer's lane 0 with the tiles' bytes
+      mbar_init(&empty_bar[s], 4 * CONSUMERS);  // lane 0 of every consumer warp
+    }
+    mbar_init(&qo_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<24>();
+    if (tid == 128 * CONSUMERS) {  // lane 0 of the producer warpgroup
+      // a map's dimensions are (64, heads, tokens, batch) where its bit of heads_inner is
+      // set, else (64, tokens, heads, batch)
+      auto load = [&](uint32_t dst, const CUtensorMap* map, uint64_t* bar, int bit, int row) {
+        if (heads_inner >> bit & 1)
+          tma_load_4d(dst, map, bar, 0, h, row, b);
+        else
+          tma_load_4d(dst, map, bar, 0, row, h, b);
+      };
+      mbar_arrive_expect_tx(&qo_full, 2 * QO_BYTES);
+      load(q_tile, &q_map, &qo_full, 0, q0);
+      load(do_tile, &do_map, &qo_full, 3, q0);
+      for (int t = 0; t < kv_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty_bar[s], ((t / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_bar[s], DQ_STAGE_BYTES);
+        load(ring + s * DQ_STAGE_BYTES, &k_map, &full_bar[s], 1, t * BK);
+        load(ring + s * DQ_STAGE_BYTES + KT_BYTES, &v_map, &full_bar[s], 2, t * BK);
+      }
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<240>();
+    const int warp = (tid & 127) >> 5;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's query rows r0 and r0 + 8 of its 64
+    const int row0 = q0 + 64 * wg;
+    if (row0 >= N) {
+      // the last block's consumer whose 64 query rows all lie past N: hand every tile
+      // straight back, so that the other consumer has the SM to itself
+      for (int t = 0; t < kv_tiles; ++t) {
+        mbar_wait(&full_bar[t % STAGES], (t / STAGES) & 1);
+        if (lane == 0) mbar_arrive(&empty_bar[t % STAGES]);
+      }
+      return;
+    }
+    // this thread's two rows' lse, scaled by log2 e, and the f32 O at the columns of those
+    // rows that its dO fragment will hold: 8 c + col, +1 for c = 0 .. 7 (rows past N: lse
+    // 0 and O 0, where Q and dO are zeros)
+    const long long bh = static_cast<long long>(b) * H + h;
+    const int col = 2 * (lane & 3);
+    float neg_lse2[2];
+    float2 o_part[2][D / 8];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + r0 + 8 * half;
+      const bool valid = row < N;
+      neg_lse2[half] = valid ? -lse[bh * N + row] * LOG2E : 0.f;
+      const float* o_row = o.p + b * o.sb + h * o.sh + (valid ? row : 0) * o.sn + col;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        o_part[half][c] = valid ? *reinterpret_cast<const float2*>(o_row + 8 * c) : make_float2(0.f, 0.f);
+    }
+    // Q and dO rows into registers, once, as the A operands of S = Q K^T and dP = dO V^T
+    uint32_t qa[D / 16][4], doa[D / 16][4];
+    mbar_wait(&qo_full, 0);
+    load_a_swizzled(qa, smem + wg * (64 * 128), r0, lane);
+    load_a_swizzled(doa, smem + QO_BYTES + wg * (64 * 128), r0, lane);
+    // di = rowsum(O o dO) in f32: doa[kk][e] holds row r0 + 8 (e % 2), columns
+    // 16 kk + 8 (e / 2) + col, +1; the four threads of a row add their parts
+    float di_r[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const uint32_t pair = doa[c >> 1][2 * (c & 1) + half];
+        const float2 d2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pair));
+        acc = fmaf(o_part[half][c].x, d2.x, acc);
+        acc = fmaf(o_part[half][c].y, d2.y, acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      di_r[half] = acc;
+      const int row = row0 + r0 + 8 * half;
+      if ((lane & 3) == 0 && row < N) di[bh * N + row] = acc;
+    }
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const float scale_log2 = sm_scale * LOG2E;
+
+    // One tile a step: S and dP as two groups, P's exponentials while dP is still being
+    // multiplied, then dS, then dQ, then the stage goes back. Element i of an accumulator
+    // lies in row r0 + 8 ((i / 2) % 2), key column 8 (i / 4) + col + i % 2 of the tile.
+    // `masked` (the last tile, where N % 64 != 0) sets P to 0 in the columns past N.
+    auto step = [&](int t, auto masked) {
+      const int s = t % STAGES;
+      const uint32_t k_tile = ring + s * DQ_STAGE_BYTES, v_tile = k_tile + KT_BYTES;
+      mbar_wait(&full_bar[s], (t / STAGES) & 1);
+      // S = Q K^T and dP = dO V^T (64 query rows x 64 key columns): B is the K or V tile,
+      // K-major (head_dim along its 128-byte rows), 32 bytes a k-step
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_rs(sc, qa[kk], wgmma_desc(k_tile + kk * 32, 16, 1024), kk != 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_rs(dp, doa[kk], wgmma_desc(v_tile + kk * 32, 16, 1024), kk != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S
+      // P = 2^(S scale log2 e - lse log2 e), in place of S
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2, neg_lse2[(i >> 1) & 1]));
+        if constexpr (decltype(masked)::value)
+          if (t * BK + 8 * (i >> 2) + col + (i & 1) >= N) sc[i] = 0.f;
+      }
+      wgmma_wait<0>();  // dP
+      // dS = P (dP - di) scale, in place of dP, rounded to bf16: the accumulator layout
+      // is the register A layout of the k-steps over the tile's 64 key rows
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) dp[i] = sc[i] * (dp[i] - di_r[(i >> 1) & 1]) * sm_scale;
+      uint32_t dsa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsa[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      // dQ += dS K: B is the K tile read as it lies (key rows along k, head_dim
+      // contiguous: MN-major), 16 rows (2048 bytes) a k-step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n64k16_rs_tb(dq_acc, dsa[kk], wgmma_desc(k_tile + kk * 16 * 128, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[s]);  // the stage goes back to the producer
+    };
+    const bool ragged = N % BK != 0;
+    for (int t = 0; t < kv_tiles - ragged; ++t) step(t, std::false_type{});
+    if (ragged) step(kv_tiles - 1, std::true_type{});
+    // a warp's 16 rows of a wgmma accumulator lie as the m16n8 accumulators of mma.sync
+    using Rows = const float(&)[D / 8][4];
+    store_rows(dq, b, h, row0 + 16 * warp, N, reinterpret_cast<Rows>(dq_acc), lane);
+  }
+}
+
 bool grid_fits(int B, int H, int N) {
   return B > 0 && H > 0 && N > 0 && B <= 65535 && H <= 65535;
+}
+
+// once per device and kernel: leave to use `bytes` (more than 48 KB) of shared memory
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[64]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  return cudaSuccess;
+}
+
+// the tensor maps of q, k, v and dO, in boxes of 128 tokens for the operands a block
+// holds (k and v where `hold_kv`, the dK/dV kernel; else q and dO, the dQ kernel) and 64
+// for those it streams, and the order of their dimensions: bit i set where operand i
+// (q, k, v, dO) has its heads inside its tokens
+struct Maps {
+  CUtensorMap q, k, v, d;
+  int order;
+};
+bool make_maps(Maps& m, const Operand& qt, const Operand& kt, const Operand& vt, const Operand& dt,
+               bool hold_kv) {
+  const int qd_rows = hold_kv ? BQ : Q_ROWS, kv_rows = hold_kv ? KV_ROWS : BK;
+  m.order = heads_inner(qt) | heads_inner(kt) << 1 | heads_inner(vt) << 2 | heads_inner(dt) << 3;
+  return operand_map(&m.q, qt, qd_rows) && operand_map(&m.k, kt, kv_rows) &&
+         operand_map(&m.v, vt, kv_rows) && operand_map(&m.d, dt, qd_rows);
 }
 
 }  // namespace
@@ -539,31 +552,19 @@ extern "C" int tpuhar_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     long long svgb, long long svgh, long long svgn,
                                     void* stream) {
   if (!grid_fits(B, H, N)) return static_cast<int>(cudaErrorInvalidValue);
-  // once per device: leave to use more than 48 KB of shared memory
   static bool ready[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess || device < 0 || device >= 64)
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidDevice);
-  if (!ready[device]) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DKV_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready[device] = true;
-  }
-  const Operand qt{q, B, H, N, sqb, sqh, sqn}, kt{k, B, H, N, skb, skh, skn},
-      vt{v, B, H, N, svb, svh, svn}, dt{dout, B, H, N, sdb, sdh, sdn};
-  CUtensorMap q_map, k_map, v_map, do_map;
-  if (!operand_map(&q_map, qt, BQ) || !operand_map(&k_map, kt, KV_ROWS) ||
-      !operand_map(&v_map, vt, KV_ROWS) || !operand_map(&do_map, dt, BQ))
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel, DKV_SMEM, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Maps m;
+  if (!make_maps(m, Operand{q, B, H, N, sqb, sqh, sqn}, Operand{k, B, H, N, skb, skh, skn},
+                 Operand{v, B, H, N, svb, svh, svn}, Operand{dout, B, H, N, sdb, sdh, sdn}, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int order = heads_inner(qt) | heads_inner(kt) << 1 | heads_inner(vt) << 2 | heads_inner(dt) << 3;
   const dim3 grid((N + KV_ROWS - 1) / KV_ROWS, H, B);
   flash_bwd_dkv_kernel<<<grid, DKV_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lse), static_cast<const float*>(di),
       OutView{static_cast<__nv_bfloat16*>(dk), skgb, skgh, skgn},
-      OutView{static_cast<__nv_bfloat16*>(dv), svgb, svgh, svgn}, H, N, sm_scale, order, q_map,
-      k_map, v_map, do_map);
+      OutView{static_cast<__nv_bfloat16*>(dv), svgb, svgh, svgn}, H, N, sm_scale, m.order, m.q,
+      m.k, m.v, m.d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -580,14 +581,17 @@ extern "C" int tpuhar_flash_bwd_dq(const void* q, const void* k, const void* v, 
                                    long long sqgb, long long sqgh, long long sqgn,
                                    void* stream) {
   if (!grid_fits(B, H, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BR - 1) / BR, H, B);
-  flash_bwd_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const __nv_bfloat16*>(q), sqb, sqh, sqn},
-      View{static_cast<const __nv_bfloat16*>(k), skb, skh, skn},
-      View{static_cast<const __nv_bfloat16*>(v), svb, svh, svn},
-      View32{static_cast<const float*>(o), sob, soh, son},
-      View{static_cast<const __nv_bfloat16*>(dout), sdb, sdh, sdn},
-      static_cast<const float*>(lse), static_cast<float*>(di),
-      OutView{static_cast<__nv_bfloat16*>(dq), sqgb, sqgh, sqgn}, H, N, sm_scale);
+  static bool ready[64] = {};
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel, DQ_SMEM, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Maps m;
+  if (!make_maps(m, Operand{q, B, H, N, sqb, sqh, sqn}, Operand{k, B, H, N, skb, skh, skn},
+                 Operand{v, B, H, N, svb, svh, svn}, Operand{dout, B, H, N, sdb, sdh, sdn}, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + Q_ROWS - 1) / Q_ROWS, H, B);
+  flash_bwd_dq_kernel<<<grid, DQ_THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      View32{static_cast<const float*>(o), sob, soh, son}, static_cast<const float*>(lse),
+      static_cast<float*>(di), OutView{static_cast<__nv_bfloat16*>(dq), sqgb, sqgh, sqgn}, H, N,
+      sm_scale, m.order, m.q, m.k, m.v, m.d);
   return static_cast<int>(cudaGetLastError());
 }

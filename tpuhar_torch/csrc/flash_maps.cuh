@@ -1,6 +1,6 @@
 // The tensor maps through which the flash kernels (csrc/flash_attn.cu, the forward, and
-// csrc/flash_attn_bwd.cu, the dK/dV kernel) read their (B, H, N, 64) bf16 operands by
-// TMA. Host code only.
+// csrc/flash_attn_bwd.cu, the dK/dV and dQ kernels) read their (B, H, N, 64) bf16
+// operands by TMA. Host code only.
 #pragma once
 #include <cuda.h>
 #include <stdint.h>

@@ -172,12 +172,12 @@ def flash_lean_backward_reference(q, k, v, dout, sm_scale: Optional[float] = Non
 def check_flash_grad_operands(B: int, H: int, N: int, stats) -> None:
     """Raise ``ValueError`` on saved statistics the backward kernels do not take, from
     shapes and contiguity alone: ``stats`` maps a name (``lse``, ``di``) to ``(shape,
-    contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The dQ kernel's grid of
-    ``⌈N/64⌉ × H × B`` blocks and the dK/dV kernel's of ``⌈N/128⌉ × H × B`` need ``H`` and
-    ``B`` from 1 to 65535 (CUDA's limit on a grid's second and third dimensions) and
-    ``N ≥ 1``. ``q``, ``k``, ``v``, the output and ``dO`` are held to
-    ``check_flash_operand``: the kernels read their rows as 16-byte chunks, the dK/dV
-    kernel through tensor maps."""
+    contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The grids of both kernels,
+    ``⌈N/128⌉ × H × B`` blocks (128 query rows a block for dQ, 128 key rows for dK/dV),
+    need ``H`` and ``B`` from 1 to 65535 (CUDA's limit on a grid's second and third
+    dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``, the output and ``dO`` are held to
+    ``check_flash_operand``: both kernels read q, k, v and dO through tensor maps, and
+    the dQ kernel the f32 output in 8-byte pieces."""
     for name, (shape, contiguous) in stats.items():
         if tuple(shape) != (B, H, N):
             raise ValueError(f"flash backward kernel: {name} {tuple(shape)} != {(B, H, N)}")

@@ -4,8 +4,8 @@ CUDA device, at the pretraining shape (16, 12, 1568, 64).
     python -m tpuhar_torch.time_flash_bwd parent=OTHER/tpuhar_torch/csrc change=tpuhar_torch/csrc
 
 Each ``name=DIR`` names a ``csrc`` directory: its ``flash_attn_bwd.cu`` is compiled on
-its own (with ``-Xptxas -v``: the dK/dV kernel's registers, spills and any note on
-serialized ``wgmma`` are printed) into a library under ``_build/timing/``, loaded with
+its own (with ``-Xptxas -v``: the dK/dV and dQ kernels' registers, spills and any note
+on serialized ``wgmma`` are printed) into a library under ``_build/timing/``, loaded with
 ``ctypes``, and its two entry points are called on the same operands (views of
 ``(B, N, H·64)`` buffers, as the ViT hands them over; the forward's ``lse`` and f32
 output from this tree's forward kernel). Each library's dq, dk and dv are held against
@@ -46,8 +46,9 @@ def build(name: str, csrc: Path) -> ctypes.CDLL:
     for i, line in enumerate(lines):
         if "C75" in line:  # ptxas's notes on wgmma it had to serialize or wait for
             print(f"[ptxas {name}] {line.strip()}")
-        elif "Compiling entry function" in line and "dkv" in line:  # then its properties
-            print(f"[ptxas {name}] " + " | ".join(l.strip() for l in lines[i + 1:i + 4]))
+        elif "Compiling entry function" in line and "flash_bwd_d" in line:  # then its properties
+            kernel = "dkv" if "dkv" in line else "dq"
+            print(f"[ptxas {name} {kernel}] " + " | ".join(l.strip() for l in lines[i + 1:i + 4]))
     lib = ctypes.CDLL(str(so))
     for entry in ("tpuhar_flash_bwd_dkv", "tpuhar_flash_bwd_dq"):
         getattr(lib, entry).argtypes = list(_ext.SIGNATURES[entry])

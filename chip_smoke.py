@@ -11,7 +11,10 @@ Phases; any failed check raises and the exit code is non-zero:
    main paths give it, with both times (CUDA events, after warm-up), the time of one
    PyTorch call that computes the same function where there is one, and the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations over the peak
-   rate of their type): the featurizer, the bf16 conv (beside ``F.conv2d``), the int8
+   rate of their type): the featurizer (its time a CUDA graph's per launch, the
+   wrapper's host time per call apart, at batch 8, 256 and 8192: a few microseconds of
+   device work, which events around eager calls would measure as the host's pace),
+   the bf16 conv (beside ``F.conv2d``), the int8
    stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
    mapped codes) and the int8 conv (both bit for bit; the int8 conv beside
    ``torch._int_mm`` on its im2col matrix and beside the bf16 conv's time, with their
@@ -102,9 +105,11 @@ from tpuhar_torch.ops.video import normalize_clip
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
 from tpuhar_torch.train.checkpoint import restore_checkpoint
 from tpuhar_torch.train.loop import CrossModalTrainer
+from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
+FEATURIZE_BATCHES = (8, 256, 8192)  # latency, throughput, and 98 MB a call: past the L2
 CONV_RTOL = 2e-2  # bf16 out: |kernel - plain| / max |plain|
 COSINE_MIN = 0.99  # bf16 on the card against f32 on the CPU, same parameters
 # the int8 tower on the card against the CPU's plain path on the same tree: the int8
@@ -235,6 +240,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def check_featurizer(rng) -> dict:
+    """The featurizer against its plain version at the serving shape, then at batch 8,
+    256 and 8192 its device time a launch (a CUDA graph of 100 launches replayed between
+    two events: no host in the way) apart from its wrapper's host time a call (a host
+    clock around 1000 calls)."""
     raw = torch.from_numpy(rng.normal(0, 8000, (256, 250, 6)).astype(np.float32)).cuda()
     cases = [
         {}, {"kernel_size": 1}, {"kernel_size": 4}, {"normalize": False},
@@ -248,15 +257,31 @@ def check_featurizer(rng) -> dict:
         if not err <= FEATURIZE_ATOL:
             raise AssertionError(f"fused_window {kw}: max abs diff {err} > {FEATURIZE_ATOL}")
         worst = max(worst, err)
-    ms = cuda_ms(lambda: featurize_windows_auto(raw), 200)
+    raws = {b: torch.from_numpy(rng.normal(0, 8000, (b, 250, 6)).astype(np.float32)).cuda()
+            for b in FEATURIZE_BATCHES if b != 256}
+    raws[256] = raw
+    device_ms, host = {}, {}
+    for b in FEATURIZE_BATCHES:
+        x = raws[b]
+        err = (featurize_windows_auto(x) - featurize_windows(x)).abs().max().item()
+        if not err <= FEATURIZE_ATOL:
+            raise AssertionError(f"fused_window ({b}, 250, 6): max abs diff {err} > {FEATURIZE_ATOL}")
+        worst = max(worst, err)
+        device_ms[b] = graph_ms(lambda: featurize_windows_auto(x))
+        host[b] = host_ms(lambda: featurize_windows_auto(x))
+        # f32 in and out; ~20 f32 operations per sample: unit scale, the median-of-5's
+        # compare-exchanges, the mean and variance sums, the z-score
+        b_bound = bound(2 * x.numel() * 4, {"f32": 20 * x.numel()})
+        print(f"[kernel] fused_window ({b}, 250, 6): max abs diff {err:.3e}; device {device_ms[b] * 1e3:.3f} us "
+              f"a launch (CUDA graph), wrapper host {host[b] * 1e3:.3f} us a call, bound "
+              f"{b_bound['bound_ms'] * 1e3:.3f} us ({b_bound['bound_by']})")
     plain_ms = cuda_ms(lambda: featurize_windows(raw), 200)
-    # f32 in and out; ~20 f32 operations per sample: unit scale, the median-of-5's
-    # compare-exchanges, the mean and variance sums, the z-score
     b = bound(2 * raw.numel() * 4, {"f32": 20 * raw.numel()})
-    print(f"[kernel] fused_window (256, 250, 6): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"[kernel] fused_window (256, 250, 6): kernel {device_ms[256]:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
-            "shape": "(256, 250, 6) f32"}
+    return {"max_abs_err": worst, "ms": device_ms[256], "plain_ms": plain_ms, "library_ms": None, **b,
+            "host_ms": host[256], "shape": "(256, 250, 6) f32",
+            "device_ms_by_batch": device_ms, "host_ms_by_batch": host}
 
 
 def check_conv3x3() -> dict:

@@ -14,7 +14,15 @@ from tpuhar_torch.ops.flash_lean import (
     check_flash_scale,
     flash_lean,
 )
-from tpuhar_torch.ops.fused_window import check_fused_window_operand, median_taps
+from tpuhar_torch.ops.fused_window import (
+    MAX_LANE,
+    SMEM_MAX,
+    LaunchPlan,
+    check_fused_window_operand,
+    featurize_windows_auto,
+    launch_plan,
+    median_taps,
+)
 from tpuhar_torch.ops.stem import check_stem_u8_shapes
 
 
@@ -259,6 +267,52 @@ def test_fused_window_operand_taken(shape, k):
 def test_fused_window_operand_refused(shape, dtype, contiguous, k, match):
     with pytest.raises(ValueError, match=match):
         check_fused_window_operand(shape, dtype, contiguous, k)
+
+
+@pytest.mark.parametrize(
+    "B,T,k,plan",
+    [
+        # the serving path: 8 samples a lane, rows of 32·8 + 2·2 floats for 6 channels
+        (256, 250, 5, LaunchPlan("registers", 256, 192, 6 * 260 * 4, 8)),
+        (8, 250, 5, LaunchPlan("registers", 8, 192, 6 * 260 * 4, 8)),
+        (8192, 250, 4, LaunchPlan("registers", 8192, 192, 6 * 260 * 4, 8)),
+        # the register form's edges: a lane's share rounded up to a power of two, up to 32
+        (3, 1, 5, LaunchPlan("registers", 3, 192, 6 * 36 * 4, 1)),
+        (3, 32, 5, LaunchPlan("registers", 3, 192, 6 * 36 * 4, 1)),
+        (3, 33, 5, LaunchPlan("registers", 3, 192, 6 * 68 * 4, 2)),
+        (3, 256, 31, LaunchPlan("registers", 3, 192, 6 * 260 * 4, 8)),
+        (3, 257, 31, LaunchPlan("registers", 3, 192, 6 * 516 * 4, 16)),
+        (3, 1023, 9, LaunchPlan("registers", 3, 192, 6 * 1028 * 4, 32)),
+        (3, 1024, 8661, LaunchPlan("registers", 3, 192, 6 * 1028 * 4, 32)),
+        # past it, the tiled form: a tile of 1024 samples and the median's halo
+        (3, 1025, 5, LaunchPlan("tiled", 3, 192, 1025 * 6 * 4, 0)),
+        (3, 2048, 3, LaunchPlan("tiled", 3, 192, 1026 * 6 * 4, 0)),
+        (2, 100_000, 7, LaunchPlan("tiled", 2, 192, 1030 * 6 * 4, 0)),
+        # the longest spans the operand check takes
+        (1, 9685, 1_000_001, LaunchPlan("tiled", 1, 192, 9685 * 6 * 4, 0)),
+        (1, 50_000, 8661, LaunchPlan("tiled", 1, 192, 9684 * 6 * 4, 0)),
+    ],
+)
+def test_fused_window_launch_plan(B, T, k, plan):
+    assert launch_plan(B, T, k) == plan
+
+
+def test_fused_window_register_form_covers_each_window_once():
+    """For every T of the register form, the fewest samples a lane that is a power of
+    two covers the window, and the block's rows fit the 48 KB of static shared memory."""
+    for T in range(1, 32 * MAX_LANE + 1):
+        plan = launch_plan(1, T, 5)
+        n = plan.per_lane
+        assert plan.form == "registers" and n & (n - 1) == 0 and n <= MAX_LANE
+        assert 32 * n >= T and (n == 1 or 16 * n < T)
+        assert plan.smem_bytes <= 48 * 1024
+    assert launch_plan(1, 32 * MAX_LANE + 1, 5).form == "tiled"
+    assert launch_plan(1, 9685, 10**9).smem_bytes <= SMEM_MAX < launch_plan(1, 9686, 10**9).smem_bytes
+
+
+def test_fused_window_refuses_a_device_without_a_kernel():
+    with pytest.raises(ValueError, match="CUDA"):
+        featurize_windows_auto(torch.empty((2, 250, 6), device="meta"))
 
 
 def test_flash_f32_operand_rows_of_16_bytes():

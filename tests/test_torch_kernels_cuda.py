@@ -72,6 +72,87 @@ def test_fused_window_ties_and_zero_pads(cuda):
         )
 
 
+def _windows(B, T, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).normal(0, 8000, (B, T, 6)).astype(np.float32)).to(device)
+
+
+def _featurize_matches_plain(raw, **kw):
+    before = featurize_windows_auto.launches
+    got = featurize_windows_auto(raw, **kw)
+    assert featurize_windows_auto.launches == before + 1
+    torch.testing.assert_close(got, featurize_windows(raw, **kw), rtol=0, atol=1e-5)
+
+
+# the serving shape at one window, the latency batch and a batch whose 98 MB a call
+# exceed the L2 cache
+@pytest.mark.parametrize("B", [1, 8, 8192])
+def test_fused_window_serving_batches(cuda, B):
+    _featurize_matches_plain(_windows(B, 250, B, cuda))
+
+
+# both edges of the register form (T <= 1024, a lane's samples rounded up to a power of
+# two) and the tiled form just past it, at the filters of each code path
+@pytest.mark.parametrize("k", [0, 3, 5, 9, 31])
+@pytest.mark.parametrize("T", [31, 32, 33, 1023, 1024, 1025])
+def test_fused_window_form_edges(cuda, T, k):
+    _featurize_matches_plain(_windows(3, T, T + k, cuda), kernel_size=k)
+
+
+# odd T: every other window starts 8 bytes off a 16-byte boundary, and the 16-byte body
+# of each is framed by a scalar head and tail
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("T", [1, 3, 7, 249, 251, 1001])
+def test_fused_window_odd_lengths(cuda, T, k):
+    """The scaled median, exact in f32, equals the plain version's bit for bit. The
+    z-score is held against float64 on those medians: its f32 error is that of the mean,
+    at most (T / 32 + 6) roundings of the largest sample (each lane's sum, then five
+    shuffle folds and the division), over the std. That is 1e-5 where the samples spread,
+    and more in a short window whose medians nearly agree (T = 3, k = 3 gives a channel
+    of 223.4142, 223.4142, 221.8524, whose z-score any f32 order misses by ~2e-5)."""
+    raw = _windows(5, T, T * k, cuda)
+    m = featurize_windows_auto(raw, kernel_size=k, normalize=False)
+    torch.testing.assert_close(m, featurize_windows(raw, kernel_size=k, normalize=False), rtol=0, atol=0)
+    z = featurize_windows_auto(raw, kernel_size=k).double()
+    m = m.double()
+    std = m.std(-1, correction=0, keepdim=True)
+    want = (m - m.mean(-1, keepdim=True)) / (std + 1e-8)
+    tol = 1e-5 + (T / 32 + 6) * 2.0**-24 * m.abs().amax(-1, keepdim=True) / (std + 1e-8)
+    assert ((z - want).abs() <= tol).all(), ((z - want).abs() / tol).max().item()
+
+
+# a base 4, 8 and 12 bytes past a 16-byte boundary: a contiguous view into a flat buffer
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("T", [250, 251, 2048])
+def test_fused_window_unaligned_base(cuda, T, offset):
+    raw = _windows(4, T, offset, cuda)
+    flat = torch.empty(offset + raw.numel(), device=cuda)
+    view = flat[offset:].view(raw.shape)
+    view.copy_(raw)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    _featurize_matches_plain(view)
+    torch.testing.assert_close(featurize_windows_auto(view), featurize_windows_auto(raw), rtol=0, atol=0)
+
+
+def test_fused_window_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph and replayed on new input, the kernel gives the eager
+    call's output bit for bit."""
+    raw = _windows(256, 250, 11, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        featurize_windows_auto(raw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = featurize_windows_auto(raw)
+    raw.copy_(_windows(256, 250, 12, cuda))
+    before = featurize_windows_auto.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert featurize_windows_auto.launches == before  # a replay calls no wrapper
+    torch.testing.assert_close(captured, featurize_windows_auto(raw), rtol=0, atol=0)
+
+
 def test_fused_window_refuses(cuda):
     raw = torch.zeros((2, 250, 6), device=cuda)
     with pytest.raises(ValueError):

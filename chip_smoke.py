@@ -51,7 +51,16 @@ Phases; any failed check raises and the exit code is non-zero:
     without flash, TF32 off), beside the bf16 step with the plain attention: the loss,
     the SigLIP scalars' gradients and the whole gradient; and each of the step's flash
     backwards against the plain f32 backward on its own operands;
-15. the train step's time at batch 16, samples/s and peak memory.
+15. the train step's time at batch 16, samples/s and peak memory;
+16. the serving engine (``serving.InferenceEngine``) at full width: the bf16 flagship and
+    its int8-resident form at batch sizes 8 and 256, the ``videomae_base`` ViT with
+    ``fast_attention=True`` at 8 and 64, each size one CUDA graph. The launches each graph
+    holds (counted at capture: a replay calls no wrapper) against the eager forward's;
+    ``predict`` at 8 against the eager program of phases 4, 6 and 8 on the same padded
+    inputs and ``predict_stream`` over four batches against ``predict``, bit for bit; at
+    each size the replay's time on device-resident inputs beside the eager step's,
+    ``predict``'s split into host prep, upload, replay and readback, ``predict_stream``'s
+    time a batch, ``benchmark_engine`` and ``latency_summary``.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -102,11 +111,13 @@ from tpuhar_torch.ops.fused_window import featurize_windows_auto
 from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
 from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, to_patch_major, verify_byte_map
 from tpuhar_torch.ops.video import normalize_clip
+from tpuhar_torch.serving import InferenceEngine, benchmark_engine
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
 from tpuhar_torch.train.checkpoint import restore_checkpoint
 from tpuhar_torch.train.loop import CrossModalTrainer
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
+from tpuhar_torch.utils.profiling import StepProfiler
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
 FEATURIZE_BATCHES = (8, 256, 8192)  # latency, throughput, and 98 MB a call: past the L2
@@ -205,6 +216,13 @@ PRETRAIN_LOSS_RTOL = 2e-2
 SCALAR_GRAD_RTOL = 5e-3
 WHOLE_COSINE_MIN = 0.8
 GRAD_NOISE_FLOOR = 1e-4
+# the serving engine: each engine's registered batch sizes, and the iterations of its
+# timings at each size (cut to keep the run short; the widths are the full ones)
+ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
+ENGINE_TIMING_ITERS = {8: 20, 64: 3, 256: 3}
+ENGINE_BENCH_ITERS = {8: 10, 64: 2, 256: 2}  # benchmark_engine: predicts after its first
+STREAM_SIZES = (8, 5, 8, 3)  # predict_stream's four batches, held to predict
+STREAM_TIMED_BATCHES = 4  # predict_stream timed at each registered size
 # the card's peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -722,6 +740,103 @@ def vit_request(seed: int, batch: int):
     return torch.from_numpy(imu), torch.from_numpy(rng.integers(0, 256, (batch, 16, 224, 224, 3), dtype=np.uint8))
 
 
+def engine_request(seed: int, n: int, cfg):
+    """Seeded raw IMU counts and a uint8 NHWC clip, as a user hands them to the engine."""
+    rng = np.random.default_rng(seed)
+    d = cfg.data
+    H, W = d.video_resize
+    imu = rng.normal(0, 8000.0, (n, d.imu_window_size, d.imu_channels)).astype(np.float32)
+    return imu, rng.integers(0, 256, (n, d.video_frames_per_window, H, W, 3), dtype=np.uint8)
+
+
+def bitwise_equal(got: dict, want: dict, what: str) -> None:
+    """Fail unless every output of ``want`` equals ``got``'s bit for bit, naming the
+    first that does not with its largest difference."""
+    for key, value in want.items():
+        if not np.array_equal(got[key], value):
+            diff = np.abs(got[key].astype(np.float64) - np.asarray(value, np.float64)).max()
+            raise AssertionError(f"{what}: {key} differs by up to {diff:.3e}")
+
+
+def check_engine(path: str, engine, eager, expected: dict, counters: dict, kernels: dict, smi: str) -> None:
+    """Warm up and capture ``engine`` with every launch count set to 0 before and read
+    after; hold its graphs' launches to ``expected`` (one eager forward's), its
+    ``predict`` at 8 to ``eager`` on the same padded inputs and ``predict_stream`` to
+    ``predict``, bit for bit; then time each registered size."""
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = {name: counter.launches for name, counter in counters.items()}
+    print(f"[{path}] warmup: an eager call and a capture at each of {engine.batch_sizes} in {warm_s:.1f} s; "
+          f"launches {counts}; launches a replay {engine.graph_launches}")
+    for b, launches in engine.graph_launches.items():
+        for name, n in expected.items():
+            if launches.get(name, 0) != n:
+                raise AssertionError(f"{path} batch {b}: the graph holds {launches.get(name, 0)} {name} launches, "
+                                     f"the eager forward {n}")
+    for name, n in counts.items():  # each size: one eager call, one capture
+        if n != 2 * len(engine.batch_sizes) * expected.get(name, 0):
+            raise AssertionError(f"{path}: warmup launched {name} {n} times")
+        kernels[name].setdefault("launches_by_path", {})[path] = engine.graph_launches[8].get(name, 0)
+
+    cfg = engine.config
+    imu, clip = engine_request(400, 8, cfg)
+    got = engine.predict(imu, clip)
+    args = [torch.from_numpy(a).cuda() for a in engine._pad_to(imu, clip, 8)]
+    want = {k: v.cpu().numpy() for k, v in eager(*args).items()}
+    bitwise_equal(got, want, f"{path} predict at 8 vs the eager program")
+    if not np.array_equal(got["preds"], want["logits"].argmax(-1)) or got["preds"].dtype != np.int32:
+        raise AssertionError(f"{path}: preds are not the int32 argmax of the logits")
+    batches = [engine_request(410 + i, n, cfg) for i, n in enumerate(STREAM_SIZES)]
+    outs = list(engine.predict_stream(iter(batches)))
+    if len(outs) != len(batches):
+        raise AssertionError(f"{path}: predict_stream gave {len(outs)} outputs for {len(batches)} batches")
+    for i, (out, batch) in enumerate(zip(outs, batches)):
+        bitwise_equal(out, engine.predict(*batch), f"{path} predict_stream batch {i} vs predict")
+    print(f"[{path}] predict at 8 equals the eager program bit for bit ({', '.join(want)}; preds its argmax); "
+          f"predict_stream over {len(batches)} batches of {STREAM_SIZES} equals predict bit for bit")
+
+    for b in engine.batch_sizes:
+        iters = ENGINE_TIMING_ITERS[b]
+        inputs = engine._graphs[b].inputs
+        replay_ms = cuda_ms(lambda: engine._replay(b), iters)
+        eager_ms = cuda_ms(lambda: eager(*inputs), iters)
+        imu, clip = engine_request(420, b, cfg)
+        split = np.zeros(4)
+        for _ in range(iters):
+            t = [time.perf_counter()]
+            args = engine._pad_to(imu, clip, b)
+            t.append(time.perf_counter())
+            engine._upload(b, args)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            engine._replay(b)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            engine._readback(b)
+            t.append(time.perf_counter())
+            split += np.diff(t) * 1e3
+        prep, upload, replay, readback = split / iters
+        stream = [(imu, clip)] * STREAM_TIMED_BATCHES
+        for _ in range(2):  # the first pass allocates the pinned buffers, which PyTorch then caches
+            t0 = time.perf_counter()
+            for _ in engine.predict_stream(stream):
+                pass
+            stream_ms = (time.perf_counter() - t0) / len(stream) * 1e3
+        engine.profiler = StepProfiler()  # benchmark_engine's percentiles: its own calls only
+        bench = benchmark_engine(engine, b, ENGINE_BENCH_ITERS[b])
+        print(f"[{path}] batch {b}: graph replay {replay_ms:.3f} ms vs eager step {eager_ms:.3f} ms on "
+              f"device-resident inputs ({eager_ms / replay_ms:.2f}x); predict split: host prep {prep:.3f} ms, "
+              f"upload {upload:.3f} ms, replay {replay:.3f} ms, readback {readback:.3f} ms ({iters} calls); "
+              f"predict_stream {stream_ms:.3f} ms a batch over {len(stream)} batches (depth 2) ({smi})")
+        print(f"[{path}] batch {b}: benchmark_engine ({ENGINE_BENCH_ITERS[b]} iterations) "
+              f"{json.dumps({k: round(v, 3) for k, v in bench.items()})}; latency_summary "
+              f"{json.dumps({k: round(v, 3) for k, v in engine.latency_summary().items()})} ({smi})")
+
+
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
 
@@ -993,6 +1108,28 @@ def main() -> None:
                 f"[timing] {name} batch {batch}: step {ms:.3f} ms, {batch / ms * 1e3:.1f} inf/s, "
                 f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})"
             )
+
+    # the serving engine at full width: bf16, int8-resident and the ViT with flash
+    H, W = cfg.data.video_resize
+    calib = (np.random.default_rng(0).random((2, cfg.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+    engines = {
+        "engine_bf16": (dict(config=cfg, variables=params), fn,
+                        {"fused_window": 1, "conv3x3_bn_act": 4}),
+        "engine_int8_resident": (dict(config=cfg, variables=params, quantize_calib_clips=calib,
+                                      quantize_resident=True, verify_byte_map=True), fn8,
+                                 {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5}),
+        "engine_vit": (dict(config=cfg_vit, variables=params_vit, fast_attention=True), fn_vit,
+                       {"fused_window": 1, "flash_lean": VIT_CONFIGS[cfg_vit.model.video_backbone][0]}),
+    }
+    for path, (kw, eager, expected) in engines.items():
+        t0 = time.perf_counter()
+        engine = InferenceEngine(batch_sizes=ENGINE_SIZES[path], device="cuda", **kw)
+        print(f"[{path}] built in {time.perf_counter() - t0:.1f} s")
+        check_engine(path, engine, eager, expected, counters, kernels, smi)
+        del engine
+        torch.cuda.empty_cache()
+    for name, k in kernels.items():
+        k["launches"] = sum(k["launches_by_path"].values())
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -676,3 +676,139 @@ def test_flash_backward_refuses(cuda):
         flash_lean_bwd_dq(q, k, v, out, out, lse, 0.125)
     with pytest.raises(ValueError, match="di"):
         flash_lean_bwd_dkv(q, k, v, out, lse, di[:, :1], 0.125)
+
+
+# the serving engine on the card: one program per serving path at a small depth (4
+# frames of 64², videomae_tiny) and the kernels' full widths, batch sizes 2 and 4
+ENGINE_SIZE, ENGINE_FRAMES = 64, 4
+
+
+def _engine_case(path, device):
+    """``(config, engine kwargs, eager forward at the same parameters, launches of each
+    serving kernel in one forward)`` for one serving path."""
+    from tpuhar_torch.bridge import init_params
+    from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config, vit_config
+
+    vit = path.startswith("vit")
+    cfg = vit_config() if vit else flagship_config()
+    if vit:
+        cfg.model.video_backbone = "videomae_tiny"
+    cfg.data.video_resize, cfg.data.video_frames_per_window = (ENGINE_SIZE, ENGINE_SIZE), ENGINE_FRAMES
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "stem_gemm_u8", "conv3x3_i8", "flash_lean"), 0)
+    launches["fused_window"] = 1
+    if path.startswith("int8"):
+        clips = np.random.default_rng(0).integers(0, 256, (2, ENGINE_FRAMES, ENGINE_SIZE, ENGINE_SIZE, 3), dtype=np.uint8)
+        resident = path == "int8_resident"
+        kw = dict(quantize_calib_clips=clips, quantize_resident=resident, verify_byte_map=True)
+        fn, _ = build_int8_forward(cfg, 4, device=device, params=params, calib_clips=clips, resident=resident)
+        launches.update(stem_gemm_u8=1, conv3x3_i8=5)
+    else:
+        # unfolded: the clip normalized on the device with statistics made at build time
+        fold = not path.endswith("unfolded")
+        kw = dict(fast_attention=True, fold_normalize=fold) if vit else dict(fold_normalize=fold)
+        fn, _ = build_forward(cfg, 4, device=device, params=params, fold_normalize=fold)
+        launches.update({"flash_lean": 4} if vit else {"conv3x3_bn_act": 4})
+    return cfg, params, kw, fn, launches
+
+
+def _engine_request(n, seed):
+    rng = np.random.default_rng(seed)
+    imu = rng.normal(0, 8000, (n, 250, 6)).astype(np.float32)
+    return imu, rng.integers(0, 256, (n, ENGINE_FRAMES, ENGINE_SIZE, ENGINE_SIZE, 3), dtype=np.uint8)
+
+
+def _assert_bitwise(got, want, what):
+    """Every output of ``want`` equal in ``got``, bit for bit, or the output named
+    with its largest difference."""
+    for key, value in want.items():
+        value = np.asarray(value)
+        if not np.array_equal(got[key], value):
+            diff = np.abs(got[key].astype(np.float64) - value.astype(np.float64)).max()
+            raise AssertionError(f"{what}: {key} differs from the eager call by up to {diff:.3e}")
+
+
+@pytest.mark.parametrize("path", ["bf16", "bf16_unfolded", "int8_resident", "int8_baseline", "vit", "vit_unfolded"])
+def test_engine_replays_the_eager_program(cuda, path):
+    """One CUDA graph per registered size, each holding the eager forward's kernel
+    launches; a replay (``predict``, padded 3 → 4 and 2 → 2) equals the eager program on
+    the same padded inputs bit for bit, and ``predict_stream`` equals ``predict``."""
+    from tpuhar_torch.serving import InferenceEngine, kernel_launches
+
+    cfg, params, kw, eager, launches = _engine_case(path, cuda)
+    engine = InferenceEngine(cfg, params, batch_sizes=[4, 2], device=cuda, **kw)
+    engine.warmup()
+    assert sorted(engine._graphs) == [2, 4]
+    assert engine.graph_launches == {2: launches, 4: launches}
+    requests = [_engine_request(n, 10 + n) for n in (3, 2, 4)]
+    for imu, video in requests:
+        b = engine._padded_size(len(imu))
+        before = kernel_launches()
+        got = engine.predict(imu, video)
+        assert kernel_launches() == before  # a replay calls no wrapper
+        args = [torch.from_numpy(a).to(cuda) for a in engine._pad_to(imu, video, b)]
+        want = {k: v[: len(imu)].cpu().numpy() for k, v in eager(*args).items()}
+        _assert_bitwise(got, want, f"{path} batch {b}")
+        np.testing.assert_array_equal(got["preds"], want["logits"].argmax(-1))
+        assert got["preds"].dtype == np.int32
+    batches = [requests[0], {"imu": requests[1][0], "video": requests[1][1]}, requests[2], requests[0]]
+    for depth in (1, 2, 3):
+        outs = list(engine.predict_stream(iter(batches), depth=depth))
+        assert len(outs) == len(batches)
+        for out, batch in zip(outs, batches):
+            imu, video = (batch["imu"], batch["video"]) if isinstance(batch, dict) else batch
+            _assert_bitwise(out, engine.predict(imu, video), f"{path} stream depth {depth}")
+
+
+def test_imu_only_engine_with_scorers_replays_eagerly(cuda):
+    """IMU-only serving (the featurizer, the IMU encoder and head) with a calibration
+    temperature and the Mahalanobis, RMD and KNN scorers captured in the graph: a
+    replay equals the same program called eagerly, bit for bit."""
+    from tpuhar_torch import ood
+    from tpuhar_torch.bridge import init_params
+    from tpuhar_torch.entry import flagship_config
+    from tpuhar_torch.models.crossmodal import IMUClassifier
+    from tpuhar_torch.serving import InferenceEngine
+
+    cfg = flagship_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0), IMUClassifier)
+    rng = np.random.default_rng(0)
+    emb, labels = rng.normal(size=(300, cfg.model.imu_d_model)).astype(np.float32), rng.integers(0, 32, 300)
+    engine = InferenceEngine(
+        cfg, params, imu_only=True, batch_sizes=[8], temperature=2.0, device=cuda,
+        mahalanobis=ood.MahalanobisScorer.fit(emb, labels, 32),
+        extra_scorers={"rmd": ood.RelativeMahalanobisScorer.fit(emb, labels, 32), "knn": ood.KNNScorer.fit(emb, k=10)},
+    )
+    engine.warmup()
+    assert engine.graph_launches[8]["fused_window"] == 1
+    imu = _engine_request(6, 3)[0]
+    got = engine.predict(imu)
+    want = engine._forward(*(torch.from_numpy(a).to(cuda) for a in engine._pad_to(imu, None, 8)))
+    _assert_bitwise(got, {k: v[:6].cpu().numpy() for k, v in want.items()}, "imu_only")
+    assert {"mahalanobis", "rmd", "knn"} <= set(got)
+    _assert_bitwise(next(iter(engine.predict_stream([imu]))), got, "imu_only stream")
+
+
+def test_engine_capture_error_propagates(cuda):
+    """A program that waits for the device cannot be captured: the error leaves
+    ``warmup`` (and ``predict``), and no graph is kept; nothing runs it eagerly
+    instead."""
+    from tpuhar_torch.serving import InferenceEngine
+
+    cfg, params, kw, _, _ = _engine_case("bf16", cuda)
+    engine = InferenceEngine(cfg, params, batch_sizes=[2], device=cuda, **kw)
+    program = engine._program
+
+    def waits(imu_raw, video_u8):
+        logits, emb = program(imu_raw, video_u8)
+        if logits.sum().item() != logits.sum().item():  # a device sync: illegal under capture
+            raise AssertionError("NaN logits")
+        return logits, emb
+
+    engine._program = waits
+    with pytest.raises(RuntimeError):
+        engine.warmup()
+    assert not engine._graphs
+    with pytest.raises(RuntimeError):
+        engine.predict(*_engine_request(2, 1))
+    torch.cuda.synchronize()

@@ -126,7 +126,8 @@ def _draw(mod: nn.Module, name: str, shape: Tuple[int, ...], generator: torch.Ge
 
 def init_params(config, generator: torch.Generator, model_cls: Optional[type] = None) -> Dict:
     """A fresh flax-layout variable tree for ``model_cls(config)`` (default
-    ``FusionClassifier``; ``CrossModalModel`` for pretraining), drawn from ``generator``
+    ``FusionClassifier``; ``CrossModalModel`` for pretraining, ``IMUClassifier`` for
+    IMU-only serving), drawn from ``generator``
     with flax's initialisers and in flax's leaf shapes: truncated lecun-normal kernels (a
     ``DenseGeneral``'s drawn as its ``(in, out)`` matrix, as flax draws it), zero biases,
     LayerNorm 1/0, ``cls_token``/``pos_encoding`` ~ N(0, σ) with the module's

@@ -27,7 +27,7 @@ from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import to_patch_major
-from .ops.video import prepare_clip
+from .ops.video import clip_stats, normalize_clip
 from .train.factory import build_crossmodal_task
 
 
@@ -90,6 +90,37 @@ def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = 
     return build_crossmodal_task(cfg, steps_per_epoch, params, device=device)
 
 
+def featurize(cfg, imu_raw: torch.Tensor) -> torch.Tensor:
+    """The serving featurization of ``cfg.data``: raw counts ``(B, T, 6)`` → ``(B, 6,
+    T)`` f32 (``ops/fused_window.featurize_windows_auto``)."""
+    d = cfg.data
+    return featurize_windows_auto(
+        imu_raw, kernel_size=d.median_filter_kernel, normalize=d.normalize_imu, racc=d.Racc, rgyro=d.Rgyro,
+    )
+
+
+def fusion_program(cfg, params: Dict, *, device, fold_normalize: bool = True):
+    """The fusion model of ``cfg`` on ``device`` in ``cfg.model.compute_dtype``, as
+    ``(fn(imu_raw, video_u8) -> (logits, embeddings), folded)``: ``params`` is a
+    flax-layout tree before any folding; ``folded`` says whether the ImageNet
+    normalization went into the stem (the clip is then consumed raw), else the clip is
+    normalized on the device with statistics made here, once. ``cfg`` is used as it is
+    (``build_forward`` and ``serving.InferenceEngine`` make their overrides first)."""
+    dtype = getattr(torch, cfg.model.compute_dtype)
+    folded = False
+    if fold_normalize:
+        params, folded = fold_normalization(params, cfg)
+    model = load_variables(FusionClassifier(cfg, dtype=dtype), params).to(device).eval()
+    mean, std = clip_stats(device)
+
+    @torch.inference_mode()
+    def run(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        video = video_u8.to(dtype) if folded else normalize_clip(video_u8, mean=mean, std=std)
+        return model(featurize(cfg, imu_raw), video)
+
+    return run, folded
+
+
 def build_forward(
     cfg,
     batch: int,
@@ -116,13 +147,9 @@ def build_forward(
         cfg = copy.deepcopy(cfg)
         cfg.model.gelu_approximate = True
     d = cfg.data
-    dtype = getattr(torch, cfg.model.compute_dtype)
     if params is None:
         params = init_params(cfg, torch.Generator().manual_seed(seed))
-    folded = False
-    if fold_normalize:
-        params, folded = fold_normalization(params, cfg)
-    model = load_variables(FusionClassifier(cfg, dtype=dtype), params).to(device).eval()
+    run, folded = fusion_program(cfg, params, device=device, fold_normalize=fold_normalize)
 
     H, W = d.video_resize
     video_example = np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8)
@@ -136,15 +163,7 @@ def build_forward(
     @torch.inference_mode()
     def forward(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Raw sensor counts + uint8 pixels → logits, OOD scores and embeddings."""
-        imu = featurize_windows_auto(
-            imu_raw,
-            kernel_size=d.median_filter_kernel,
-            normalize=d.normalize_imu,
-            racc=d.Racc,
-            rgyro=d.Rgyro,
-        )
-        video = video_u8.to(dtype) if folded else prepare_clip(video_u8)
-        logits, fused = model(imu, video)
+        logits, fused = run(imu_raw, video_u8)
         return {
             "logits": logits,
             "msp": msp_score(logits),

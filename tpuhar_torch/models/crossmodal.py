@@ -1,6 +1,6 @@
 """Composite models (``tpuhar/models/crossmodal.py``): the cross-modal contrastive
-model that pretraining trains, and the cross-attention IMU+video fusion classifier that
-the serving forwards run."""
+model that pretraining trains, the cross-attention IMU+video fusion classifier that
+the serving forwards run, and the IMU classifier that IMU-only serving runs."""
 from __future__ import annotations
 
 import math
@@ -69,6 +69,28 @@ class CrossModalModel(nn.Module):
         in the dtype they were built in and the gradients reach the f32 leaves."""
         params = {name: p.to(self.use_dtypes[name]) for name, p in self.named_parameters()}
         return torch.func.functional_call(self, params, args, kwargs)
+
+
+class IMUClassifier(nn.Module):
+    """IMU encoder + classifier head on the encoder's 128-d feature (``tpuhar/models/
+    crossmodal.py: IMUClassifier``), the eval forward only.
+
+    ``forward(imu (B, C, T))`` → ``(logits (B, num_classes) f32, feat (B, imu_d_model)
+    f32)``; the feature is the embedding the OOD scorers read.
+    """
+
+    def __init__(self, config, *, dtype=None):
+        super().__init__()
+        m = config.model
+        dtype = dtype or getattr(torch, m.compute_dtype)
+        self.imu_encoder = build_imu_encoder(config, dtype)
+        self.classifier = ClassifierHead(
+            m.imu_d_model, m.classifier_hidden_dims, m.num_classes, norm=m.head_norm, dtype=dtype
+        )
+
+    def forward(self, imu):
+        feat, _ = self.imu_encoder(imu)
+        return self.classifier(feat), feat
 
 
 class FusionClassifier(nn.Module):

@@ -17,7 +17,6 @@ the int8 program emits the other's logit distribution.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -25,7 +24,7 @@ import torch
 
 from .bridge import load_variables
 from .models.crossmodal import FusionClassifier
-from .ood import energy_score, msp_score
+from .ood import energy_score, full_f32, msp_score
 from .ops.fused_window import featurize_windows_auto
 from .ops.quant import (
     calibrate_tpucnn,
@@ -71,24 +70,17 @@ def fit_logit_recalibration(
     return a.astype(np.float32), b.astype(np.float32)
 
 
-@contextlib.contextmanager
-def full_f32():
-    """Full f32 for matmuls and cuDNN convolutions inside the scope (no TF32)."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def _check_backbone(cfg) -> None:
     backbone = cfg.model.video_backbone
-    if backbone not in _TPU_CNN_BACKBONES:
-        raise NotImplementedError(
-            f"the quantized path of the port supports {_TPU_CNN_BACKBONES}, not "
-            f"{backbone!r}: resnet18 is ROADMAP item 10, the ViT towers item 9"
-        )
+    if backbone in _TPU_CNN_BACKBONES:
+        return
+    if "/" in backbone or "videomae" in backbone.lower():
+        where = "the ViT int8 towers are ROADMAP queue 1 item 4"
+    else:
+        where = "resnet18 and the other towers are ROADMAP queue 1 item 5"
+    raise NotImplementedError(
+        f"the quantized path of the port supports {_TPU_CNN_BACKBONES}, not {backbone!r}: {where}"
+    )
 
 
 def quantized_forward(
@@ -104,7 +96,8 @@ def quantized_forward(
     """``fn(imu_raw, video_u8)`` over a quantized tree ``q`` (on ``device``) and a
     ``FusionClassifier`` holding the same variables; ``projection`` is the video
     encoder's ``{"kernel", "bias"}``, applied in f32 to the tower's features.
-    ``fn.recalibration`` is the affine logit map ``(a, b)`` or None."""
+    ``fn.recalibration`` is the affine logit map ``(a, b)`` or None; ``fn.core`` is the
+    same program without the OOD scores, ``(imu_raw, video_u8) -> (logits, embeddings)``."""
     d = cfg.data
     tower = quant_tpucnn_forward_resident if resident else quant_tpucnn_forward
     proj_kernel = torch.tensor(np.asarray(projection["kernel"], np.float32), device=device)
@@ -115,9 +108,8 @@ def quantized_forward(
     model_dtype = model.video_to_fusion.weight.dtype
 
     @torch.inference_mode()
-    def forward(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Raw sensor counts + the uint8 patch-major clip → logits, OOD scores and
-        embeddings."""
+    def core(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw sensor counts + the uint8 patch-major clip → (logits, embeddings)."""
         B, T = video_u8.shape[:2]
         imu = featurize_windows_auto(
             imu_raw, kernel_size=d.median_filter_kernel, normalize=d.normalize_imu,
@@ -128,6 +120,13 @@ def quantized_forward(
         logits, fused = model.fuse_with_tokens(imu, tokens.to(model_dtype))
         if recal is not None:
             logits = recal[0] * logits + recal[1]
+        return logits, fused
+
+    @torch.inference_mode()
+    def forward(imu_raw: torch.Tensor, video_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Raw sensor counts + the uint8 patch-major clip → logits, OOD scores and
+        embeddings."""
+        logits, fused = core(imu_raw, video_u8)
         return {
             "logits": logits,
             "msp": msp_score(logits),
@@ -137,6 +136,7 @@ def quantized_forward(
 
     forward.recalibration = recalibration
     forward.quantized_tree = q
+    forward.core = core
     return forward
 
 
@@ -178,7 +178,8 @@ def build_quantized_forward(
     model's own program. ``calib_imu_raw`` optionally pairs ``(Ncal, window,
     channels)`` raw IMU counts with the clips for that fit; without it seeded
     surrogate counts are used. ``fn.recalibration`` is ``(a, b)`` or None;
-    ``fn.quantized_tree`` the quantized tower.
+    ``fn.quantized_tree`` the quantized tower; ``fn.core`` the program without the OOD
+    scores.
 
     ``resident=True`` serves through ``quant_tpucnn_forward_resident`` (int8 between
     the convs), else ``quant_tpucnn_forward``. The activation calibration runs on the CPU

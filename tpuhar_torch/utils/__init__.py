@@ -1,0 +1,2 @@
+"""Host-side utilities of the port (``tpuhar.utils`` counterparts): the serving
+engine's rolling latency profile (``profiling.StepProfiler``)."""

@@ -41,7 +41,8 @@ Phases; any failed check raises and the exit code is non-zero:
     plain attention on the card, with the forward's log-sum-exp, at the pretraining
     shapes, the ragged tiny ones and the dK/dV kernel's block boundaries, dK/dV bit for
     bit across two calls, with their times beside the plain backward, the backward of
-    ``F.scaled_dot_product_attention`` and the bound;
+    ``F.scaled_dot_product_attention`` and the bound; and the training forward (the
+    log-sum-exp and the f32 output stored) beside SDPA's forward at batch 16;
 13. cross-modal SigLIP pretraining of ``videomae_base`` at full width and depth
     (``entry.build_pretrain_task(pretrain_config())``): ``CrossModalTrainer.fit`` over one
     epoch of four seeded batches of 16 and one validation batch, with its launch counts
@@ -60,13 +61,26 @@ Phases; any failed check raises and the exit code is non-zero:
     inputs and ``predict_stream`` over four batches against ``predict``, bit for bit; at
     each size the replay's time on device-resident inputs beside the eager step's,
     ``predict``'s split into host prep, upload, replay and readback, ``predict_stream``'s
-    time a batch, ``benchmark_engine`` and ``latency_summary``.
+    time a batch, ``benchmark_engine`` and ``latency_summary``;
+17. the classification stage at full width: the flagship's IMU classifier
+    (``entry.classify_config()``: d=128, 4 layers, 91 tokens, 32 classes) at batch 64,
+    three linear-probe then three finetune steps through ``ClassificationTrainer.fit``
+    (the probe leaves the encoder bit for bit, every head parameter moves); the fusion
+    classifier on ``videomae_base`` with the flash kernels at batch 16 through ``fit``
+    (12 flash forwards with the LSE and 12 launches of each backward kernel a step, 12
+    forwards an eval batch), its first step at batch 4 against the plain f32 path on the
+    card as phase 14 holds pretraining's, its ``last`` checkpoint served through
+    ``InferenceEngine.from_checkpoint`` bit for bit against an engine of the trained
+    variables; the video-only classifier's two steps with the same launches; each
+    program's step time, samples/s and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import shutil
 import subprocess
@@ -79,16 +93,22 @@ import torch
 import torch.nn.functional as F
 
 from tpuhar_torch import _ext
-from tpuhar_torch.bridge import init_params, load_variables
+from tpuhar_torch.bridge import init_params, load_variables, variables_to_numpy
+from tpuhar_torch.config import PathConfig
 from tpuhar_torch.entry import (
+    build_classification_task,
     build_forward,
+    build_fusion_task,
     build_int8_forward,
     build_pretrain_task,
+    build_video_task,
+    classify_config,
     flagship_config,
     pretrain_config,
     vit_config,
 )
-from tpuhar_torch.models.crossmodal import CrossModalModel, FusionClassifier
+from tpuhar_torch.losses import cross_entropy_loss
+from tpuhar_torch.models.crossmodal import CrossModalModel, FusionClassifier, VideoClassifier
 from tpuhar_torch.models.video import VIT_CONFIGS
 from tpuhar_torch.ops.conv3x3 import (
     conv3x3_bn_act,
@@ -114,7 +134,7 @@ from tpuhar_torch.ops.video import normalize_clip
 from tpuhar_torch.serving import InferenceEngine, benchmark_engine
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
 from tpuhar_torch.train.checkpoint import restore_checkpoint
-from tpuhar_torch.train.loop import CrossModalTrainer
+from tpuhar_torch.train.loop import ClassificationTrainer, CrossModalTrainer
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 from tpuhar_torch.utils.profiling import StepProfiler
@@ -216,6 +236,14 @@ PRETRAIN_LOSS_RTOL = 2e-2
 SCALAR_GRAD_RTOL = 5e-3
 WHOLE_COSINE_MIN = 0.8
 GRAD_NOISE_FLOOR = 1e-4
+# the classification stage: the IMU classifier's probe and finetune take three steps of
+# its train_batch_size (64) each, the fusion and video classifiers on videomae_base two
+# of batch 16 (the pretraining batch); the depth cut from train_epochs' 100 epochs of a
+# dataset to these steps. The fusion classifier's first step is held against the plain
+# f32 path at batch 4, with phase 14's tolerances
+CLASSIFY_IMU_STEPS, CLASSIFY_IMU_TIMED_STEPS = 3, 5
+CLASSIFY_BATCH, CLASSIFY_STEPS, CLASSIFY_TIMED_STEPS = 16, 2, 3
+CLASSIFY_CHECK_BATCH = 4
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -560,16 +588,30 @@ def check_flash_backward() -> dict:
                 f"{b_fn['bound_ms']:.4f} ms ({b_fn['bound_by']}); plain backward {plain_ms:.4f} ms; "
                 f"SDPA backward {library_ms:.4f} ms"
             )
+            # the training forward at the same shape (the LSE and the f32 O stored too)
+            # beside one PyTorch call for the attention, SDPA's forward
+            fwd_ms = cuda_ms(lambda: flash_lean_with_stats(q, k, v, SM_SCALE), 20)
+            fwd_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            scores = B * H * N * N
+            b_fwd = bound(6 * tensor + stat, {"bf16": 4 * scores * 64, "f32": 5 * scores})
+            print(f"[kernel] flash forward with stats ({B}, {H}, {N}, 64): kernel {fwd_ms:.4f} ms, "
+                  f"F.scaled_dot_product_attention {fwd_library_ms:.4f} ms, bound {b_fwd['bound_ms']:.4f} ms "
+                  f"({b_fwd['bound_by']})")
             timed = {
                 "dkv": {"ms": dkv_ms, **b_dkv},
                 "dq": {"ms": dq_ms, **b_dq},
                 "common": {"plain_ms": plain_ms, "library_ms": library_ms,
                            "function_bound_ms": b_fn["bound_ms"], "shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} bf16"},
+                "train_forward": {"train_forward_shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} bf16",
+                                  "train_forward_ms": fwd_ms, "train_forward_library_ms": fwd_library_ms,
+                                  "train_forward_bound_ms": b_fwd["bound_ms"]},
             }
-    return {
+    out = {
         name: {"max_abs_err": worst[name][0], "max_rel_err": worst[name][1], **timed[name], **timed["common"]}
         for name in ("dkv", "dq")
     }
+    out["train_forward"] = timed["train_forward"]
+    return out
 
 
 def check_int8_tree_device(served: dict, params) -> None:
@@ -654,18 +696,11 @@ def gradient_agreement(grads: dict, grads_ref: dict, skip) -> tuple:
     return whole, leaves[:3], sum(c < 0.99 for c, _ in leaves)
 
 
-def check_first_step(cfg_card, params, batch: dict) -> None:
-    """The card's first step (bf16, the flash kernels) against the plain path on the card
-    (f32, attention without flash, TF32 off) on the same parameters, batch and dropout,
-    beside the same bf16 step with the plain attention (no hand kernel) as the yardstick
-    of what bf16 itself moves; and each flash backward of the card's step against the
-    plain f32 backward on that layer's own q, k, v and dO."""
-    cfg_plain = pretrain_config()
-    cfg_plain.model.compute_dtype = "float32"
-    cfg_plain.model.use_flash_attention = False
-    cfg_bf16_plain = pretrain_config()
-    cfg_bf16_plain.model.use_flash_attention = False
-    # every flash backward of the card's step, held against the plain one on its operands
+@contextlib.contextmanager
+def in_situ_flash_backwards():
+    """Hold every flash backward run inside the scope against the plain backward in f32
+    on that layer's own q, k, v and dO: yields two lists that fill with, per backward, the
+    kernels' largest relative difference and the plain bf16 backward's."""
     in_situ, plain_bf16 = [], []
     original = flash_lean_module.flash_lean_backward
 
@@ -681,9 +716,24 @@ def check_first_step(cfg_card, params, batch: dict) -> None:
 
     flash_lean_module.flash_lean_backward = checked_backward
     try:
-        loss, grads, _ = first_step_grads(cfg_card, params, batch, seed=7)
+        yield in_situ, plain_bf16
     finally:
         flash_lean_module.flash_lean_backward = original
+
+
+def check_first_step(cfg_card, params, batch: dict) -> None:
+    """The card's first step (bf16, the flash kernels) against the plain path on the card
+    (f32, attention without flash, TF32 off) on the same parameters, batch and dropout,
+    beside the same bf16 step with the plain attention (no hand kernel) as the yardstick
+    of what bf16 itself moves; and each flash backward of the card's step against the
+    plain f32 backward on that layer's own q, k, v and dO."""
+    cfg_plain = pretrain_config()
+    cfg_plain.model.compute_dtype = "float32"
+    cfg_plain.model.use_flash_attention = False
+    cfg_bf16_plain = pretrain_config()
+    cfg_bf16_plain.model.use_flash_attention = False
+    with in_situ_flash_backwards() as (in_situ, plain_bf16):
+        loss, grads, _ = first_step_grads(cfg_card, params, batch, seed=7)
     torch.cuda.empty_cache()
     loss_bf16, grads_bf16, _ = first_step_grads(cfg_bf16_plain, params, batch, seed=7)
     torch.cuda.empty_cache()
@@ -723,6 +773,104 @@ def check_first_step(cfg_card, params, batch: dict) -> None:
           + ", ".join(noise))
     if not whole >= WHOLE_COSINE_MIN:
         raise AssertionError(f"whole-gradient cosine {whole} < {WHOLE_COSINE_MIN}")
+
+
+def classify_batches(cfg, n: int, batch: int, seed: int, *, video: bool) -> list:
+    """Seeded classification batches on the card: featurized IMU windows from raw counts,
+    uint8 NHWC clips where ``video``, labels over the configuration's classes, and
+    ``n_valid``."""
+    d = cfg.data
+    H, W = d.video_resize
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(n):
+        raw = torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0
+        b = {"imu": featurize_windows_auto(raw, kernel_size=d.median_filter_kernel, normalize=d.normalize_imu,
+                                           racc=d.Racc, rgyro=d.Rgyro),
+             "label": torch.randint(0, cfg.model.num_classes, (batch,), generator=gen, device="cuda"),
+             "n_valid": batch}
+        if video:
+            b["video"] = torch.randint(0, 256, (batch, d.video_frames_per_window, H, W, 3), generator=gen,
+                                       device="cuda", dtype=torch.uint8)
+        batches.append(b)
+    return batches
+
+
+def classifier_step_grads(cfg, params, batch: dict, seed: int):
+    """The cross-entropy and every parameter's gradient (f32, by name) of one training
+    forward and backward of the fusion classifier from ``params`` on ``batch`` (dropout
+    from a card generator of ``seed``)."""
+    task = build_fusion_task(cfg, device="cuda", params=params, steps_per_epoch=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with precision_scope(cfg.training.pretrain_matmul_precision):
+        logits, _ = task.model.forward_cast(batch["imu"], normalize_clip(batch["video"]), train=True, generator=gen)
+        loss = cross_entropy_loss(logits, batch["label"])
+        loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float()
+             for n, p in task.model.named_parameters()}
+    return loss.item(), grads
+
+
+def check_first_classifier_step(cfg_card, params, batch: dict) -> None:
+    """The fusion classifier's first step on the card (bf16, the flash kernels) against
+    the plain path on the card (f32, attention without flash, TF32 off) on the same
+    parameters, batch and dropout: the loss and the whole gradient, as phase 14 holds the
+    pretraining step; and each flash backward of the card's step against the plain f32
+    backward on that layer's own operands."""
+    cfg_plain = copy.deepcopy(cfg_card)
+    cfg_plain.model.compute_dtype = "float32"
+    cfg_plain.model.use_flash_attention = False
+    with in_situ_flash_backwards() as (in_situ, plain_bf16):
+        loss, grads = classifier_step_grads(cfg_card, params, batch, seed=7)
+    torch.cuda.empty_cache()
+    loss_ref, grads_ref = classifier_step_grads(cfg_plain, params, batch, seed=7)
+    depth = VIT_CONFIGS[cfg_card.model.video_backbone][0]
+    print(f"[classify check] the card step's {len(in_situ)} flash backwards against the plain f32 backward "
+          f"on their own operands: relative diffs {', '.join(f'{r:.2e}' for r in in_situ)}; the plain bf16 "
+          f"backward's: {', '.join(f'{r:.2e}' for r in plain_bf16)}")
+    if len(in_situ) != depth or not max(in_situ) <= FLASH_BWD_RTOL:
+        raise AssertionError(f"in-situ flash backward: {in_situ} (expected {depth} within {FLASH_BWD_RTOL})")
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"[classify check] fusion batch {batch['imu'].shape[0]} loss: card bf16 {loss:.6f}, plain f32 "
+          f"{loss_ref:.6f}, rel {rel:.3e}")
+    if not rel <= PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"fusion first-step loss: relative diff {rel} > {PRETRAIN_LOSS_RTOL}")
+    rms = {n: g.norm().item() / g.numel() ** 0.5 for n, g in grads_ref.items()}
+    floor = GRAD_NOISE_FLOOR * max(rms.values())
+    noise = [n for n in grads_ref if rms[n] <= floor]
+    whole, lowest, below = gradient_agreement(grads, grads_ref, set(noise))
+    print(f"[classify check] card bf16 (flash kernels) vs plain f32: whole-gradient cosine {whole:.6f}; {below} of "
+          f"{len(grads_ref) - len(noise)} leaves below 0.99, the lowest "
+          + ", ".join(f"{c:.4f} ({name})" for c, name in lowest))
+    print(f"[classify check] {len(noise)} leaves at the rounding floor (RMS <= {floor:.3e}), not compared: "
+          + ", ".join(noise))
+    if not whole >= WHOLE_COSINE_MIN:
+        raise AssertionError(f"fusion whole-gradient cosine {whole} < {WHOLE_COSINE_MIN}")
+
+
+def time_train_step(task, batches: list, generator, steps: int, what: str, smi: str) -> None:
+    """``steps`` train steps on ``batches`` in turn: ms a step, samples/s and peak memory
+    (beside what was allocated before the steps: the earlier phases' programs and the
+    batches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        task.train_step(task.state, batches[i % len(batches)], generator)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    batch = batches[0]["label"].shape[0]
+    print(f"[timing] {what} train step batch {batch}: {step_ms:.3f} ms, {batch / step_ms * 1e3:.1f} samples/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held "
+          f"before the steps ({smi})")
+
+
+def moved(model, before: dict, prefix: str = "") -> tuple:
+    """(names of the parameters under ``prefix`` that moved, those that did not)."""
+    names = [n for n in before if n.startswith(prefix)]
+    still = [n for n in names if torch.equal(dict(model.named_parameters())[n], before[n])]
+    return [n for n in names if n not in still], still
 
 
 def request(seed: int, batch: int):
@@ -841,6 +989,147 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
 
 
+def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
+    """Phase 17: the classification stage at full width. The IMU classifier's linear probe
+    then finetune through ``ClassificationTrainer.fit``; the fusion classifier on
+    ``videomae_base`` through ``fit`` (checkpoints written), its first step against the
+    plain f32 path and its checkpoint served through ``InferenceEngine.from_checkpoint``;
+    the video-only classifier's train steps. Every launch count is set to 0 just before
+    each path and read just after it."""
+    save_root = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_classify"
+    shutil.rmtree(save_root, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def drive_counts(path: str, run, expected: dict):
+        for counter in counters.values():
+            counter.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: counter.launches for name, counter in counters.items()}
+        for name, n in counts.items():
+            kernels[name].setdefault("launches_by_path", {})[path] = n
+        wrong = {name: (counts[name], n) for name, n in expected.items() if counts[name] != n}
+        if wrong:
+            raise AssertionError(f"{path}: launches (counted, expected) {wrong}")
+        return out, counts, seconds
+
+    # the IMU classifier of the flagship at batch 64: three probe steps, then three
+    # finetune steps from the probe's weights
+    cfg_imu = classify_config()
+    cfg_imu.training.train_epochs = 1
+    cfg_imu.paths = PathConfig(base_output=save_root)
+    batch = cfg_imu.training.train_batch_size
+    imu_train = classify_batches(cfg_imu, CLASSIFY_IMU_STEPS, batch, seed=600, video=False)
+    imu_val = classify_batches(cfg_imu, 1, batch, seed=601, video=False)
+    trained = None
+    for mode in ("linear_probe", "finetune"):
+        task = build_classification_task(cfg_imu, mode, device="cuda", params=trained, steps_per_epoch=CLASSIFY_IMU_STEPS)
+        before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+        trainer = ClassificationTrainer(cfg_imu, task.state, task.train_step, task.eval_step,
+                                        save_root / f"imu_{mode}", gen, mode)
+        _, counts, fit_s = drive_counts(f"classify_imu_{mode}", lambda: trainer.fit(imu_train, imu_val),
+                                        dict.fromkeys(counters, 0))
+        history = trainer.history
+        head_moved, head_still = moved(task.model, before, "classifier.")
+        enc_moved, enc_still = moved(task.model, before, "imu_encoder.")
+        print(f"[classify imu {mode}] fit: {CLASSIFY_IMU_STEPS} steps of batch {batch} and 1 validation batch in "
+              f"{fit_s:.1f} s; train {history['train'][0]}, val loss {history['val'][0]['loss']:.6f}, balanced "
+              f"accuracy {history['val'][0]['balanced_accuracy']:.2f}%; {len(head_moved)} of "
+              f"{len(head_moved) + len(head_still)} head and {len(enc_moved)} of {len(enc_moved) + len(enc_still)} "
+              f"encoder parameters moved; launches {counts}")
+        losses = [history["train"][0]["loss"], history["val"][0]["loss"]]
+        if not np.all(np.isfinite(losses)) or task.state.optimizer.count != CLASSIFY_IMU_STEPS:
+            raise AssertionError(f"imu {mode}: losses {losses}, {task.state.optimizer.count} steps")
+        if head_still:
+            raise AssertionError(f"imu {mode}: head parameters did not move: {head_still}")
+        if mode == "linear_probe" and enc_moved:
+            raise AssertionError(f"imu probe: encoder parameters moved: {enc_moved}")
+        if mode == "finetune" and not enc_moved:
+            raise AssertionError("imu finetune: no encoder parameter moved")
+        if mode == "linear_probe":
+            print(f"[classify imu linear_probe] the encoder's {len(enc_still)} parameters are bit for bit as before")
+        trained = variables_to_numpy(task.model)
+        time_train_step(task, imu_train, gen, CLASSIFY_IMU_TIMED_STEPS, f"imu {mode}", smi)
+        del task, trainer, before
+    torch.cuda.empty_cache()
+
+    # the fusion and video classifiers on videomae_base with the flash kernels, batch 16
+    cfg_cls = pretrain_config()
+    cfg_cls.training.train_epochs = 1
+    cfg_cls.paths = PathConfig(base_output=save_root)
+    depth = VIT_CONFIGS[cfg_cls.model.video_backbone][0]
+    cls_train = classify_batches(cfg_cls, CLASSIFY_STEPS, CLASSIFY_BATCH, seed=700, video=True)
+    cls_val = classify_batches(cfg_cls, 1, CLASSIFY_BATCH, seed=701, video=True)
+    t0 = time.perf_counter()
+    params_fusion = init_params(cfg_cls, torch.Generator().manual_seed(0), FusionClassifier)
+    fusion = build_fusion_task(cfg_cls, device="cuda", params=params_fusion, steps_per_epoch=CLASSIFY_STEPS)
+    print(f"[classify fusion] videomae_base fusion classifier built (weights drawn on the host, f32 masters on "
+          f"the card): {time.perf_counter() - t0:.1f} s")
+    before = {n: p.detach().clone() for n, p in fusion.model.named_parameters()}
+    trainer = ClassificationTrainer(cfg_cls, fusion.state, fusion.train_step, fusion.eval_step,
+                                    save_root / "fusion", gen, "finetune")
+    no_other = dict.fromkeys(counters, 0)
+    _, counts, fit_s = drive_counts("classify_fusion", lambda: trainer.fit(cls_train, cls_val), {
+        **no_other, "flash_lean": depth * (CLASSIFY_STEPS + 1),  # each train and eval forward
+        "flash_bwd_dkv": depth * CLASSIFY_STEPS, "flash_bwd_dq": depth * CLASSIFY_STEPS})
+    history = trainer.history
+    head_moved, head_still = moved(fusion.model, before, "classifier.")
+    all_moved, all_still = moved(fusion.model, before)
+    print(f"[classify fusion] fit: {CLASSIFY_STEPS} steps of batch {CLASSIFY_BATCH} and 1 validation batch in "
+          f"{fit_s:.1f} s (first steps included); train {history['train'][0]}, val loss "
+          f"{history['val'][0]['loss']:.6f}; {len(all_moved)} of {len(before)} parameters moved; launches {counts} "
+          f"({depth} flash forwards with the LSE and {depth} of each backward kernel a step)")
+    if not np.all(np.isfinite([history["train"][0]["loss"], history["val"][0]["loss"]])) or head_still:
+        raise AssertionError(f"fusion: history {history}, head parameters still {head_still}")
+    del before
+    trained = variables_to_numpy(fusion.model)
+    # the checkpoint served: an engine restored from 'last' against one of the variables
+    t0 = time.perf_counter()
+    served = InferenceEngine.from_checkpoint(cfg_cls, save_root / "fusion" / "last", device="cuda", batch_sizes=[8])
+    build_s = time.perf_counter() - t0
+    reference = InferenceEngine(cfg_cls, trained, device="cuda", batch_sizes=[8])
+    imu_raw, clip = engine_request(800, 8, cfg_cls)
+    got, want = served.predict(imu_raw, clip), reference.predict(imu_raw, clip)
+    bitwise_equal(got, want, "fusion from_checkpoint predict at 8 vs an engine of the trained variables")
+    if got["logits"].shape != (8, cfg_cls.model.num_classes) or not np.isfinite(got["logits"]).all():
+        raise AssertionError(f"fusion from_checkpoint: logits {got['logits'].shape} not finite")
+    print(f"[classify fusion] InferenceEngine.from_checkpoint('last') built in {build_s:.1f} s; predict at 8 equals "
+          f"an engine of the trained variables bit for bit ({', '.join(want)})")
+    del served, reference, trained
+    torch.cuda.empty_cache()
+    time_train_step(fusion, cls_train, gen, CLASSIFY_TIMED_STEPS, "fusion videomae_base", smi)
+    del fusion, trainer
+    torch.cuda.empty_cache()
+    small = {key: t[:CLASSIFY_CHECK_BATCH] for key, t in cls_train[0].items() if key != "n_valid"}
+    check_first_classifier_step(cfg_cls, params_fusion, small)
+    del params_fusion, small
+    torch.cuda.empty_cache()
+
+    params_video = init_params(cfg_cls, torch.Generator().manual_seed(0), VideoClassifier)
+    video = build_video_task(cfg_cls, device="cuda", params=params_video, steps_per_epoch=CLASSIFY_STEPS)
+    before = {n: p.detach().clone() for n, p in video.model.named_parameters()}
+
+    def video_steps():
+        return [video.train_step(video.state, b, gen)[1]["loss"] for b in cls_train]
+
+    losses, counts, steps_s = drive_counts("classify_video", video_steps, {
+        **no_other, "flash_lean": depth * CLASSIFY_STEPS,
+        "flash_bwd_dkv": depth * CLASSIFY_STEPS, "flash_bwd_dq": depth * CLASSIFY_STEPS})
+    losses = torch.stack(losses).tolist()
+    head_moved, head_still = moved(video.model, before, "classifier.")
+    print(f"[classify video] {CLASSIFY_STEPS} train steps of batch {CLASSIFY_BATCH} in {steps_s:.1f} s (first "
+          f"steps included): losses {losses}; launches {counts}")
+    if not np.all(np.isfinite(losses)) or head_still:
+        raise AssertionError(f"video: losses {losses}, head parameters still {head_still}")
+    del before
+    time_train_step(video, cls_train, gen, CLASSIFY_TIMED_STEPS, "video videomae_base", smi)
+    del video, params_video, cls_train, cls_val
+    torch.cuda.empty_cache()
+    shutil.rmtree(save_root, ignore_errors=True)
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -892,6 +1181,7 @@ def main() -> None:
         **check_flash(),
     }
     bwd = check_flash_backward()
+    kernels["flash_lean"].update(bwd["train_forward"])  # row 5a: #4's kernel with the LSE stored
     kernels["flash_bwd_dkv"] = {
         "name": "flash_bwd_dkv", "route": "cuda",
         "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
@@ -1128,6 +1418,7 @@ def main() -> None:
         check_engine(path, engine, eager, expected, counters, kernels, smi)
         del engine
         torch.cuda.empty_cache()
+    run_classification_stage(counters, kernels, smi)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
 

@@ -812,3 +812,60 @@ def test_engine_capture_error_propagates(cuda):
     with pytest.raises(RuntimeError):
         engine.predict(*_engine_request(2, 1))
     torch.cuda.synchronize()
+
+
+# the classifiers' train steps on the card: videomae_tiny at 4 frames of 64² (32 tokens),
+# bf16 with the flash kernels, batch 4, a LayerNorm head and dropout 0 (the same forward
+# in both runs); held against the plain path on the card (f32, attention without flash,
+# TF32 off): the loss within 2e-2 and the whole gradient, as one vector, at cosine 0.95
+# or more (bf16 against f32 over every leaf)
+CLASSIFY_LOSS_RTOL, CLASSIFY_COSINE_MIN = 2e-2, 0.95
+
+
+@pytest.mark.parametrize("kind", ["video", "fusion"])
+def test_classifier_train_step_launches_the_flash_kernels(cuda, kind):
+    """One ``train_step`` of the video-only or the fusion classifier launches, per ViT
+    block, one flash forward with the LSE and one of each backward kernel; its loss and
+    gradient agree with the plain path's on the same parameters and batch."""
+    import copy
+
+    from tpuhar_torch.bridge import init_params
+    from tpuhar_torch.entry import build_fusion_task, build_video_task, pretrain_config
+    from tpuhar_torch.models.crossmodal import FusionClassifier, VideoClassifier
+    from tpuhar_torch.models.video import VIT_CONFIGS
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq
+
+    cfg = pretrain_config()
+    m = cfg.model
+    m.video_backbone, m.head_norm = "videomae_tiny", "layer"
+    m.imu_dropout = m.classifier_dropout = 0.0
+    cfg.data.video_resize, cfg.data.video_frames_per_window = (ENGINE_SIZE, ENGINE_SIZE), ENGINE_FRAMES
+    model_cls, build = (VideoClassifier, build_video_task) if kind == "video" else (FusionClassifier, build_fusion_task)
+    params = init_params(cfg, torch.Generator().manual_seed(0), model_cls)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {
+        "imu": torch.randn((4, 6, 250), generator=gen, device=cuda),
+        "video": torch.randint(0, 256, (4, ENGINE_FRAMES, ENGINE_SIZE, ENGINE_SIZE, 3), generator=gen,
+                               device=cuda, dtype=torch.uint8),
+        "label": torch.randint(0, m.num_classes, (4,), generator=gen, device=cuda),
+    }
+    depth = VIT_CONFIGS[m.video_backbone][0]
+    results = {}
+    for path, flash in (("flash", True), ("plain", False)):
+        c = copy.deepcopy(cfg)
+        c.model.use_flash_attention = flash
+        c.model.compute_dtype = "bfloat16" if flash else "float32"
+        task = build(c, device=cuda, params=params, steps_per_epoch=1)
+        counters = (flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq)
+        before = [f.launches for f in counters]
+        _, out = task.train_step(task.state, batch, None)
+        torch.cuda.synchronize()
+        launched = [f.launches - b for f, b in zip(counters, before)]
+        assert launched == ([depth] * 3 if flash else [0, 0, 0]), (path, launched)
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                           for p in task.model.parameters()])  # the step's gradient
+        results[path] = (out["loss"].item(), grads)
+    (loss, grads), (loss_ref, grads_ref) = results["flash"], results["plain"]
+    assert abs(loss - loss_ref) <= CLASSIFY_LOSS_RTOL * abs(loss_ref), (loss, loss_ref)
+    cos = torch.nn.functional.cosine_similarity(grads.double(), grads_ref.double(), dim=0).item()
+    assert cos >= CLASSIFY_COSINE_MIN, cos

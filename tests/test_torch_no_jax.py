@@ -8,14 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import (
-    conv3x3_bn_act,
-    conv3x3_bn_act_reference,
-    conv3x3_i8,
-    conv3x3_i8_reference,
-)
-from tpuhar_torch.ops.featurize import featurize_windows
-from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_reference
+from tpuhar_torch.ops import conv3x3 as conv3x3_module
+from tpuhar_torch.ops import flash_lean as flash_lean_module
+from tpuhar_torch.ops import fused_window as fused_window_module
+from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_i8, conv3x3_i8_reference
+from tpuhar_torch.ops.flash_lean import flash_lean
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
 from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference
 
@@ -30,7 +27,9 @@ for name in ("jax", "jaxlib", "flax", "optax"):
 import tpuhar_torch
 names = [m.name for m in pkgutil.walk_packages(tpuhar_torch.__path__, "tpuhar_torch.")]
 for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.train.loop",
-             "tpuhar_torch.train.factory", "tpuhar_torch.train.checkpoint", "tpuhar_torch.train.optim"):
+             "tpuhar_torch.train.factory", "tpuhar_torch.train.checkpoint", "tpuhar_torch.train.optim",
+             "tpuhar_torch.ops.augment", "tpuhar_torch.eval.metrics", "tpuhar_torch.utils.profiling",
+             "tpuhar_torch.serving"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -46,30 +45,61 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    # every module of the package was imported, the training ones (losses, train/*) included
-    assert int(proc.stdout.split()[-1]) >= 29
+    # every module of the package was imported, the training ones (losses, train/*,
+    # ops/augment, eval/metrics, utils/profiling) included
+    assert int(proc.stdout.split()[-1]) >= 30
 
 
-def test_cpu_tensors_take_the_plain_paths():
+def _spy(monkeypatch, module, name: str) -> list:
+    """Replace ``module.name`` with a spy that calls it and records ``(args, kwargs,
+    result)`` of each call."""
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_cpu_tensors_take_the_plain_paths(monkeypatch):
+    """Each wrapper, given CPU tensors, calls its plain version on those very tensors
+    and returns that call's result, bit for bit, and launches nothing. The spies hold
+    the result of the one plain call the wrapper made: a second, separate plain call
+    would be another CPU computation, which MKL and oneDNN need not round the same."""
     rng = np.random.default_rng(0)
     raw = torch.from_numpy(rng.normal(0, 8000, (2, 250, 6)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((2, 4, 4, 32)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((3, 3, 32, 16)).astype(np.float32))
     scale, bias = torch.ones(16), torch.zeros(16)
     q, kv = (torch.from_numpy(rng.standard_normal((1, 2, 40, 32)).astype(np.float32)) for _ in range(2))
+    plain = {
+        "featurize": _spy(monkeypatch, fused_window_module, "featurize_windows"),
+        "conv": _spy(monkeypatch, conv3x3_module, "conv3x3_bn_act_reference"),
+        "flash": _spy(monkeypatch, flash_lean_module, "flash_lean_reference"),
+    }
+
+    def the_plain_call(what, got, args, kwargs):
+        (called_args, called_kwargs, result), = plain[what]
+        plain[what].clear()
+        assert len(called_args) == len(args), what
+        for a, b in zip(called_args, args):  # the very tensors; scalars equal
+            assert a is b if isinstance(b, torch.Tensor) else a == b, what
+        assert called_kwargs == kwargs, what
+        assert torch.equal(got, result) and got.dtype == result.dtype, what
+
     before = featurize_windows_auto.launches, conv3x3_bn_act.launches, flash_lean.launches
-    torch.testing.assert_close(featurize_windows_auto(raw), featurize_windows(raw), rtol=0, atol=0)
+    defaults = dict(kernel_size=5, normalize=True, racc=16384.0, rgyro=16.4)
+    the_plain_call("featurize", featurize_windows_auto(raw), (raw,), defaults)
     # the CPU path takes what the kernel refuses: k=3, f32, C not a multiple of 16 ...
-    torch.testing.assert_close(
-        featurize_windows_auto(raw, kernel_size=3), featurize_windows(raw, kernel_size=3), rtol=0, atol=0
-    )
-    torch.testing.assert_close(
-        conv3x3_bn_act(x, k, scale, bias), conv3x3_bn_act_reference(x, k, scale, bias), rtol=0, atol=0
-    )
+    the_plain_call("featurize", featurize_windows_auto(raw, kernel_size=3), (raw,), {**defaults, "kernel_size": 3})
+    the_plain_call("conv", conv3x3_bn_act(x, k, scale, bias), (x, k, scale, bias, None, True), {})
     # head_dim 32 and f32 on the CPU: the plain attention
-    torch.testing.assert_close(flash_lean(q, kv, kv), flash_lean_reference(q, kv, kv), rtol=0, atol=0)
+    the_plain_call("flash", flash_lean(q, kv, kv), (q, kv, kv, 1.0 / 32**0.5), {})
     bf = [t.to(torch.bfloat16) for t in (q, kv)]
-    torch.testing.assert_close(flash_lean(bf[0], bf[1], bf[1]), flash_lean_reference(bf[0], bf[1], bf[1]), rtol=0, atol=0)
+    the_plain_call("flash", flash_lean(bf[0], bf[1], bf[1]), (bf[0], bf[1], bf[1], 1.0 / 32**0.5), {})
     # ... and launches nothing
     assert (featurize_windows_auto.launches, conv3x3_bn_act.launches, flash_lean.launches) == before
 

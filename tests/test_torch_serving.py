@@ -322,10 +322,11 @@ def test_refusals_match_the_reference(fusion, kw, error, match):
 
 
 def test_what_is_not_ported_raises(fusion, monkeypatch):
-    """The mesh (queue 1 item 8), the centered int8 wire ("Not ported"),
-    ``from_checkpoint`` (item 3), the int8 resnet18 tower (item 5), and the card
-    asked for where there is none; an unknown wire raises as the reference's
-    ``serving.py:202-203`` does (which calibrates first: its test would cost seconds)."""
+    """The mesh (queue 1 item 8), the centered int8 wire ("Not ported"), the int8
+    resnet18 tower (item 5), and the card asked for where there is none; an unknown wire
+    raises as the reference's ``serving.py:202-203`` does (which calibrates first: its
+    test would cost seconds). ``from_checkpoint`` is ported: a path holding no checkpoint
+    raises."""
     cfg, variables, _, _ = fusion
     clips = np.zeros((2, FRAMES, SIZE, SIZE, 3), np.uint8)
     with pytest.raises(ValueError, match="int8_wire must be 'u8' or 'centered', got 'i8'"):
@@ -334,8 +335,8 @@ def test_what_is_not_ported_raises(fusion, monkeypatch):
         InferenceEngine(cfg, variables, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Not ported"):
         InferenceEngine(cfg, variables, quantize_calib_clips=clips, int8_wire="centered", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        InferenceEngine.from_checkpoint(cfg, "checkpoint", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        InferenceEngine.from_checkpoint(cfg, "no/such/checkpoint", device="cpu")
     resnet = _config()
     resnet.model.video_backbone = "resnet18"
     with pytest.raises(NotImplementedError, match="item 5"):

@@ -6,12 +6,14 @@ loader of dict batches, on the CPU.
 """
 import json
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from tpuhar_torch.bridge import init_params, variables_to_numpy
+from tpuhar_torch.config import PathConfig
 from tpuhar_torch.entry import build_pretrain_task, pretrain_config
 from tpuhar_torch.models.crossmodal import CrossModalModel
 from tpuhar_torch.train import checkpoint as ckpt
@@ -57,6 +59,7 @@ class Loader:
 
 
 def _trainer(cfg, save_dir, params):
+    cfg.paths = PathConfig(base_output=Path(save_dir))  # the metric stream: <save_dir>/logs
     task = build_pretrain_task(cfg, device="cpu", params=params, steps_per_epoch=2)
     trainer = CrossModalTrainer(cfg, task.state, task.train_step, task.eval_step, save_dir,
                                 generator=torch.Generator().manual_seed(0))
@@ -147,3 +150,18 @@ def test_trainer_resume_continues_from_epoch(tmp_path):
     assert len(t2.history["val"]) == 4  # history carried over and extended
     assert t2.history["train"][:2] == t1.history["train"]
     assert t2.state.step == t2.state.optimizer.count == 8
+
+
+def test_fit_writes_the_pretrain_metric_rows(tmp_path):
+    """One row an epoch in ``<paths.logs_dir>/<save_dir name>.jsonl`` and ``.csv``, with the
+    JAX trainer's keys: step, time, stage "pretrain", train_loss, val_loss."""
+    params = init_params(_config(), torch.Generator().manual_seed(0), CrossModalModel)
+    trainer = _trainer(_config(epochs=2), tmp_path / "pretrain", params)
+    trainer.fit(Loader(1, 4, seed=2), Loader(1, 4, seed=3))
+    rows = trainer.metrics_logger.read()
+    assert trainer.metrics_logger.jsonl_path == tmp_path / "pretrain" / "logs" / "pretrain.jsonl"
+    assert [list(r) for r in rows] == [["step", "time", "stage", "train_loss", "val_loss"]] * 2
+    assert [(r["step"], r["stage"], r["train_loss"], r["val_loss"]) for r in rows] == [
+        (i, "pretrain", trainer.history["train"][i], trainer.history["val"][i]) for i in range(2)
+    ]
+    assert trainer.metrics_logger.csv_path.read_text().splitlines()[0] == "step,time,stage,train_loss,val_loss"

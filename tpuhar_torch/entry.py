@@ -1,5 +1,6 @@
 """The entry points of the port: the serving forwards (twins of
-``__graft_entry__._build_forward``) and the pretraining task.
+``__graft_entry__._build_forward``), the pretraining task and the classification
+stage's tasks.
 
 Raw IMU counts ``(B, 250, 6)`` and a uint8 clip go through the fused window
 featurizer, the IMU transformer, the video tower (ImageNet normalization folded into
@@ -10,7 +11,10 @@ the clip shipped patch-major) or the ``videomae_base`` ViT (``vit_config``, the 
 NHWC, attention through the flash kernel); ``build_int8_forward`` runs the ``tpu_cnn``
 tower's int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
 reports as its headline. ``build_pretrain_task`` builds the cross-modal SigLIP
-pretraining of ``pretrain_config`` (``tpuhar/cli.py: Pipeline.run_pretraining``).
+pretraining of ``pretrain_config`` (``tpuhar/cli.py: Pipeline.run_pretraining``);
+``build_classification_task`` the IMU classifier's linear probe or finetune of
+``classify_config`` (``Pipeline.run_classification``), ``build_video_task`` and
+``build_fusion_task`` the video-only and fusion classifiers.
 """
 from __future__ import annotations
 
@@ -22,13 +26,13 @@ import torch
 
 from .bridge import init_params, load_variables
 from .config import Config
-from .models.crossmodal import CrossModalModel, FusionClassifier
+from .models.crossmodal import CrossModalModel, FusionClassifier, IMUClassifier, VideoClassifier
 from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import to_patch_major
 from .ops.video import clip_stats, normalize_clip
-from .train.factory import build_crossmodal_task
+from .train import factory
 
 
 def flagship_config(compute_dtype: str = "bfloat16"):
@@ -77,6 +81,11 @@ def pretrain_config():
     return cfg
 
 
+def _params(cfg, params: Optional[Dict], seed: int, model_cls) -> Dict:
+    """``params``, or a tree of ``model_cls`` drawn from ``torch.Generator().manual_seed(seed)``."""
+    return init_params(cfg, torch.Generator().manual_seed(seed), model_cls) if params is None else params
+
+
 def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int):
     """The pretraining task of ``cfg`` on ``device`` (``train/factory.Task``: the model
     with f32 master weights, its ``TrainState`` and ``train_step``/``eval_step``).
@@ -85,9 +94,68 @@ def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = 
     with ``init_params`` from ``torch.Generator().manual_seed(seed)``);
     ``steps_per_epoch`` sets the schedule. Batches are ``{"imu": (B, C, T) featurized f32,
     "video": (B, T, H, W, 3) uint8}`` on ``device``."""
-    if params is None:
-        params = init_params(cfg, torch.Generator().manual_seed(seed), CrossModalModel)
-    return build_crossmodal_task(cfg, steps_per_epoch, params, device=device)
+    return factory.build_crossmodal_task(cfg, steps_per_epoch, _params(cfg, params, seed, CrossModalModel), device=device)
+
+
+def classify_config():
+    """The classification stage's configuration: the flagship's IMU classifier
+    (``flagship_config``: the transformer encoder at d=128 with 4 layers and 8 heads on
+    91 tokens, the LayerNorm head 256 → 128 → 32 classes with dropout 0.3, bf16 compute
+    with f32 masters) trained at ``train_batch_size`` 64: AdamW with weight decay 0.01,
+    the head at 1e-3 and the encoder at 1e-6 (finetune), each decaying to 1e-7 over
+    ``train_epochs``, clipping at 1.0."""
+    cfg = flagship_config()
+    cfg.training.train_batch_size = 64
+    return cfg
+
+
+def build_classification_task(
+    cfg,
+    mode: str,
+    *,
+    device,
+    seed: int = 0,
+    params: Optional[Dict] = None,
+    steps_per_epoch: int,
+    encoder_params: Optional[Dict] = None,
+    encoder_batch_stats: Optional[Dict] = None,
+):
+    """The IMU classifier's task in ``mode`` ("linear_probe" or "finetune") on ``device``.
+
+    ``params`` is an ``IMUClassifier`` tree (``None`` draws one from ``seed``);
+    ``encoder_params`` (and ``encoder_batch_stats``) replace its ``imu_encoder``, such as
+    the subtree of a pretraining state's ``bridge.variables_to_numpy``. Batches are
+    ``{"imu": (B, C, T) featurized f32, "label": (B,) int}`` on ``device`` (plus
+    ``"n_valid"`` for ``predict_step``)."""
+    return factory.build_classification_task(
+        cfg, mode, steps_per_epoch, _params(cfg, params, seed, IMUClassifier),
+        encoder_params=encoder_params, encoder_batch_stats=encoder_batch_stats, device=device,
+    )
+
+
+def build_video_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int):
+    """The video-only classifier's task on ``device`` (``params`` a ``VideoClassifier``
+    tree, ``None`` draws one from ``seed``). Batches are ``{"video": (B, T, H, W, 3)
+    uint8, "label"}``."""
+    return factory.build_video_task(cfg, steps_per_epoch, _params(cfg, params, seed, VideoClassifier), device=device)
+
+
+def build_fusion_task(
+    cfg,
+    *,
+    device,
+    seed: int = 0,
+    params: Optional[Dict] = None,
+    steps_per_epoch: int,
+    encoder_params: Optional[Dict] = None,
+):
+    """The fusion classifier's task on ``device`` (``params`` a ``FusionClassifier``
+    tree, ``None`` draws one from ``seed``; ``encoder_params`` replaces its
+    ``imu_encoder``). Batches are ``{"imu", "video" (B, T, H, W, 3) uint8, "label"}``."""
+    return factory.build_fusion_task(
+        cfg, steps_per_epoch, _params(cfg, params, seed, FusionClassifier),
+        encoder_params=encoder_params, device=device,
+    )
 
 
 def featurize(cfg, imu_raw: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Contrastive and classification losses (``tpuhar/losses.py``): SigLIP, InfoNCE and
-cross-entropy, as plain functions of embeddings and logits. Focal loss and label
-smoothing come with the classification stage.
+"""Contrastive and classification losses (``tpuhar/losses.py``): SigLIP, InfoNCE,
+cross-entropy, focal, label-smoothed and class-weighted cross-entropy, as plain
+functions of embeddings and logits, and ``get_loss_function``, the factory by name.
 
 Quirk Q2 of the reference: its SigLIP is ``BCEWithLogits(logits·labels, (labels+1)/2)``
 with ``labels = 2·eye − 1``, whose off-diagonal term degenerates to the attractive
@@ -8,6 +8,8 @@ with ``labels = 2·eye − 1``, whose off-diagonal term degenerates to the attra
 ``quirk_sign_flip=True`` reproduces the reference's formula.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -46,15 +48,43 @@ def siglip_loss(imu_embeds, video_embeds, log_temperature, bias, *, quirk_sign_f
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+    """``"mean"``, ``"sum"``, or anything else: the per-row values as they are."""
+    if reduction == "mean":
+        return x.mean()
+    if reduction == "sum":
+        return x.sum()
+    return x
+
+
 def cross_entropy_loss(logits, labels, *, reduction: str = "mean"):
     """Softmax cross-entropy over integer labels, in f32."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
-    if reduction == "mean":
-        return nll.mean()
-    if reduction == "sum":
-        return nll.sum()
-    return nll
+    return _reduce(nll, reduction)
+
+
+def focal_loss(logits, labels, *, alpha: float = 1.0, gamma: float = 2.0, reduction: str = "mean"):
+    """Focal loss ``alpha·(1 − p_t)^gamma · CE``, with ``p_t = exp(−CE)``."""
+    ce = cross_entropy_loss(logits, labels, reduction="none")
+    pt = torch.exp(-ce)
+    return _reduce(alpha * (1.0 - pt) ** gamma * ce, reduction)
+
+
+def label_smoothing_cross_entropy(logits, labels, *, epsilon: float = 0.1, reduction: str = "mean"):
+    """Cross-entropy against ``(1 − epsilon)·one_hot + epsilon/n``."""
+    n = logits.shape[-1]
+    logp = F.log_softmax(logits.float(), dim=-1)
+    one_hot = F.one_hot(labels.long(), n).to(logp.dtype)
+    smoothed = one_hot * (1.0 - epsilon) + epsilon / n
+    return _reduce(-(smoothed * logp).sum(dim=-1), reduction)
+
+
+def weighted_cross_entropy_loss(logits, labels, class_weights):
+    """Class-weighted cross-entropy: ``Σ w_y·nll / max(Σ w_y, 1e-8)``."""
+    nll = cross_entropy_loss(logits, labels, reduction="none")
+    w = torch.as_tensor(class_weights, device=nll.device)[labels.long()]
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
 
 
 def infonce_loss(imu_embeds, video_embeds, temperature: float = 0.07, *, n_valid=None):
@@ -74,3 +104,19 @@ def infonce_loss(imu_embeds, video_embeds, temperature: float = 0.07, *, n_valid
     w = valid.to(torch.float32)
     denom = torch.clamp(w.sum(), min=1.0)
     return ((nll_i2v * w).sum() + (nll_v2i * w).sum()) / (2.0 * denom)
+
+
+def get_loss_function(loss_name: str, **kwargs):
+    """The loss named ``loss_name`` ("sigmoid_contrastive", "infonce", "cross_entropy",
+    "focal", "label_smoothing"), with ``kwargs`` bound."""
+    table = {
+        "sigmoid_contrastive": siglip_loss,
+        "infonce": infonce_loss,
+        "cross_entropy": cross_entropy_loss,
+        "focal": focal_loss,
+        "label_smoothing": label_smoothing_cross_entropy,
+    }
+    if loss_name not in table:
+        raise ValueError(f"Unknown loss function: {loss_name}")
+    fn = table[loss_name]
+    return functools.partial(fn, **kwargs) if kwargs else fn

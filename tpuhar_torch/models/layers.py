@@ -173,21 +173,26 @@ class PreNormBlock(nn.Module):
 
 class CrossAttentionBlock(nn.Module):
     """Pre-norm cross-attention + MLP block; the MLP's GELU is flax's default tanh
-    approximation."""
+    approximation. With ``train=True`` and a ``dropout`` rate, dropout acts on the
+    attention weights (``MultiHeadDotProductAttention``'s) and on both branches before
+    their residual adds, its masks drawn from ``generator``."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dtype=torch.float32):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
+        self.dropout_rate = dropout
         self.norm_q = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.norm_kv = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
-        self.cross_attn = MultiHeadDotProductAttention(d_model, num_heads, dtype=dtype)
+        self.cross_attn = MultiHeadDotProductAttention(d_model, num_heads, dropout_rate=dropout, dtype=dtype)
         self.norm_mlp = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.mlp_in = nn.Linear(d_model, d_ff, dtype=dtype)
         self.mlp_out = nn.Linear(d_ff, d_model, dtype=dtype)
 
-    def forward(self, q, kv):
-        q = q + self.cross_attn(self.norm_q(q), self.norm_kv(kv))
+    def forward(self, q, kv, *, train: bool = False, generator=None):
+        rate = self.dropout_rate if train else 0.0
+        h = self.cross_attn(self.norm_q(q), self.norm_kv(kv), train=train, generator=generator)
+        q = q + dropout(h, rate, generator)
         h = F.gelu(self.mlp_in(self.norm_mlp(q)), approximate="tanh")
-        return q + self.mlp_out(h)
+        return q + dropout(self.mlp_out(h), rate, generator)
 
 
 class ProjectionHead(nn.Module):
@@ -216,8 +221,10 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 class ClassifierHead(nn.Module):
-    """``[Dense → Norm → ReLU]* → Dense(num_classes)``; the last Dense runs in f32
-    and gives f32 logits. Dropout is the identity at eval."""
+    """``[Dense → Norm → ReLU → Dropout]* → Dense(num_classes)``; the last Dense runs in
+    f32 and gives f32 logits. The norm is LayerNorm (``ln{i}``) or BatchNorm (``bn{i}``,
+    train mode with ``train=True``); dropout acts only with ``train=True``, its masks
+    drawn from ``generator``."""
 
     def __init__(
         self,
@@ -225,11 +232,13 @@ class ClassifierHead(nn.Module):
         hidden_dims: Sequence[int],
         num_classes: int,
         *,
+        dropout: float = 0.0,
         norm: str = "layer",
         dtype=torch.float32,
     ):
         super().__init__()
         self.depth = len(hidden_dims)
+        self.dropout_rate = dropout
         self.norm_prefix = "ln" if norm == "layer" else "bn"
         for i, h in enumerate(hidden_dims):
             self.add_module(f"fc{i}", nn.Linear(in_features, h, dtype=dtype))
@@ -237,9 +246,12 @@ class ClassifierHead(nn.Module):
             in_features = h
         self.out = nn.Linear(in_features, num_classes, dtype=torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False, generator=None):
         for i in range(self.depth):
             fc = getattr(self, f"fc{i}")
             x = fc(x.to(fc.weight.dtype))
-            x = torch.relu(getattr(self, f"{self.norm_prefix}{i}")(x))
+            norm = getattr(self, f"{self.norm_prefix}{i}")
+            x = torch.relu(norm(x, train=train) if isinstance(norm, BatchNorm) else norm(x))
+            if train:
+                x = dropout(x, self.dropout_rate, generator)
         return self.out(x.float())

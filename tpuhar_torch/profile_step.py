@@ -1,7 +1,8 @@
-"""Where the time of a serving step or of a pretraining step goes, on one CUDA device.
+"""Where the time of a serving step or of a training step goes, on one CUDA device.
 
     python -m tpuhar_torch.profile_step              # the four serving programs
     python -m tpuhar_torch.profile_step --pretrain   # the pretraining step
+    python -m tpuhar_torch.profile_step --classify   # the classification steps
 
 Builds the serving forwards from random weights of seed 0: the flagship's
 ``entry.build_forward`` (``bf16``) and ``entry.build_int8_forward`` in its
@@ -21,7 +22,12 @@ programs, NHWC for the ViT), and for each program at batch 256 and 8 it prints:
 ``entry.build_pretrain_task(pretrain_config())`` at batch 16 (the ``videomae_base``
 cross-modal model, f32 master weights, bf16 compute, flash attention forward and
 backward), one ``train_step`` a step (10 timed after 2 warm-up, then 3 profiled), with
-the peak device memory and the flash backward kernels' share.
+the peak device memory and the flash backward kernels' share. ``--classify`` profiles
+the classification stage's train steps the same way: the IMU classifier of
+``entry.classify_config()`` at batch 64 in its linear probe and its finetune
+(``imu_linear_probe``, ``imu_finetune``), and the fusion and video-only classifiers on
+``pretrain_config()``'s ``videomae_base`` with the flash kernels at batch 16
+(``fusion``, ``video``).
 
 The first line is the card's name and power limit as ``nvidia-smi`` gives them.
 Without a CUDA device it raises.
@@ -37,7 +43,18 @@ from typing import Callable, Dict
 import torch
 
 from .bridge import init_params
-from .entry import build_forward, build_int8_forward, build_pretrain_task, flagship_config, pretrain_config, vit_config
+from .entry import (
+    build_classification_task,
+    build_forward,
+    build_fusion_task,
+    build_int8_forward,
+    build_pretrain_task,
+    build_video_task,
+    classify_config,
+    flagship_config,
+    pretrain_config,
+    vit_config,
+)
 
 PROGRAMS = ("bf16", "int8_resident", "int8_baseline", "vit_bf16")
 BATCHES = (256, 8)
@@ -104,11 +121,9 @@ def print_profile(name: str, batch: int, ms: float, prof: Dict, steps: int, smi:
               f"  {sum(r['launches'] for r in rest):5.1f}x  the other {len(rest)} names")
 
 
-def profile_pretrain(smi: str, batch: int = 16) -> None:
-    """The pretraining step at ``batch``: step time, samples/s, peak memory and the
-    device profile, with the flash backward kernels' share."""
-    cfg = pretrain_config()
-    task = build_pretrain_task(cfg, device="cuda", seed=0, steps_per_epoch=100)
+def train_batch(cfg, batch: int, *, labels: bool = False) -> Dict[str, torch.Tensor]:
+    """A device-resident training batch of ``cfg``: z-scored IMU windows, a uint8 NHWC
+    clip and, with ``labels``, class labels."""
     d = cfg.data
     H, W = d.video_resize
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -117,28 +132,65 @@ def profile_pretrain(smi: str, batch: int = 16) -> None:
         "video": torch.randint(0, 256, (batch, d.video_frames_per_window, H, W, 3),
                                generator=gen, device="cuda", dtype=torch.uint8),
     }
+    if labels:
+        data["label"] = torch.randint(0, cfg.model.num_classes, (batch,), generator=gen, device="cuda")
+    return data
+
+
+def profile_train(name: str, task, data: Dict[str, torch.Tensor], smi: str) -> None:
+    """One ``train_step`` a step on ``data``: step time (10 timed after 2 warm-up),
+    samples/s, peak memory and the device profile (3 steps), with the flash kernels'
+    share."""
     dropout = torch.Generator(device="cuda").manual_seed(0)
 
     def step(b):
         task.train_step(task.state, b, dropout)
 
+    batch = data["imu"].shape[0]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ms = step_ms(step, (data,), iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = device_profile(step, (data,), 3)
-    print_profile("pretrain", batch, ms, prof, 3, smi, unit="samples/s")
+    print_profile(name, batch, ms, prof, 3, smi, unit="samples/s")
     bwd = [r for r in prof["rows"] if "flash_bwd" in r["name"]]
     fwd = [r for r in prof["rows"] if "flash_attn_kernel" in r["name"]]
-    print(f"[pretrain batch {batch}] peak memory {peak:.2f} GiB; flash backward kernels "
-          f"{sum(r['ms'] for r in bwd):.3f} ms/step ({100 * sum(r['share'] for r in bwd):.1f}% of device time, "
-          f"{sum(r['launches'] for r in bwd):.0f} launches), flash forward "
-          f"{sum(r['ms'] for r in fwd):.3f} ms/step ({sum(r['launches'] for r in fwd):.0f} launches)")
+    print(f"[{name} batch {batch}] peak memory {peak:.2f} GiB ({held / 2**30:.2f} GiB held before the steps); "
+          f"flash backward kernels {sum(r['ms'] for r in bwd):.3f} ms/step "
+          f"({100 * sum(r['share'] for r in bwd):.1f}% of device time, {sum(r['launches'] for r in bwd):.0f} "
+          f"launches), flash forward {sum(r['ms'] for r in fwd):.3f} ms/step ({sum(r['launches'] for r in fwd):.0f} "
+          f"launches)")
+
+
+def profile_pretrain(smi: str, batch: int = 16) -> None:
+    """The pretraining step at ``batch``."""
+    cfg = pretrain_config()
+    task = build_pretrain_task(cfg, device="cuda", seed=0, steps_per_epoch=100)
+    profile_train("pretrain", task, train_batch(cfg, batch), smi)
+
+
+def profile_classify(smi: str) -> None:
+    """The classification stage's train steps: the IMU classifier's probe and finetune at
+    its ``train_batch_size`` (64), the fusion and video classifiers at 16."""
+    cfg = classify_config()
+    for mode in ("linear_probe", "finetune"):
+        task = build_classification_task(cfg, mode, device="cuda", steps_per_epoch=100)
+        profile_train(f"imu_{mode}", task, train_batch(cfg, cfg.training.train_batch_size, labels=True), smi)
+        del task
+    cfg = pretrain_config()
+    for name, build_task in (("fusion", build_fusion_task), ("video", build_video_task)):
+        task = build_task(cfg, device="cuda", steps_per_epoch=100)
+        profile_train(name, task, train_batch(cfg, 16, labels=True), smi)
+        del task
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
     """``argv``: the command-line arguments (none: the serving programs)."""
-    parser = argparse.ArgumentParser(description="Profile a serving or pretraining step on one CUDA device.")
+    parser = argparse.ArgumentParser(description="Profile a serving or training step on one CUDA device.")
     parser.add_argument("--pretrain", action="store_true", help="profile the pretraining step instead")
+    parser.add_argument("--classify", action="store_true", help="profile the classification steps instead")
     args = parser.parse_args([] if argv is None else argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device; torch.cuda.is_available() is False")
@@ -151,6 +203,9 @@ def main(argv=None) -> None:
     print(smi)
     if args.pretrain:
         profile_pretrain(smi)
+        return
+    if args.classify:
+        profile_classify(smi)
         return
 
     configs = {"flagship": flagship_config(), "vit": vit_config()}

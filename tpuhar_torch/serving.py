@@ -99,8 +99,8 @@ class InferenceEngine:
     friends for the int8 ``tpu_cnn`` tower, ``extra_scorers``, ``temperature`` dividing
     the logits before MSP and energy, ``fast_gelu``/``fast_attention`` for ViT towers;
     see ``tpuhar/serving.py``) and ``device``. Not ported: ``mesh`` (ROADMAP queue 1 item
-    8), the centered int8 wire, ``from_checkpoint`` (item 3), and the towers the port
-    lacks (``build_video_encoder`` and ``serving_quant`` refuse them).
+    8), the centered int8 wire, and the towers the port lacks (``build_video_encoder`` and
+    ``serving_quant`` refuse them).
     """
 
     def __init__(
@@ -215,12 +215,26 @@ class InferenceEngine:
             self.patch_major = self.folded and bb.startswith("tpu_cnn")
 
     @classmethod
-    def from_checkpoint(cls, config, checkpoint_path, *, imu_only: bool = False, **kw):
-        """Not ported: it needs ``build_classification_task``/``build_fusion_task``."""
-        raise NotImplementedError(
-            "InferenceEngine.from_checkpoint needs the classification and fusion tasks: "
-            "ROADMAP queue 1 item 3"
-        )
+    def from_checkpoint(cls, config, checkpoint_path, *, imu_only: bool = False, device="cuda", **kw):
+        """An engine on ``device`` serving the model of a training checkpoint
+        (``train/checkpoint``, as ``ClassificationTrainer`` writes it): a finetune IMU
+        classification task (``imu_only``) or a fusion task is built on the host, the
+        checkpoint's parameters and buffers are restored into it (a linear probe's
+        checkpoint included) and its variables served."""
+        from .bridge import init_params, variables_to_numpy
+        from .models.crossmodal import FusionClassifier
+        from .train import checkpoint as ckpt
+        from .train.factory import build_classification_task, build_fusion_task
+
+        serving_device(device)  # refuse a missing card before building anything
+        model_cls = IMUClassifier if imu_only else FusionClassifier
+        params = init_params(config, torch.Generator().manual_seed(0), model_cls)
+        if imu_only:
+            task = build_classification_task(config, "finetune", 1, params, device="cpu")
+        else:
+            task = build_fusion_task(config, 1, params, device="cpu")
+        ckpt.restore_checkpoint(checkpoint_path, task.state, model_only=True)
+        return cls(config, variables_to_numpy(task.model), imu_only=imu_only, device=device, **kw)
 
     @torch.inference_mode()
     def _forward(self, *args) -> Dict[str, torch.Tensor]:

@@ -26,14 +26,17 @@ def save_checkpoint(path, state, extra: Optional[Dict[str, Any]] = None) -> None
     path.with_suffix(".json").write_text(json.dumps(dict(extra or {}), indent=2, default=str))
 
 
-def restore_checkpoint(path, state) -> Tuple[Any, Dict[str, Any]]:
+def restore_checkpoint(path, state, *, model_only: bool = False) -> Tuple[Any, Dict[str, Any]]:
     """Load ``<path>.pt`` into ``state`` in place (onto its model's device); returns
-    ``(state, sidecar dict)``."""
+    ``(state, sidecar dict)``. ``model_only`` loads the model's parameters and buffers
+    and the step, and leaves the optimizer as it is (a checkpoint of another optimizer,
+    such as a linear probe's, serves a finetune task's model so)."""
     path = Path(path)
     device = next(state.model.parameters()).device
     payload = torch.load(path.with_suffix(".pt"), map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if not model_only:
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     sidecar = path.with_suffix(".json")
     return state, (json.loads(sidecar.read_text()) if sidecar.exists() else {})

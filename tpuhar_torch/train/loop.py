@@ -1,12 +1,19 @@
-"""The pretraining loop (``tpuhar/train/loop.py``): epochs over any iterable of dict
-batches, early stopping, checkpoints and history.
+"""The training loops (``tpuhar/train/loop.py``): epochs over any iterable of dict
+batches, early stopping, checkpoints, history and the metric stream.
 
 ``CrossModalTrainer.fit``: best = the lowest validation loss, early stop after
 ``patience`` epochs without an improvement of more than ``min_delta``; every epoch
 writes ``last``, an improvement ``best_model`` (with ``save_best_only``), and every
 ``save_every`` epochs ``checkpoint_epoch_N``; ``training_history.json`` at the end.
+
+``ClassificationTrainer.fit``: best = the highest validation balanced accuracy, early
+stop after ``patience`` epochs without a higher one; every epoch writes ``last``, an
+improvement ``best_model``. Validation accumulates a confusion matrix on the device
+(``eval.metrics``) and reads it once.
+
 ``fit(resume=True)`` restores ``last`` and continues from the epoch after it. Losses
-stay on the device through an epoch and are read once at its end.
+stay on the device through an epoch and are read once at its end. Each epoch's metrics
+go to ``MetricsLogger`` rows in ``paths.logs_dir``, one stream per save directory.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..eval.metrics import confusion_update, init_confusion, metrics_from_confusion
+from ..utils.profiling import MetricsLogger
 from . import checkpoint as ckpt
 from .steps import TrainState
 
@@ -53,8 +62,10 @@ class EarlyStopper:
 
 
 class BaseTrainer:
-    """Checkpoint and history plumbing. ``generator`` (a ``torch.Generator`` on the
-    model's device) feeds every train step's dropout."""
+    """Checkpoint, history and metric-stream plumbing. ``generator`` (a
+    ``torch.Generator`` on the model's device) feeds every train step's dropout and
+    augmentation. ``metrics_logger`` writes to ``<paths.logs_dir>/<save_dir name>.jsonl``
+    and ``.csv`` (None where that directory cannot be made)."""
 
     def __init__(self, config, state: TrainState, save_dir, generator: Optional[torch.Generator] = None):
         self.config = config
@@ -64,6 +75,10 @@ class BaseTrainer:
         self.current_epoch = 0
         self.history: Dict[str, list] = {"train": [], "val": []}
         self.verbose = True
+        try:
+            self.metrics_logger = MetricsLogger(Path(config.paths.logs_dir), name=self.save_dir.name)
+        except OSError:
+            self.metrics_logger = None
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -143,6 +158,8 @@ class CrossModalTrainer(BaseTrainer):
             dt = time.perf_counter() - t0
             self.history["train"].append(train_loss)
             self.history["val"].append(val_loss)
+            if self.metrics_logger:
+                self.metrics_logger.log(epoch, {"train_loss": train_loss, "val_loss": val_loss}, stage="pretrain")
             self._log(
                 f"[Pretrain] epoch={epoch} train_loss={train_loss:.4f} "
                 f"val_loss={val_loss:.4f} ({dt:.1f}s)"
@@ -158,6 +175,98 @@ class CrossModalTrainer(BaseTrainer):
                 self._save(f"checkpoint_epoch_{epoch}", "best_val_loss", self.best_val_loss)
             if stopper.should_stop:
                 self._log(f"[Pretrain] Early stopping at epoch {epoch}")
+                break
+
+        self._dump_history()
+        return self.state
+
+
+class ClassificationTrainer(BaseTrainer):
+    """The classification loop of the IMU, video or fusion classifier; ``mode``
+    ("linear_probe" or "finetune") names its log lines and metric rows."""
+
+    def __init__(self, config, state, train_step, predict_step, save_dir, generator, mode: str):
+        super().__init__(config, state, save_dir, generator)
+        if mode not in ("linear_probe", "finetune"):
+            raise ValueError(f"Unknown classification mode: {mode}")
+        self.mode = mode
+        self.train_step = train_step
+        self.predict_step = predict_step
+        self.best_bal_acc = 0.0
+        self.num_classes = config.model.num_classes
+
+    @property
+    def best_metric(self) -> float:
+        return self.best_bal_acc
+
+    def train_epoch(self, loader) -> Dict[str, float]:
+        losses, accs = [], []
+        for batch in loader:
+            self.state, m = self.train_step(self.state, batch, self.generator)
+            losses.append(m["loss"])
+            accs.append(m["accuracy"])
+        if not losses:
+            return {"loss": 0.0, "accuracy": 0.0}
+        return {
+            "loss": float(np.mean(torch.stack(losses).float().cpu().numpy())),
+            "accuracy": float(np.mean(torch.stack(accs).float().cpu().numpy())),
+        }
+
+    def validate(self, loader) -> Dict[str, float]:
+        """sklearn's metrics of the valid rows (``metrics_from_confusion``) and the mean
+        cross-entropy over them, ``loss``."""
+        device = next(self.state.model.parameters()).device
+        cm = init_confusion(self.num_classes, device=device)
+        loss_sum = torch.zeros((), dtype=torch.float64, device=device)
+        n = 0
+        for batch in loader:
+            out = self.predict_step(self.state, batch)
+            cm = confusion_update(cm, batch["label"], out["preds"], out["valid"])
+            loss_sum = loss_sum + out["loss_sum"].double()
+            n += int(batch["n_valid"])
+        metrics = metrics_from_confusion(cm)
+        metrics["loss"] = loss_sum.item() / max(n, 1)
+        return metrics
+
+    def fit(self, train_loader, val_loader, *, resume: bool = False) -> TrainState:
+        t = self.config.training
+        if resume:
+            self.resume()
+        stopper = EarlyStopper(int(t.patience), "max")
+        stopper.best = self.best_bal_acc if self.best_bal_acc > 0 else None
+
+        for epoch in range(self.current_epoch, int(t.train_epochs)):
+            self.current_epoch = epoch
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            train_metrics = self.train_epoch(train_loader)
+            val_metrics = self.validate(val_loader)
+            self.history["train"].append(train_metrics)
+            self.history["val"].append(val_metrics)
+            if self.metrics_logger:
+                self.metrics_logger.log(
+                    epoch,
+                    {**{f"train_{k}": v for k, v in train_metrics.items()},
+                     **{f"val_{k}": v for k, v in val_metrics.items()}},
+                    stage=f"classify_{self.mode}",
+                )
+            self._log(
+                f"[Cls:{self.mode}] epoch={epoch} "
+                f"train_loss={train_metrics['loss']:.4f} "
+                f"train_acc={train_metrics['accuracy']:.2f}% | "
+                f"val_loss={val_metrics['loss']:.4f} "
+                f"val_bal_acc={val_metrics['balanced_accuracy']:.2f}% "
+                f"val_f1={val_metrics['f1_macro']:.2f}%"
+            )
+
+            improved = stopper.update(val_metrics["balanced_accuracy"])
+            if improved:
+                self.best_bal_acc = float(val_metrics["balanced_accuracy"])
+            self._save("last", "best_balanced_accuracy", self.best_bal_acc)
+            if improved:
+                self._save("best_model", "best_balanced_accuracy", self.best_bal_acc)
+            if stopper.should_stop:
+                self._log(f"[Cls:{self.mode}] Early stopping at epoch {epoch}")
                 break
 
         self._dump_history()

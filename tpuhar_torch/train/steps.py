@@ -1,13 +1,25 @@
-"""Train and eval steps of cross-modal pretraining (``tpuhar/train/steps.py``).
+"""Train and eval steps of cross-modal pretraining and of the classifiers
+(``tpuhar/train/steps.py``).
 
 ``make_crossmodal_steps(config)`` returns ``train_step(state, batch, generator)`` and
 ``eval_step(state, batch)``. A batch is ``{"imu": (B, C, T) f32 featurized windows,
 "video": (B, T, H, W, 3) uint8}`` (plus ``"n_valid"`` for a zero-padded evaluation
 batch), on the model's device; the clip is normalized inside the step. The model keeps
-f32 master weights and computes through ``CrossModalModel.forward_cast``; the loss is
-SigLIP with the model's live scalars or InfoNCE at the configured temperature. Each
-step runs inside ``precision_scope(training.pretrain_matmul_precision)``, which sets
-PyTorch's f32 matmul and cuDNN precision for the step and restores them after.
+f32 master weights and computes through ``forward_cast``; the loss is SigLIP with the
+model's live scalars or InfoNCE at the configured temperature.
+
+``make_classification_steps`` (the IMU classifier), ``make_video_steps`` and
+``make_fusion_steps`` return ``train_step(state, batch, generator)``, which takes
+``"label"`` (B,) int labels besides the inputs and returns the cross-entropy ``loss`` and
+the batch's ``accuracy`` (%), and ``predict_step(state, batch)``, which returns the
+``logits``, ``embeddings``, ``preds``, the cross-entropy summed over the first
+``n_valid`` rows (``loss_sum``) and the ``valid`` mask.
+
+With ``data.use_augmentation`` the IMU windows of a train step go through
+``ops/augment.augment_imu`` first, its draws taken from the step's generator before
+dropout's. Each step runs inside ``precision_scope(training.pretrain_matmul_precision)``,
+which sets PyTorch's f32 matmul and cuDNN precision for the step and restores them
+after.
 """
 from __future__ import annotations
 
@@ -18,8 +30,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from .. import losses as L
+from ..ops.augment import augment_imu
 from ..ops.video import normalize_clip
-from .optim import PretrainOptimizer
+from .optim import AdamW
 
 # pretrain_matmul_precision (JAX's default_matmul_precision names) -> torch's f32 matmul
 # precision; "highest" also turns cuDNN's TF32 off
@@ -56,7 +69,7 @@ class TrainState:
     step count) and the number of steps taken."""
 
     model: torch.nn.Module
-    optimizer: PretrainOptimizer
+    optimizer: AdamW
     step: int = 0
 
 
@@ -77,12 +90,28 @@ def contrastive_loss_fn(config) -> Callable:
     return contrastive_loss
 
 
+def _precision(config) -> str:
+    return str(getattr(config.training, "pretrain_matmul_precision", "float32"))
+
+
+def _augmented(config, imu: torch.Tensor, generator) -> torch.Tensor:
+    """The train step's IMU windows: augmented when ``data.use_augmentation`` is set."""
+    return augment_imu(imu, config, generator) if bool(config.data.use_augmentation) else imu
+
+
+def _update(state: TrainState, loss: torch.Tensor) -> None:
+    """The loss's gradients, then one optimizer step, in place."""
+    for p in state.optimizer.params:
+        p.grad = None
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
 def make_crossmodal_steps(config) -> Tuple[Callable, Callable]:
     """``(train_step, eval_step)`` of contrastive pretraining."""
-    if bool(config.data.use_augmentation):
-        raise NotImplementedError("IMU augmentation (ops/augment.py) is not ported")
     contrastive_loss = contrastive_loss_fn(config)
-    precision = str(getattr(config.training, "pretrain_matmul_precision", "float32"))
+    precision = _precision(config)
 
     def train_step(state: TrainState, batch: Dict, generator=None) -> Tuple[TrainState, Dict]:
         """One update in place: the loss on the batch (dropout from ``generator``, a
@@ -90,15 +119,10 @@ def make_crossmodal_steps(config) -> Tuple[Callable, Callable]:
         gradients, then the optimizer. Returns the state and ``{"loss"}`` (a 0-d tensor
         on the device: nothing waits for the device)."""
         with precision_scope(precision):
-            out = state.model.forward_cast(
-                batch["imu"], normalize_clip(batch["video"]), train=True, generator=generator
-            )
+            imu = _augmented(config, batch["imu"], generator)
+            out = state.model.forward_cast(imu, normalize_clip(batch["video"]), train=True, generator=generator)
             loss = contrastive_loss(out)
-            for p in state.optimizer.params:
-                p.grad = None
-            loss.backward()
-            state.optimizer.step()
-        state.step += 1
+            _update(state, loss)
         return state, {"loss": loss.detach()}
 
     def eval_step(state: TrainState, batch: Dict) -> Dict:
@@ -111,3 +135,74 @@ def make_crossmodal_steps(config) -> Tuple[Callable, Callable]:
         return {"loss": loss, "n_valid": batch["imu"].shape[0] if n_valid is None else n_valid}
 
     return train_step, eval_step
+
+
+def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple]) -> Tuple[Callable, Callable]:
+    """``(train_step, predict_step)`` of a classifier whose model takes ``inputs(batch,
+    train, generator)``."""
+    precision = _precision(config)
+
+    def train_step(state: TrainState, batch: Dict, generator=None) -> Tuple[TrainState, Dict]:
+        """One update in place: the cross-entropy on the batch's ``"label"`` (dropout and
+        augmentation from ``generator``, a ``torch.Generator`` on the model's device;
+        BatchNorm in train mode), its gradients, then the optimizer. Returns the state
+        and ``{"loss", "accuracy"}``, 0-d tensors on the device."""
+        with precision_scope(precision):
+            logits, _ = state.model.forward_cast(*inputs(batch, True, generator), train=True, generator=generator)
+            loss = L.cross_entropy_loss(logits, batch["label"])
+            _update(state, loss)
+        hits = (torch.argmax(logits.detach(), dim=-1) == batch["label"]).float()
+        return state, {"loss": loss.detach(), "accuracy": hits.mean() * 100.0}
+
+    def predict_step(state: TrainState, batch: Dict) -> Dict:
+        """The eval forward (running BatchNorm statistics, no dropout) on a batch whose
+        rows past ``n_valid`` are padding; without ``"label"`` the loss is that of
+        class 0."""
+        with precision_scope(precision), torch.no_grad():
+            logits, emb = state.model.forward_cast(*inputs(batch, False, None), train=False)
+            B = logits.shape[0]
+            labels = batch.get("label")
+            if labels is None:
+                labels = torch.zeros(B, dtype=torch.long, device=logits.device)
+            loss_per = L.cross_entropy_loss(logits, labels, reduction="none")
+            valid = torch.arange(B, device=logits.device) < torch.as_tensor(batch.get("n_valid", B), device=logits.device)
+            return {
+                "logits": logits,
+                "embeddings": emb,
+                "preds": torch.argmax(logits, dim=-1),
+                "loss_sum": (loss_per * valid).sum(),
+                "valid": valid,
+            }
+
+    return train_step, predict_step
+
+
+def classification_step_fns(config) -> Tuple[Callable, Callable]:
+    """``(train_step, predict_step)`` of the IMU classifier: batches ``{"imu": (B, C, T)
+    featurized f32, "label"}``."""
+
+    def inputs(batch, train, generator):
+        return (_augmented(config, batch["imu"], generator) if train else batch["imu"],)
+
+    return _classifier_steps(config, inputs)
+
+
+# the JAX package jits classification_step_fns' steps under this name; here both are one
+make_classification_steps = classification_step_fns
+
+
+def make_video_steps(config) -> Tuple[Callable, Callable]:
+    """``(train_step, predict_step)`` of the video-only classifier: batches ``{"video":
+    (B, T, H, W, 3) uint8, "label"}``, the clip normalized inside the step."""
+    return _classifier_steps(config, lambda batch, train, generator: (normalize_clip(batch["video"]),))
+
+
+def make_fusion_steps(config) -> Tuple[Callable, Callable]:
+    """``(train_step, predict_step)`` of the fusion classifier: batches ``{"imu", "video",
+    "label"}``."""
+
+    def inputs(batch, train, generator):
+        imu = _augmented(config, batch["imu"], generator) if train else batch["imu"]
+        return imu, normalize_clip(batch["video"])
+
+    return _classifier_steps(config, inputs)

@@ -72,7 +72,22 @@ Phases; any failed check raises and the exit code is non-zero:
     card as phase 14 holds pretraining's, its ``last`` checkpoint served through
     ``InferenceEngine.from_checkpoint`` bit for bit against an engine of the trained
     variables; the video-only classifier's two steps with the same launches; each
-    program's step time, samples/s and peak memory.
+    program's step time, samples/s and peak memory;
+18. the other towers and IMU encoders at full width (224², 16 frames): cross-modal
+    pretraining with the ``tpu_cnn`` tower through ``CrossModalTrainer.fit`` at batch 16
+    (every parameter and BatchNorm statistic moves; the validation forward serves the
+    tower through the fused conv kernel), its first step at batch 4 against the plain
+    f32 step on the card, and the trained tower's eval forward through the fused conv
+    kernel (4 launches) against ``conv3x3_bn_act_reference`` on the same variables; the
+    fusion classifier with ResNet-18 and with MobileNetV2 through
+    ``ClassificationTrainer.fit`` at batch 16, each ``last`` checkpoint served by
+    ``InferenceEngine.from_checkpoint`` through a CUDA graph at batch 8, the replay bit
+    for bit against the eager program; the ``videomae_base`` pretraining step with
+    ``remat_video`` against the same step without it (24 flash forwards, 12 of each
+    backward kernel; the loss and every gradient; peak memory of both); the IMU
+    classifier's finetune with the 1-D CNN and with the STFT encoder at batch 64, each
+    served IMU-only at 8 and 256 (the featurizer once a graph); each program's step
+    time, samples/s and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -109,7 +124,8 @@ from tpuhar_torch.entry import (
 )
 from tpuhar_torch.losses import cross_entropy_loss
 from tpuhar_torch.models.crossmodal import CrossModalModel, FusionClassifier, VideoClassifier
-from tpuhar_torch.models.video import VIT_CONFIGS
+from tpuhar_torch.models import video as video_models
+from tpuhar_torch.models.video import VIT_CONFIGS, VideoEncoder
 from tpuhar_torch.ops.conv3x3 import (
     conv3x3_bn_act,
     conv3x3_bn_act_reference,
@@ -244,6 +260,18 @@ GRAD_NOISE_FLOOR = 1e-4
 CLASSIFY_IMU_STEPS, CLASSIFY_IMU_TIMED_STEPS = 3, 5
 CLASSIFY_BATCH, CLASSIFY_STEPS, CLASSIFY_TIMED_STEPS = 16, 2, 3
 CLASSIFY_CHECK_BATCH = 4
+# phase 18, the towers: tpu_cnn pretraining over one epoch of three batches of 16; the
+# fusion classifier with ResNet-18 and MobileNetV2, two steps of 16, served at 8; the
+# videomae_base remat step at 16; the trained tpu_cnn at eval on 4 clips (its 4 fused
+# convs a forward); the IMU classifier's encoders served IMU-only at 8 and 256
+TOWER_BATCH, TOWER_PRETRAIN_BATCHES, TOWER_CLASSIFY_STEPS, TOWER_TIMED_STEPS = 16, 3, 2, 3
+TOWER_ENGINE_BATCH, TOWER_EVAL_CLIPS, TPU_CNN_FUSED_CONVS = 8, 4, 4
+REMAT_BATCH = 16
+# the remat step against the step without it: the same kernels on the same operands,
+# recomputed, so the loss and every gradient are expected bit for bit; a difference of
+# more than this share of a leaf's largest element fails
+REMAT_RTOL = 1e-3
+IMU_ENGINE_SIZES = [8, 256]
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -721,38 +749,45 @@ def in_situ_flash_backwards():
         flash_lean_module.flash_lean_backward = original
 
 
-def check_first_step(cfg_card, params, batch: dict) -> None:
-    """The card's first step (bf16, the flash kernels) against the plain path on the card
-    (f32, attention without flash, TF32 off) on the same parameters, batch and dropout,
-    beside the same bf16 step with the plain attention (no hand kernel) as the yardstick
-    of what bf16 itself moves; and each flash backward of the card's step against the
-    plain f32 backward on that layer's own q, k, v and dO."""
-    cfg_plain = pretrain_config()
+def check_first_step(cfg_card, params, batch: dict, tag: str = "pretrain check") -> None:
+    """The card's first step (bf16, the flash kernels where the tower is a ViT) against
+    the plain path on the card (f32, attention without flash, TF32 off) on the same
+    parameters, batch and dropout; for a ViT beside the same bf16 step with the plain
+    attention (no hand kernel) as the yardstick of what bf16 itself moves, and each flash
+    backward of the card's step against the plain f32 backward on that layer's own q, k,
+    v and dO. A CNN tower trains through cuDNN: the card step and the yardstick are one."""
+    vit = cfg_card.model.video_backbone in VIT_CONFIGS
+    cfg_plain = copy.deepcopy(cfg_card)
     cfg_plain.model.compute_dtype = "float32"
     cfg_plain.model.use_flash_attention = False
-    cfg_bf16_plain = pretrain_config()
+    cfg_bf16_plain = copy.deepcopy(cfg_card)
     cfg_bf16_plain.model.use_flash_attention = False
     with in_situ_flash_backwards() as (in_situ, plain_bf16):
         loss, grads, _ = first_step_grads(cfg_card, params, batch, seed=7)
     torch.cuda.empty_cache()
-    loss_bf16, grads_bf16, _ = first_step_grads(cfg_bf16_plain, params, batch, seed=7)
+    if vit:
+        loss_bf16, grads_bf16, _ = first_step_grads(cfg_bf16_plain, params, batch, seed=7)
+    else:
+        loss_bf16, grads_bf16 = loss, grads
     torch.cuda.empty_cache()
     loss_ref, grads_ref, scales = first_step_grads(cfg_plain, params, batch, seed=7)
-    depth = VIT_CONFIGS[cfg_card.model.video_backbone][0]
-    print(f"[pretrain check] the card step's {len(in_situ)} flash backwards against the plain f32 backward "
-          f"on their own operands: relative diffs {', '.join(f'{r:.2e}' for r in in_situ)}; the plain bf16 "
-          f"backward's: {', '.join(f'{r:.2e}' for r in plain_bf16)}")
-    if len(in_situ) != depth or not max(in_situ) <= FLASH_BWD_RTOL:
+    depth = VIT_CONFIGS[cfg_card.model.video_backbone][0] if vit else 0
+    if vit:
+        print(f"[{tag}] the card step's {len(in_situ)} flash backwards against the plain f32 backward "
+              f"on their own operands: relative diffs {', '.join(f'{r:.2e}' for r in in_situ)}; the plain bf16 "
+              f"backward's: {', '.join(f'{r:.2e}' for r in plain_bf16)}")
+    if len(in_situ) != depth or not max(in_situ, default=0.0) <= FLASH_BWD_RTOL:
         raise AssertionError(f"in-situ flash backward: {in_situ} (expected {depth} within {FLASH_BWD_RTOL})")
     rel = abs(loss - loss_ref) / abs(loss_ref)
-    print(f"[pretrain check] batch {batch['imu'].shape[0]} loss: card bf16 {loss:.6f}, bf16 with the plain "
-          f"attention {loss_bf16:.6f}, plain f32 {loss_ref:.6f}, rel {rel:.3e}")
+    print(f"[{tag}] batch {batch['imu'].shape[0]} loss: card bf16 {loss:.6f}"
+          + (f", bf16 with the plain attention {loss_bf16:.6f}" if vit else "")
+          + f", plain f32 {loss_ref:.6f}, rel {rel:.3e}")
     if not rel <= PRETRAIN_LOSS_RTOL:
         raise AssertionError(f"pretrain first-step loss: relative diff {rel} > {PRETRAIN_LOSS_RTOL}")
     for name, weight in scales.items():
         g, g_ref = grads[name].item(), grads_ref[name].item()
         r = abs(g - g_ref) / weight
-        print(f"[pretrain check] grad {name}: card {g:.6e}, plain {g_ref:.6e}, diff over the most its terms "
+        print(f"[{tag}] grad {name}: card {g:.6e}, plain {g_ref:.6e}, diff over the most its terms "
               f"can weigh ({weight:.6e}) {r:.3e}")
         if not r <= SCALAR_GRAD_RTOL:
             raise AssertionError(f"grad {name}: diff {r} of its terms' weight > {SCALAR_GRAD_RTOL}")
@@ -762,14 +797,16 @@ def check_first_step(cfg_card, params, batch: dict) -> None:
     skip = set(noise) | set(scales)
     whole, lowest, below = gradient_agreement(grads, grads_ref, skip)
     whole_bf16, lowest_bf16, below_bf16 = gradient_agreement(grads_bf16, grads_ref, skip)
-    for what, (w, low, n) in (("card bf16 (flash kernels)", (whole, lowest, below)),
-                              ("bf16 with the plain attention", (whole_bf16, lowest_bf16, below_bf16))):
-        print(f"[pretrain check] {what} vs plain f32: whole-gradient cosine {w:.6f}; {n} of "
+    rows = (("card bf16 (flash kernels)", (whole, lowest, below)),
+            ("bf16 with the plain attention", (whole_bf16, lowest_bf16, below_bf16)))
+    for what, (w, low, n) in rows if vit else (("card bf16", rows[0][1]),):
+        print(f"[{tag}] {what} vs plain f32: whole-gradient cosine {w:.6f}; {n} of "
               f"{len(grads_ref) - len(skip)} leaves below 0.99, the lowest "
               + ", ".join(f"{c:.4f} ({name})" for c, name in low))
-    between = gradient_agreement(grads, grads_bf16, skip)[0]
-    print(f"[pretrain check] card bf16 vs bf16 with the plain attention: whole-gradient cosine {between:.6f}")
-    print(f"[pretrain check] {len(noise)} leaves at the rounding floor (RMS <= {floor:.3e}), not compared: "
+    if vit:
+        between = gradient_agreement(grads, grads_bf16, skip)[0]
+        print(f"[{tag}] card bf16 vs bf16 with the plain attention: whole-gradient cosine {between:.6f}")
+    print(f"[{tag}] {len(noise)} leaves at the rounding floor (RMS <= {floor:.3e}), not compared: "
           + ", ".join(noise))
     if not whole >= WHOLE_COSINE_MIN:
         raise AssertionError(f"whole-gradient cosine {whole} < {WHOLE_COSINE_MIN}")
@@ -860,7 +897,7 @@ def time_train_step(task, batches: list, generator, steps: int, what: str, smi: 
         task.train_step(task.state, batches[i % len(batches)], generator)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    batch = batches[0]["label"].shape[0]
+    batch = batches[0]["imu"].shape[0]
     print(f"[timing] {what} train step batch {batch}: {step_ms:.3f} ms, {batch / step_ms * 1e3:.1f} samples/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held "
           f"before the steps ({smi})")
@@ -989,6 +1026,25 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
 
 
+def drive_counted(counters: dict, kernels: dict, path: str, run, expected: dict):
+    """``run()`` with every launch count set to 0 just before and read just after; the
+    counts go to ``kernels[name]["launches_by_path"][path]``; fail unless each kernel of
+    ``expected`` launched as often. Returns ``(run's result, counts, seconds)``."""
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: counter.launches for name, counter in counters.items()}
+    for name, n in counts.items():
+        kernels[name].setdefault("launches_by_path", {})[path] = n
+    wrong = {name: (counts[name], n) for name, n in expected.items() if counts[name] != n}
+    if wrong:
+        raise AssertionError(f"{path}: launches (counted, expected) {wrong}")
+    return out, counts, seconds
+
+
 def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
     """Phase 17: the classification stage at full width. The IMU classifier's linear probe
     then finetune through ``ClassificationTrainer.fit``; the fusion classifier on
@@ -999,21 +1055,6 @@ def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
     save_root = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_classify"
     shutil.rmtree(save_root, ignore_errors=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def drive_counts(path: str, run, expected: dict):
-        for counter in counters.values():
-            counter.launches = 0
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = {name: counter.launches for name, counter in counters.items()}
-        for name, n in counts.items():
-            kernels[name].setdefault("launches_by_path", {})[path] = n
-        wrong = {name: (counts[name], n) for name, n in expected.items() if counts[name] != n}
-        if wrong:
-            raise AssertionError(f"{path}: launches (counted, expected) {wrong}")
-        return out, counts, seconds
 
     # the IMU classifier of the flagship at batch 64: three probe steps, then three
     # finetune steps from the probe's weights
@@ -1029,8 +1070,8 @@ def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
         before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
         trainer = ClassificationTrainer(cfg_imu, task.state, task.train_step, task.eval_step,
                                         save_root / f"imu_{mode}", gen, mode)
-        _, counts, fit_s = drive_counts(f"classify_imu_{mode}", lambda: trainer.fit(imu_train, imu_val),
-                                        dict.fromkeys(counters, 0))
+        _, counts, fit_s = drive_counted(counters, kernels, f"classify_imu_{mode}",
+                                         lambda: trainer.fit(imu_train, imu_val), dict.fromkeys(counters, 0))
         history = trainer.history
         head_moved, head_still = moved(task.model, before, "classifier.")
         enc_moved, enc_still = moved(task.model, before, "imu_encoder.")
@@ -1071,7 +1112,7 @@ def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
     trainer = ClassificationTrainer(cfg_cls, fusion.state, fusion.train_step, fusion.eval_step,
                                     save_root / "fusion", gen, "finetune")
     no_other = dict.fromkeys(counters, 0)
-    _, counts, fit_s = drive_counts("classify_fusion", lambda: trainer.fit(cls_train, cls_val), {
+    _, counts, fit_s = drive_counted(counters, kernels, "classify_fusion", lambda: trainer.fit(cls_train, cls_val), {
         **no_other, "flash_lean": depth * (CLASSIFY_STEPS + 1),  # each train and eval forward
         "flash_bwd_dkv": depth * CLASSIFY_STEPS, "flash_bwd_dq": depth * CLASSIFY_STEPS})
     history = trainer.history
@@ -1114,7 +1155,7 @@ def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
     def video_steps():
         return [video.train_step(video.state, b, gen)[1]["loss"] for b in cls_train]
 
-    losses, counts, steps_s = drive_counts("classify_video", video_steps, {
+    losses, counts, steps_s = drive_counted(counters, kernels, "classify_video", video_steps, {
         **no_other, "flash_lean": depth * CLASSIFY_STEPS,
         "flash_bwd_dkv": depth * CLASSIFY_STEPS, "flash_bwd_dq": depth * CLASSIFY_STEPS})
     losses = torch.stack(losses).tolist()
@@ -1127,6 +1168,230 @@ def run_classification_stage(counters: dict, kernels: dict, smi: str) -> None:
     time_train_step(video, cls_train, gen, CLASSIFY_TIMED_STEPS, "video videomae_base", smi)
     del video, params_video, cls_train, cls_val
     torch.cuda.empty_cache()
+    shutil.rmtree(save_root, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def plain_fused_convs():
+    """The towers' fused conv calls go to ``conv3x3_bn_act_reference`` inside the scope."""
+    original = video_models.conv3x3_bn_act
+    video_models.conv3x3_bn_act = conv3x3_bn_act_reference
+    try:
+        yield
+    finally:
+        video_models.conv3x3_bn_act = original
+
+
+def check_graph_replay(path: str, engine, requests: list, counters: dict, kernels: dict, expected: dict) -> None:
+    """Capture ``engine``'s graphs with the counts set to 0 (each graph must hold
+    ``expected``); then each request's ``predict`` against the eager program on the same
+    padded inputs, bit for bit."""
+    _, counts, warm_s = drive_counted(counters, kernels, path, engine.warmup, {
+        name: 2 * len(engine.batch_sizes) * expected.get(name, 0) for name in counters})  # an eager call and a capture
+    for b, launches in engine.graph_launches.items():
+        if {k: v for k, v in launches.items() if v} != {k: v for k, v in expected.items() if v}:
+            raise AssertionError(f"{path} batch {b}: the graph holds {launches}, expected {expected}")
+    for args in requests:
+        got = engine.predict(*args)
+        n, b = args[0].shape[0], engine._padded_size(args[0].shape[0])
+        padded = [torch.from_numpy(a).cuda() for a in engine._pad_to(args[0], args[1] if len(args) > 1 else None, b)]
+        want = {k: v.cpu().numpy()[:n] for k, v in engine._forward(*padded).items()}
+        bitwise_equal(got, want, f"{path} predict at {args[0].shape[0]} (graph of {b}) vs the eager program")
+        if not np.isfinite(got["logits"]).all():
+            raise AssertionError(f"{path}: logits not finite")
+    print(f"[{path}] {len(engine.batch_sizes)} graph(s) captured in {warm_s:.1f} s, launches a replay "
+          f"{engine.graph_launches}; predict on {[a[0].shape[0] for a in requests]} rows equals the eager "
+          f"program bit for bit")
+
+
+def run_towers_stage(counters: dict, kernels: dict, smi: str, params_vit_pt) -> None:
+    """Phase 18: the towers and IMU encoders that train and serve besides the ViT.
+    ``tpu_cnn`` pretraining through ``fit`` and its trained tower served through the fused
+    conv kernel; the fusion classifier with ResNet-18 and with MobileNetV2 trained and
+    served from its checkpoint through CUDA graphs; ``videomae_base`` pretraining with
+    ``remat_video`` against the same step without it; the IMU classifier's finetune with
+    the 1-D CNN and with the STFT encoder, served IMU-only at 8 and 256."""
+    save_root = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_towers"
+    shutil.rmtree(save_root, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    none = dict.fromkeys(counters, 0)
+
+    # -- tpu_cnn pretraining: fit, the first step against f32, the fused eval --------
+    cfg = pretrain_config()
+    cfg.model.video_backbone = "tpu_cnn"
+    cfg.training.pretrain_epochs = 1
+    params = init_params(cfg, torch.Generator().manual_seed(0), CrossModalModel)
+    task = build_pretrain_task(cfg, device="cuda", params=params, steps_per_epoch=TOWER_PRETRAIN_BATCHES)
+    train = pretrain_batches(cfg, TOWER_PRETRAIN_BATCHES, TOWER_BATCH, seed=900)
+    val = pretrain_batches(cfg, 1, TOWER_BATCH, seed=901)
+    initial = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    initial_stats = {n: b.detach().clone() for n, b in task.model.named_buffers()}
+    trainer = CrossModalTrainer(cfg, task.state, task.train_step, task.eval_step, save_root / "tpu_cnn",
+                                generator=gen)
+    fused = TPU_CNN_FUSED_CONVS * len(val)  # the validation forward serves the tower through the kernel
+    _, counts, fit_s = drive_counted(counters, kernels, "tower_tpu_cnn_pretrain", lambda: trainer.fit(train, val),
+                                     {**none, "conv3x3_bn_act": fused})
+    losses = trainer.history["train"] + trainer.history["val"]
+    still = [n for n, p in task.model.named_parameters() if torch.equal(p, initial[n])]
+    stats_still = [n for n, b in task.model.named_buffers() if torch.equal(b, initial_stats[n])]
+    print(f"[tower tpu_cnn] pretraining fit: {TOWER_PRETRAIN_BATCHES} steps of batch {TOWER_BATCH} and "
+          f"{len(val)} validation batch in {fit_s:.1f} s (first steps included): losses {losses}; "
+          f"{len(initial) - len(still)} of {len(initial)} parameters and {len(initial_stats) - len(stats_still)} of "
+          f"{len(initial_stats)} BatchNorm statistics moved; launches {counts}")
+    if not np.all(np.isfinite(losses)) or still or stats_still:
+        raise AssertionError(f"tpu_cnn pretraining: losses {losses}, still {still}, statistics still {stats_still}")
+    del initial, initial_stats
+    time_train_step(task, train, gen, TOWER_TIMED_STEPS, "tpu_cnn pretrain", smi)
+    trained = variables_to_numpy(task.model)
+    check_first_step(cfg, params, {k: t[:PRETRAIN_CHECK_BATCH] for k, t in train[0].items()}, "tpu_cnn check")
+
+    # the trained tower at eval: both stage convs of each block through the fused kernel
+    sub = {col: tree["video_encoder"] for col, tree in trained.items()}
+    tower = load_variables(VideoEncoder("tpu_cnn", cfg.model.video_d_model, dtype=torch.bfloat16), sub).cuda().eval()
+    clip = normalize_clip(val[0]["video"][:TOWER_EVAL_CLIPS])
+    with torch.inference_mode():
+        (emb, tokens), counts, _ = drive_counted(counters, kernels, "tower_tpu_cnn_eval", lambda: tower(clip),
+                                                 {**none, "conv3x3_bn_act": TPU_CNN_FUSED_CONVS})
+        with plain_fused_convs():
+            emb_ref, tokens_ref = tower(clip)
+    rel = ((tokens.float() - tokens_ref.float()).abs().max() / tokens_ref.float().abs().max()).item()
+    print(f"[tower tpu_cnn] the trained tower's eval forward on {TOWER_EVAL_CLIPS} clips: "
+          f"{counts['conv3x3_bn_act']} fused conv launches (BN folded from the moved running statistics); tokens "
+          f"against conv3x3_bn_act_reference on the same variables: max diff {rel:.3e} of the largest")
+    if not rel <= CONV_RTOL or not torch.isfinite(emb).all():
+        raise AssertionError(f"trained tpu_cnn eval: {rel} > {CONV_RTOL}")
+    del task, trainer, tower, train, val, trained, params
+    torch.cuda.empty_cache()
+
+    # -- the fusion classifier with ResNet-18 and MobileNetV2 ------------------------
+    for backbone in ("resnet18", "mobilenet_v2"):
+        cfg = pretrain_config()
+        cfg.model.video_backbone = backbone
+        cfg.training.train_epochs = 1
+        cfg.paths = PathConfig(base_output=save_root)
+        train = classify_batches(cfg, TOWER_CLASSIFY_STEPS, TOWER_BATCH, seed=910, video=True)
+        val = classify_batches(cfg, 1, TOWER_BATCH, seed=911, video=True)
+        params = init_params(cfg, torch.Generator().manual_seed(0), FusionClassifier)
+        task = build_fusion_task(cfg, device="cuda", params=params, steps_per_epoch=TOWER_CLASSIFY_STEPS)
+        before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+        trainer = ClassificationTrainer(cfg, task.state, task.train_step, task.eval_step,
+                                        save_root / backbone, gen, "finetune")
+        _, counts, fit_s = drive_counted(counters, kernels, f"tower_{backbone}_fusion",
+                                         lambda: trainer.fit(train, val), none)
+        history = trainer.history
+        all_moved, all_still = moved(task.model, before)
+        print(f"[tower {backbone}] fusion classifier fit: {TOWER_CLASSIFY_STEPS} steps of batch {TOWER_BATCH} and "
+              f"1 validation batch in {fit_s:.1f} s (first steps included); train {history['train'][0]}, val loss "
+              f"{history['val'][0]['loss']:.6f}; {len(all_moved)} of {len(before)} parameters moved; launches {counts}")
+        if not np.all(np.isfinite([history["train"][0]["loss"], history["val"][0]["loss"]])) or all_still:
+            raise AssertionError(f"{backbone} fusion: history {history}, still {all_still}")
+        del before
+        time_train_step(task, train, gen, TOWER_TIMED_STEPS, f"fusion {backbone}", smi)
+        del task, trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        engine = InferenceEngine.from_checkpoint(cfg, save_root / backbone / "last", device="cuda",
+                                                 batch_sizes=[TOWER_ENGINE_BATCH])
+        print(f"[tower {backbone}] InferenceEngine.from_checkpoint('last') built in {time.perf_counter() - t0:.1f} s")
+        requests = [engine_request(920, TOWER_ENGINE_BATCH, cfg), engine_request(921, 5, cfg)]
+        check_graph_replay(f"engine_{backbone}", engine, requests, counters, kernels, {"fused_window": 1})
+        inputs = engine._graphs[TOWER_ENGINE_BATCH].inputs
+        torch.cuda.reset_peak_memory_stats()
+        replay_ms = cuda_ms(lambda: engine._replay(TOWER_ENGINE_BATCH), 20)
+        eager_ms = cuda_ms(lambda: engine._forward(*inputs), 20)
+        print(f"[timing] engine_{backbone} batch {TOWER_ENGINE_BATCH}: graph replay {replay_ms:.3f} ms, eager "
+              f"{eager_ms:.3f} ms, {TOWER_ENGINE_BATCH / replay_ms * 1e3:.1f} inf/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        del engine, params, train, val
+        torch.cuda.empty_cache()
+
+    # -- videomae_base pretraining with remat_video against the same step without ----
+    cfg_pt = pretrain_config()
+    depth = VIT_CONFIGS[cfg_pt.model.video_backbone][0]
+    batch = pretrain_batches(cfg_pt, 1, REMAT_BATCH, seed=930)[0]
+    steps = {}
+    for remat in (False, True):
+        cfg = copy.deepcopy(cfg_pt)
+        cfg.model.remat_video = remat
+        task = build_pretrain_task(cfg, device="cuda", params=params_vit_pt, steps_per_epoch=1)
+
+        def step():
+            with precision_scope(cfg.training.pretrain_matmul_precision):
+                out = task.model.forward_cast(batch["imu"], normalize_clip(batch["video"]), train=True,
+                                              generator=torch.Generator(device="cuda").manual_seed(5))
+                loss = contrastive_loss_fn(cfg)(out)
+                loss.backward()
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        path = "remat_videomae_base" if remat else "no_remat_videomae_base"
+        loss, counts, step_s = drive_counted(counters, kernels, path, step, {
+            **none, "flash_lean": depth * (2 if remat else 1), "flash_bwd_dkv": depth, "flash_bwd_dq": depth})
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().clone() for n, p in task.model.named_parameters() if p.grad is not None}
+        steps[remat] = (loss, grads)
+        print(f"[remat] videomae_base pretraining step, remat_video={remat}, batch {REMAT_BATCH}: loss "
+              f"{loss.item():.6f} in {step_s * 1e3:.1f} ms (first step); launches {counts}; peak memory "
+              f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before "
+              f"the step ({smi})")
+        time_train_step(task, [batch], gen, TOWER_TIMED_STEPS, f"pretrain videomae_base remat_video={remat}", smi)
+        del task
+        torch.cuda.empty_cache()
+    (loss, grads), (loss_r, grads_r) = steps[False], steps[True]
+    if grads.keys() != grads_r.keys():
+        raise AssertionError("remat: the two steps' gradients have different leaves")
+    differ = [n for n in grads if not torch.equal(grads[n], grads_r[n])]
+    worst = max(((((grads[n] - grads_r[n]).abs().max() / grads[n].abs().max()).item(), n) for n in differ),
+                default=(0.0, ""))
+    same_loss = "equal bit for bit" if torch.equal(loss, loss_r) else f"differs by {abs(loss - loss_r).item():.3e}"
+    print(f"[remat] with remat_video against without: loss {same_loss}; {len(grads) - len(differ)} of {len(grads)} "
+          f"gradient leaves equal bit for bit"
+          + (f", the largest difference {worst[0]:.3e} of its leaf's largest element ({worst[1]})" if differ else ""))
+    if abs((loss - loss_r) / loss).item() > REMAT_RTOL or worst[0] > REMAT_RTOL:
+        raise AssertionError(f"remat step differs: loss {loss.item()} vs {loss_r.item()}, gradients {worst}")
+    del steps, grads, grads_r, batch
+    torch.cuda.empty_cache()
+
+    # -- the IMU classifier's finetune with the 1-D CNN and the STFT encoder ---------
+    for encoder in ("cnn", "stft"):
+        cfg = classify_config()
+        if encoder == "cnn":
+            cfg.model.imu_encoder = "cnn"
+        else:
+            cfg.data.imu_featurizer = "stft"
+        cfg.training.train_epochs = 1
+        cfg.paths = PathConfig(base_output=save_root)
+        batch = cfg.training.train_batch_size
+        train = classify_batches(cfg, CLASSIFY_IMU_STEPS, batch, seed=940, video=False)
+        val = classify_batches(cfg, 1, batch, seed=941, video=False)
+        task = build_classification_task(cfg, "finetune", device="cuda", steps_per_epoch=CLASSIFY_IMU_STEPS)
+        before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+        trainer = ClassificationTrainer(cfg, task.state, task.train_step, task.eval_step,
+                                        save_root / f"imu_{encoder}", gen, "finetune")
+        _, counts, fit_s = drive_counted(counters, kernels, f"imu_{encoder}_finetune",
+                                         lambda: trainer.fit(train, val), none)
+        history = trainer.history
+        all_moved, all_still = moved(task.model, before)
+        print(f"[imu {encoder}] finetune fit: {CLASSIFY_IMU_STEPS} steps of batch {batch} and 1 validation batch in "
+              f"{fit_s:.1f} s; train {history['train'][0]}, val loss {history['val'][0]['loss']:.6f}; "
+              f"{len(all_moved)} of {len(before)} parameters moved; launches {counts}")
+        if not np.all(np.isfinite([history["train"][0]["loss"], history["val"][0]["loss"]])) or all_still:
+            raise AssertionError(f"imu {encoder}: history {history}, still {all_still}")
+        time_train_step(task, train, gen, CLASSIFY_IMU_TIMED_STEPS, f"imu {encoder} finetune", smi)
+        engine = InferenceEngine(cfg, variables_to_numpy(task.model), imu_only=True, batch_sizes=IMU_ENGINE_SIZES,
+                                 device="cuda")
+        rng = np.random.default_rng(950)
+        requests = [(rng.normal(0, 8000.0, (n, cfg.data.imu_window_size, cfg.data.imu_channels)).astype(np.float32),)
+                    for n in (8, 3, 256, 100)]
+        check_graph_replay(f"engine_imu_{encoder}", engine, requests, counters, kernels, {"fused_window": 1})
+        for b in IMU_ENGINE_SIZES:
+            replay_ms = cuda_ms(lambda: engine._replay(b), 20)
+            print(f"[timing] engine_imu_{encoder} batch {b}: graph replay {replay_ms:.3f} ms, "
+                  f"{b / replay_ms * 1e3:.1f} inf/s ({smi})")
+        del task, trainer, engine, before
+        torch.cuda.empty_cache()
     shutil.rmtree(save_root, ignore_errors=True)
 
 
@@ -1419,6 +1684,7 @@ def main() -> None:
         del engine
         torch.cuda.empty_cache()
     run_classification_stage(counters, kernels, smi)
+    run_towers_stage(counters, kernels, smi, params_pt)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
 

@@ -224,6 +224,48 @@ def test_conv3x3_refuses(cuda):
         conv3x3_bn_act(x[:, :6].contiguous(), k, scale, bias)
 
 
+# the conv forms the towers and the IMU 1-D CNN train and serve through (cuDNN on the
+# card): (name, x shape, kernel shape, stride, padding, groups, bias)
+CONV_FORMS = {
+    "resnet_stride2_pad_1_1": ((16, 56, 56, 64), (3, 3, 64, 128), 2, [(1, 1), (1, 1)], 1, False),
+    "resnet_stem_7x7": ((8, 224, 224, 3), (7, 7, 3, 64), 2, [(3, 3), (3, 3)], 1, False),
+    "downsample_1x1_stride2": ((16, 56, 56, 64), (1, 1, 64, 128), 2, "SAME", 1, False),
+    "mobilenet_depthwise": ((16, 28, 28, 144), (3, 3, 1, 144), 2, [(1, 1), (1, 1)], 144, False),
+    "tiny_cnn_bias_same": ((16, 33, 33, 16), (3, 3, 16, 32), 2, "SAME", 1, True),
+    "imu_1d_same_3_4": ((64, 250, 6), (9, 6, 64), 2, "SAME", 1, True),
+}
+
+
+@pytest.mark.parametrize("form", list(CONV_FORMS))
+def test_conv_forms_match_the_cpu(cuda, form):
+    """Each conv form of ``conv_nhwc``/``conv_nlc`` (explicit (lo, hi) pads, groups, a bias,
+    the 1-D conv with XLA's uneven SAME pads) on the card against the CPU on the same f32
+    inputs: within 1e-5 of the largest output (TF32 off)."""
+    from tpuhar_torch.ops.conv3x3 import conv_nhwc, conv_nlc
+
+    x_shape, k_shape, stride, padding, groups, with_bias = CONV_FORMS[form]
+    gen = torch.Generator().manual_seed(len(form))
+    x, k = torch.randn(x_shape, generator=gen), torch.randn(k_shape, generator=gen)
+    bias = torch.randn(k_shape[-1], generator=gen) if with_bias else None
+
+    def conv(x, k, bias):
+        if x.dim() == 3:
+            return conv_nlc(x, k, stride, padding, bias=bias)
+        return conv_nhwc(x, k, stride, padding, groups=groups, bias=bias)
+
+    want = conv(x, k, bias)
+    got = conv(x.to(cuda), k.to(cuda), None if bias is None else bias.to(cuda))
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_max_pool_matches_the_cpu(cuda):
+    from tpuhar_torch.ops.conv3x3 import max_pool_nhwc
+
+    x = torch.randn((16, 112, 112, 64), generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(max_pool_nhwc(x.to(cuda), 3, 2, 1).cpu(), max_pool_nhwc(x, 3, 2, 1), rtol=0, atol=0)
+
+
 def _stem_case(frames, c0, device, seed=0, k=768):
     gen = torch.Generator(device=device).manual_seed(seed)
     col = torch.randint(0, 256, (frames, 14, 14, k), generator=gen, device=device, dtype=torch.uint8)

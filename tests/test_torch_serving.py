@@ -6,8 +6,9 @@ inputs go through both engines. Sizes: the flagship cut as in
 ``tests/test_torch_slice.py`` (``tpu_cnn`` at full width, IMU d=64 / 4 heads / 2
 layers, fusion 4 heads, 8 classes, 4 frames of 64²) with ``batch_sizes=[4]``, and
 ``videomae_tiny`` on 4 frames of 32² as in ``tests/test_torch_slice_vit.py`` for the
-``fast_gelu``/``fast_attention`` cases. ``tiny_cnn``, which the JAX package's own
-tests use, is not ported.
+``fast_gelu``/``fast_attention`` cases. The ``tiny_cnn`` fusion engine and the IMU-only
+engine with the 1-D CNN encoder are held to the JAX package's in
+``tests/test_torch_towers.py`` and ``tests/test_torch_imu_encoders.py``.
 
 Tolerances: logits, MSP, energy and embeddings 1e-4 abs; ``preds`` equal, dtypes
 included; Mahalanobis, RMD and KNN scores 1e-4 relative; thresholds from
@@ -19,7 +20,7 @@ calibrating itself may move a site scale by its last bit and an int8 code by one
 (5 of the 11 site scales differed in the last bit, and the embeddings by 9e-4, on 2
 clips here).
 
-Left out: the mesh tests (queue 1 item 8) and the resnet18 resident test (item 5); the
+Left out: the mesh tests (queue 1 item 8) and the resnet18 resident test (item 4); the
 ``NotImplementedError`` naming each item stands in their place.
 """
 import jax
@@ -323,7 +324,7 @@ def test_refusals_match_the_reference(fusion, kw, error, match):
 
 def test_what_is_not_ported_raises(fusion, monkeypatch):
     """The mesh (queue 1 item 8), the centered int8 wire ("Not ported"), the int8
-    resnet18 tower (item 5), and the card asked for where there is none; an unknown wire
+    resnet18 tower (item 4), and the card asked for where there is none; an unknown wire
     raises as the reference's ``serving.py:202-203`` does (which calibrates first: its
     test would cost seconds). ``from_checkpoint`` is ported: a path holding no checkpoint
     raises."""
@@ -339,7 +340,7 @@ def test_what_is_not_ported_raises(fusion, monkeypatch):
         InferenceEngine.from_checkpoint(cfg, "no/such/checkpoint", device="cpu")
     resnet = _config()
     resnet.model.video_backbone = "resnet18"
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         InferenceEngine(resnet, variables, quantize_calib_clips=clips, quantize_resident=True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):

@@ -123,13 +123,24 @@ def test_recalibration_off_and_affine(setup):
     np.testing.assert_allclose(on(*args)["logits"].numpy(), a * off(*args)["logits"].numpy() + b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("backbone,item", [("resnet18", "5"), ("videomae_base", "4")])
+@pytest.mark.parametrize("backbone,item", [("resnet18", "4"), ("videomae_base", "4")])
 def test_other_backbones_are_not_ported(setup, backbone, item):
     cfg, variables, calib, *_ = setup
     cfg = _config()
     cfg.model.video_backbone = backbone
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         TS.build_quantized_forward(cfg, variables, calib, device="cpu")
+
+
+@pytest.mark.parametrize("backbone", ["mobilenet_v2", "tiny_cnn"])
+def test_towers_without_an_int8_form_raise_as_jax(setup, backbone):
+    """The towers the JAX package quantizes no form of raise its ``ValueError``."""
+    _, variables, calib, *_ = setup
+    cfg = _config()
+    cfg.model.video_backbone = backbone
+    for build in (jax_build, lambda *args: TS.build_quantized_forward(*args, device="cpu")):
+        with pytest.raises(ValueError, match="quantized path supports backbones"):
+            build(cfg, variables, calib)
 
 
 @pytest.mark.parametrize("n", [3, 200])

@@ -1,10 +1,20 @@
-"""PatchTST-like IMU encoder (``tpuhar/models/imu.py``)."""
+"""The IMU encoders (``tpuhar/models/imu.py``): the PatchTST-like transformer over raw
+patches, the same transformer over STFT frames, and the 1-D CNN.
+
+Each takes featurized windows ``(B, C, T)`` and returns ``(embedding (B, d_model) f32,
+tokens (B, N, d_model))``; its leaves carry flax's names and shapes.
+"""
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
 
-from .layers import LN_EPS, TransformerEncoderBlock
+from ..ops.conv3x3 import conv_nlc
+from ..ops.featurize import stft_featurize
+from .layers import LN_EPS, BatchNorm, TransformerEncoderBlock
+from .video import ConvKernel
 
 
 class PatchEmbedding(nn.Module):
@@ -83,12 +93,125 @@ class IMUTransformerEncoder(nn.Module):
         return tokens[:, 0].float(), tokens
 
 
-def build_imu_encoder(config, dtype) -> IMUTransformerEncoder:
-    """The transformer IMU encoder of ``config`` (the only IMU encoder ported)."""
+class STFTTokenizer(nn.Module):
+    """Per-channel projection of STFT frames: ``(B, C, F, bins)`` → ``(B, C·F, D)`` by
+    the einsum ``bcfk,ckd->bcfd`` with a ``(C, bins, D)`` kernel and a ``(C, 1, D)``
+    bias, flax's plain parameters."""
+
+    def __init__(self, in_channels: int, n_bins: int, d_model: int, *, dtype=torch.float32):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_channels, n_bins, d_model, dtype=dtype), requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(in_channels, 1, d_model, dtype=dtype), requires_grad=False)
+
+    def forward(self, spec):
+        B, C, Fr, _ = spec.shape
+        out = torch.einsum("bcfk,ckd->bcfd", spec.to(self.kernel.dtype), self.kernel) + self.bias
+        return out.reshape(B, C * Fr, out.shape[-1])
+
+
+class IMUSpectrogramEncoder(nn.Module):
+    """The transformer trunk of ``IMUTransformerEncoder`` tokenized from log-magnitude
+    STFT frames (``ops/featurize.stft_featurize``) instead of raw patches: a CLS token
+    ~ N(0, 1) in front of the channel-major frame tokens, a positional table ~ N(0,
+    0.02) over ``1 + C·F`` tokens (37 at T=250, ``nperseg`` 64, ``hop`` 32), post-norm
+    blocks (dropout from ``generator`` with ``train=True``), a final LayerNorm; the CLS
+    row is the embedding."""
+
+    init_std = {"pos_encoding": 0.02}  # flax normal(0.02); read by bridge.init_params
+
+    def __init__(
+        self,
+        in_channels: int = 6,
+        window_size: int = 250,
+        d_model: int = 128,
+        num_heads: int = 8,
+        num_layers: int = 4,
+        dropout: float = 0.0,
+        nperseg: int = 64,
+        hop: int = 32,
+        *,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.num_layers, self.nperseg, self.hop = num_layers, nperseg, hop
+        frames = (window_size - nperseg) // hop + 1
+        self.stft_tokenizer = STFTTokenizer(in_channels, nperseg // 2 + 1, d_model, dtype=dtype)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, d_model, dtype=dtype), requires_grad=False)
+        self.pos_encoding = nn.Parameter(
+            torch.empty(1, 1 + in_channels * frames, d_model, dtype=dtype), requires_grad=False
+        )
+        for i in range(num_layers):
+            self.add_module(
+                f"block{i}",
+                TransformerEncoderBlock(d_model, num_heads, 4 * d_model, dropout=dropout, dtype=dtype),
+            )
+        self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
+
+    def forward(self, x, *, train: bool = False, generator=None):
+        spec = stft_featurize(x.transpose(-1, -2), nperseg=self.nperseg, hop=self.hop)
+        tokens = self.stft_tokenizer(spec)
+        B, _, D = tokens.shape
+        tokens = torch.cat([self.cls_token.expand(B, 1, D), tokens], dim=1) + self.pos_encoding
+        for i in range(self.num_layers):
+            tokens = getattr(self, f"block{i}")(tokens, train=train, generator=generator)
+        tokens = self.final_norm(tokens)
+        return tokens[:, 0].float(), tokens
+
+
+class IMUConvEncoder(nn.Module):
+    """1-D CNN over time: for each width a conv (flax's ``nn.Conv``: ``kernel`` taps,
+    stride 2, SAME padding, with bias), a BatchNorm (train mode with ``train=True``) and
+    ReLU; then the ``proj`` Dense per frame and the mean over frames (32 frames at
+    T=250). Returns ``(embedding (B, D) f32, frame tokens (B, T', D))``."""
+
+    def __init__(
+        self,
+        in_channels: int = 6,
+        channels: Sequence[int] = (64, 128, 128),
+        kernel: int = 9,
+        d_model: int = 128,
+        *,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.dtype, self.depth = dtype, len(channels)
+        prev = in_channels
+        for i, ch in enumerate(channels):
+            self.add_module(f"conv{i}", ConvKernel((kernel, prev, ch), bias=True, dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(ch))
+            prev = ch
+        self.proj = nn.Linear(prev, d_model, dtype=dtype)
+
+    def forward(self, x, *, train: bool = False, generator=None):
+        h = x.transpose(-1, -2).to(self.dtype)
+        for i in range(self.depth):
+            conv = getattr(self, f"conv{i}")
+            h = conv_nlc(h, conv.kernel, 2, bias=conv.bias)
+            h = torch.relu(getattr(self, f"bn{i}")(h, train=train))
+        tokens = self.proj(h)
+        return tokens.mean(dim=1).float(), tokens
+
+
+def build_imu_encoder(config, dtype) -> nn.Module:
+    """The IMU encoder of ``config``, keyed as the JAX package keys it: the 1-D CNN
+    where ``model.imu_encoder`` is "cnn", else the spectrogram transformer where
+    ``data.imu_featurizer`` is "stft", else the transformer over raw patches."""
     m, d = config.model, config.data
-    if m.imu_encoder != "transformer" or d.imu_featurizer != "raw":
-        raise NotImplementedError(
-            f"IMU encoder {m.imu_encoder!r} / featurizer {d.imu_featurizer!r} is not ported"
+    if m.imu_encoder == "cnn":
+        return IMUConvEncoder(
+            d.imu_channels, tuple(m.imu_cnn_channels), m.imu_cnn_kernel, m.imu_d_model, dtype=dtype,
+        )
+    if d.imu_featurizer == "stft":
+        return IMUSpectrogramEncoder(
+            in_channels=d.imu_channels,
+            window_size=d.imu_window_size,
+            d_model=m.imu_d_model,
+            num_heads=m.imu_nhead,
+            num_layers=m.imu_num_layers,
+            dropout=m.imu_dropout,
+            nperseg=d.stft_nperseg,
+            hop=d.stft_hop,
+            dtype=dtype,
         )
     return IMUTransformerEncoder(
         in_channels=d.imu_channels,

@@ -42,7 +42,8 @@ def dropout(x: torch.Tensor, rate: float, generator=None, shape=None) -> torch.T
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis with flax's variable names: params
-    ``scale``/``bias``, running stats ``mean``/``var``. Kept and applied in f32.
+    ``scale``/``bias``, running stats ``mean``/``var``. Applied in f32, or in float64
+    for float64 input, as flax promotes to at least f32.
 
     ``train=True`` is flax's train mode: the batch's mean and biased variance over every
     axis but the last, in f32 as E[x²] − E[x]² (clipped at 0), normalize ``x``, and the
@@ -57,7 +58,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.empty(features))
 
     def forward(self, x, *, train: bool = False):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = tuple(range(xf.dim() - 1))
             mean = xf.mean(dim=axes)
@@ -67,8 +68,8 @@ class BatchNorm(nn.Module):
                 self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
         else:
             mean, var = self.mean, self.var
-        s = self.scale * torch.rsqrt(var + BN_EPS)
-        return ((xf - mean) * s + self.bias).to(x.dtype)
+        s = self.scale.to(xf.dtype) * torch.rsqrt(var.to(xf.dtype) + BN_EPS)
+        return ((xf - mean.to(xf.dtype)) * s + self.bias.to(xf.dtype)).to(x.dtype)
 
 
 def norm_layer(kind: str, features: int, *, dtype=torch.float32) -> nn.Module:

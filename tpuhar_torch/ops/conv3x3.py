@@ -16,7 +16,7 @@ there is no quiet fallback for shapes a kernel does not take.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,15 +31,56 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
     return pad // 2, pad - pad // 2
 
 
-def conv_nhwc(x, kernel, stride: int = 1, padding: str = "SAME"):
-    """NHWC × HWIO conv in ``x``'s dtype with XLA's SAME or VALID padding."""
-    xc = x.permute(0, 3, 1, 2)
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def conv_pads(spatial: Sequence[int], window: Sequence[int], stride: int, padding: Padding) -> List[Tuple[int, int]]:
+    """flax's ``padding`` of a conv or pool as one ``(lo, hi)`` pair per spatial axis:
+    ``"SAME"`` (XLA's split, ``same_padding``), ``"VALID"`` (none) or the pairs
+    themselves (``[(1, 1), (1, 1)]``, which at stride 2 is not SAME: at 56² SAME
+    pads (0, 1))."""
     if padding == "SAME":
-        lo, hi = same_padding(x.shape[1], kernel.shape[0], stride)
-        xc = F.pad(xc, (lo, hi, lo, hi))
-    elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    return F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+        return [same_padding(s, k, stride) for s, k in zip(spatial, window)]
+    if padding == "VALID":
+        return [(0, 0)] * len(spatial)
+    if isinstance(padding, str) or len(padding) != len(spatial):
+        raise ValueError(f"padding must be 'SAME', 'VALID' or {len(spatial)} (lo, hi) pairs, got {padding!r}")
+    return [(int(lo), int(hi)) for lo, hi in padding]
+
+
+def _conv_channels_first(xc, weight, stride: int, pads, groups: int, bias):
+    """``F.conv1d``/``F.conv2d`` of a channels-first ``xc`` with ``(lo, hi)`` ``pads``
+    per spatial axis: symmetric pads go to the conv itself, others through ``F.pad``
+    first (zeros, as XLA pads)."""
+    conv = F.conv2d if xc.dim() == 4 else F.conv1d
+    if all(lo == hi for lo, hi in pads):
+        return conv(xc, weight, bias, stride=stride, padding=tuple(lo for lo, _ in pads), groups=groups)
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad takes the last axis first
+    return conv(F.pad(xc, flat), weight, bias, stride=stride, groups=groups)
+
+
+def conv_nhwc(x, kernel, stride: int = 1, padding: Padding = "SAME", *, groups: int = 1, bias=None):
+    """flax's ``nn.Conv`` on NHWC ``x`` with an HWIO ``kernel`` ``(kh, kw, C/groups,
+    C_out)``, in ``x``'s dtype: ``padding`` as ``conv_pads`` reads it,
+    ``feature_group_count=groups`` (MobileNetV2's depthwise conv: ``(3, 3, 1, C)``,
+    ``groups=C``) and an optional ``(C_out,)`` bias."""
+    pads = conv_pads(x.shape[1:3], kernel.shape[:2], stride, padding)
+    y = _conv_channels_first(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), stride, pads, groups, bias)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_nlc(x, kernel, stride: int = 1, padding: Padding = "SAME", *, bias=None):
+    """flax's 1-D ``nn.Conv`` on ``(N, L, C)`` ``x`` with a ``(k, C, C_out)`` kernel and
+    an optional bias, in ``x``'s dtype. SAME may pad unevenly: at L=250, k=9, stride 2
+    it pads (3, 4)."""
+    pads = conv_pads(x.shape[1:2], kernel.shape[:1], stride, padding)
+    return _conv_channels_first(x.transpose(1, 2), kernel.permute(2, 1, 0), stride, pads, 1, bias).transpose(1, 2)
+
+
+def max_pool_nhwc(x, window: int, stride: int, pad: int):
+    """flax's ``nn.max_pool(x, (window, window), (stride, stride), [(pad, pad)] * 2)`` on
+    NHWC ``x``: the padding is −inf, as ``F.max_pool2d``'s is."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, pad).permute(0, 2, 3, 1)
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):

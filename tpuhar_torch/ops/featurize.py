@@ -1,8 +1,10 @@
-"""IMU featurization in plain PyTorch: unit conversion, median filter, z-score.
+"""IMU featurization in plain PyTorch: unit conversion, median filter, z-score, and
+the STFT spectrogram.
 
-Counterpart of ``tpuhar/ops/featurize.py`` (the serving subset). Windows are
-time-major ``(..., T, C)``; ``featurize_windows`` returns ``(B, C, T)``. This is the
-plain version of the fused kernel in ``ops/fused_window.py``.
+Counterpart of ``tpuhar/ops/featurize.py`` (the serving subset and
+``stft_featurize``). Windows are time-major ``(..., T, C)``; ``featurize_windows``
+returns ``(B, C, T)``. This is the plain version of the fused kernel in
+``ops/fused_window.py``.
 """
 from __future__ import annotations
 
@@ -52,3 +54,16 @@ def featurize_windows(
     if normalize:
         x = zscore_time(x)
     return x.transpose(-1, -2)
+
+
+def stft_featurize(x: torch.Tensor, nperseg: int = 64, hop: int = 32, *, log_eps: float = 1e-6) -> torch.Tensor:
+    """Per-channel log-magnitude spectrogram of ``(..., T, C)``: frames of ``nperseg``
+    samples every ``hop``, each times a Hann window, ``log(|rfft| + log_eps)``.
+
+    Returns ``(..., C, F, nperseg//2 + 1)`` with ``F = (T − nperseg)//hop + 1``. The
+    window is numpy's ``hanning``, the symmetric one (``periodic=False``; torch's
+    default is the periodic window)."""
+    frames = x.unfold(-2, nperseg, hop)  # (..., F, C, nperseg)
+    win = torch.hann_window(nperseg, periodic=False, dtype=x.dtype, device=x.device)
+    spec = torch.fft.rfft(frames * win, dim=-1)  # (..., F, C, bins)
+    return torch.log(spec.abs() + log_eps).transpose(-3, -2).to(x.dtype)

@@ -70,16 +70,19 @@ def fit_logit_recalibration(
     return a.astype(np.float32), b.astype(np.float32)
 
 
+# the towers the JAX package quantizes (its serving_quant._QUANT_BACKBONES)
+_QUANT_BACKBONES = ("resnet18", "tpu_cnn", "tpu_cnn_large", "videomae_base", "videomae_small", "videomae_tiny")
+
+
 def _check_backbone(cfg) -> None:
     backbone = cfg.model.video_backbone
     if backbone in _TPU_CNN_BACKBONES:
         return
-    if "/" in backbone or "videomae" in backbone.lower():
-        where = "the ViT int8 towers are ROADMAP queue 1 item 4"
-    else:
-        where = "resnet18 and the other towers are ROADMAP queue 1 item 5"
+    if backbone not in _QUANT_BACKBONES:
+        raise ValueError(f"quantized path supports backbones {sorted(_QUANT_BACKBONES)}, got {backbone!r}")
     raise NotImplementedError(
-        f"the quantized path of the port supports {_TPU_CNN_BACKBONES}, not {backbone!r}: {where}"
+        f"the quantized path of the port supports {_TPU_CNN_BACKBONES}, not {backbone!r}: the int8 towers "
+        "(the ViT and ResNet-18) are ROADMAP queue 1 item 4"
     )
 
 

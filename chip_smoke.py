@@ -18,8 +18,11 @@ Phases; any failed check raises and the exit code is non-zero:
    stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
    mapped codes) and the int8 conv (both bit for bit; the int8 conv beside
    ``torch._int_mm`` on its im2col matrix and beside the bf16 conv's time, with their
-   ratio), flash attention (beside ``F.scaled_dot_product_attention``, with its
-   TFLOP/s);
+   ratio), the int8 GEMM (the stem kernel without its byte map, bit for bit at the int8
+   towers' shapes with f32 and int8 out, beside ``torch._int_mm``, the ViT's four
+   products timed again at batch 64) and the int8 conv with ResNet-18's explicit
+   ``(1, 1)`` at stride 2, flash attention (beside ``F.scaled_dot_product_attention``,
+   with its TFLOP/s);
 4. the flagship bf16 fusion forward at full width (``entry.build_forward``) answering
    three batch-8 requests, with each kernel's launch count in that run;
 5. the same parameters in f32 on the CPU (plain paths) at batch 2, against the card;
@@ -87,7 +90,18 @@ Phases; any failed check raises and the exit code is non-zero:
     backward kernel; the loss and every gradient; peak memory of both); the IMU
     classifier's finetune with the 1-D CNN and with the STFT encoder at batch 64, each
     served IMU-only at 8 and 256 (the featurizer once a graph); each program's step
-    time, samples/s and peak memory.
+    time, samples/s and peak memory;
+19. the int8 towers at full width (224², 16 frames): the int8 ``videomae_base`` ViT
+    (phase 8's configuration and weights) served by ``InferenceEngine(quantize_calib_
+    clips=...)`` at 8 and 64 (a graph holds one featurizer, one stem and 48 int8 GEMM
+    launches), its build split into the CPU calibration and the recalibration on the
+    card, its eager tower at 8 and 64 and its eager program at 8 bit for bit against the
+    same with the kernels' plain versions in their place, its tokens correlated with the
+    f32 mirror; the int8 ResNet-18 (``pretrain_config()`` with ``resnet18``, random
+    weights), baseline and resident engines at 8 (one featurizer, 4 int8 GEMM and 16
+    int8 conv launches a graph), each likewise against its plain-kernel program, and the
+    resident-vs-baseline logit drift; each replay bit for bit with the eager program,
+    with its time, inf/s and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -144,8 +158,18 @@ from tpuhar_torch.ops.flash_lean import (
     flash_lean_with_stats,
 )
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
+from tpuhar_torch.ops import quant as quant_module
+from tpuhar_torch.ops import quant_vit as quant_vit_module
 from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
-from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, to_patch_major, verify_byte_map
+from tpuhar_torch.ops.quant_vit import quant_vit_forward, vit_forward_f32
+from tpuhar_torch.ops.stem import (
+    int8_gemm,
+    int8_gemm_reference,
+    stem_gemm_u8,
+    stem_gemm_u8_reference,
+    to_patch_major,
+    verify_byte_map,
+)
 from tpuhar_torch.ops.video import normalize_clip
 from tpuhar_torch.serving import InferenceEngine, benchmark_engine
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
@@ -190,6 +214,23 @@ CONV_I8_CONVS = [
 CONV_I8_SHAPES = [(n, *c) for n in (128, 4096) for c in CONV_I8_CONVS] + [(3, 7, 512, 512, 1, True, True)]
 CONV_I8_TIMED_SHAPE = (4096, 14, 256, 256, 1, True, True)
 PLAIN_ITERS_4096 = 2  # the float64 plain versions at 4096 frames are slow
+# phase 19, the int8 towers. The int8 GEMM (the stem kernel without its byte map):
+# (what, M, K, N, ReLU) at the int8 ViT's four products at batch 8 (8 clips of 1568
+# tokens) and ResNet-18's at batch 8 (128 frames): the 7×7 stem on its im2col rows (K 147
+# padded to 192: a partial 128-byte chunk; 64 outputs, a quarter of a tile) and the
+# first downsample; a ragged M; each with f32 and int8 out
+INT8_GEMM_SHAPES = [
+    ("vit qkv", 12544, 768, 2304, False), ("vit out", 12544, 768, 768, False),
+    ("vit mlp_in", 12544, 768, 3072, False), ("vit mlp_out", 12544, 3072, 768, False),
+    ("resnet18 stem", 128 * 112 * 112, 192, 64, True), ("resnet18 downsample", 128 * 28 * 28, 64, 128, False),
+    ("ragged", 1000, 768, 2304, False),
+]
+INT8_GEMM_TIMED = "vit qkv"  # the kernels line's shape: the ViT's widest product at batch 8
+INT8_VIT_BATCH64_M = 64 * 1568  # the ViT's four products timed again at batch 64
+# the int8 conv with explicit (1, 1) padding at stride 2 (ResNet-18's layer1_0 conv1 at
+# batch 8), int8 and f32 out
+CONV_I8_PAD_SHAPE = (128, 56, 64, 128)
+INT8_VIT_SIZES, INT8_RESNET_SIZES = [8, 64], [8]
 # flash attention, bf16 out: |kernel - plain| / max |plain|; the online rescale reorders
 # the sums and each tile's P rounds to bf16 against another running max
 FLASH_RTOL = 1e-2
@@ -452,13 +493,17 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor, what: str):
         return None, f"torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {err}"
 
 
-def im2col_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """(N, S, S, C) → (N·S·S, 9·C), SAME padding at stride 1, K in the packed weights'
-    order (dy·3 + dx)·C + c."""
+def im2col_nhwc(x: torch.Tensor, stride: int = 1, pad: int = 1) -> torch.Tensor:
+    """(N, S, S, C) → (N·So·So, 9·C) for a 3×3 conv padded ``pad`` on each side at
+    ``stride`` (by default SAME at stride 1), K in the packed weights' order
+    (dy·3 + dx)·C + c."""
     n, s, _, c = x.shape
-    xp = torch.zeros((n, s + 2, s + 2, c), dtype=x.dtype, device=x.device)
-    xp[:, 1:-1, 1:-1] = x
-    return torch.cat([xp[:, dy:dy + s, dx:dx + s] for dy in range(3) for dx in range(3)], dim=-1).reshape(-1, 9 * c)
+    so = (s + 2 * pad - 3) // stride + 1
+    xp = torch.zeros((n, s + 2 * pad, s + 2 * pad, c), dtype=x.dtype, device=x.device)
+    xp[:, pad:pad + s, pad:pad + s] = x
+    taps = [xp[:, dy:dy + stride * (so - 1) + 1:stride, dx:dx + stride * (so - 1) + 1:stride]
+            for dy in range(3) for dx in range(3)]
+    return torch.cat(taps, dim=-1).reshape(-1, 9 * c)
 
 
 def check_conv3x3_i8() -> dict:
@@ -511,6 +556,117 @@ def check_conv3x3_i8() -> dict:
             timed = {"ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms, "library_ms": library_ms,
                      "library_note": note, **b}
     return {"max_abs_err": worst, **timed, "shape": "(4096, 14, 14, 256)->256 int8 + residual"}
+
+
+def check_int8_gemm() -> dict:
+    """The int8 GEMM kernel against its plain version, bit for bit, at the int8 towers'
+    shapes with f32 and int8 out; each shape's serving form timed beside
+    ``torch._int_mm``'s product alone and the bound, and the ViT's four products again
+    at batch 64."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timed, worst, rows = None, 0.0, {}
+
+    def case(m, k, n):
+        # full-range codes: at K = 3072 |acc| reaches 4.9e7 > 2^24, where the convert rounds
+        x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") * 1e-6
+        bias = torch.randn(n, generator=gen, device="cuda") * 0.5
+        return x, w, scale, bias
+
+    def timing(x, w, scale, bias, kw):
+        m, k, n = x.shape[0], x.shape[1], w.shape[0]
+        ms = cuda_ms(lambda: int8_gemm(x, w, scale, bias, **kw), 20)
+        out_bytes = m * n * (1 if kw.get("out_scale") else 4)
+        b = bound(x.numel() + w.numel() + out_bytes + 8 * n, {"int8": 2 * m * k * n})
+        library_ms, note = int_mm_ms(x, w.T.contiguous(), f"({m}, {k}) x ({k}, {n})")
+        return ms, b, library_ms, note
+
+    for what, m, k, n, relu in INT8_GEMM_SHAPES:
+        x, w, scale, bias = case(m, k, n)
+        if what == "resnet18 stem":
+            x[:, 147:] = 0  # the im2col rows' zero columns past 7·7·3
+            w[:, 147:] = 0
+        for out_scale in (None, 0.05):
+            kw = {"relu": relu, "out_scale": out_scale}
+            got = int8_gemm(x, w, scale, bias, **kw)
+            want = int8_gemm_reference(x, w, scale, bias, **kw)
+            mismatches = (got != want).sum().item()
+            err = (got.float() - want.float()).abs().max().item()
+            name = f"{what} ({m}, {k})->{n} relu={relu} {'int8' if out_scale else 'f32'} out"
+            if mismatches:
+                raise AssertionError(f"int8_gemm {name}: {mismatches} elements differ from the plain version")
+            worst = max(worst, err)
+            serving = out_scale is None if what != "resnet18 stem" else out_scale is not None
+            if not serving:
+                print(f"[kernel] int8_gemm {name}: 0 mismatches")
+                continue
+            ms, b, library_ms, note = timing(x, w, scale, bias, kw)
+            plain_ms = cuda_ms(lambda: int8_gemm_reference(x, w, scale, bias, **kw), 3, warmup=1)
+            print(f"[kernel] int8_gemm {name}: 0 mismatches; kernel {ms:.4f} ms "
+                  f"({2 * m * k * n / ms / 1e9:.1f} TOP/s), plain (float64) {plain_ms:.4f} ms, "
+                  + (note if library_ms is None else f"{note} {library_ms:.4f} ms")
+                  + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            rows[what] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
+            if what == INT8_GEMM_TIMED:
+                timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_note": note, **b}
+        del x, w, got, want
+    total = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for what, _, k, n, _ in INT8_GEMM_SHAPES[:4]:  # the ViT's four products at batch 64
+        x, w, scale, bias = case(INT8_VIT_BATCH64_M, k, n)
+        ms, b, library_ms, note = timing(x, w, scale, bias, {})
+        print(f"[kernel] int8_gemm {what} at batch 64 ({INT8_VIT_BATCH64_M}, {k})->{n} f32 out: kernel {ms:.4f} ms, "
+              + (note if library_ms is None else f"{note} {library_ms:.4f} ms")
+              + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        rows[f"{what} batch 64"] = {"ms": ms, "library_ms": library_ms, **b}
+        total["ms"] += ms
+        total["bound_ms"] += b["bound_ms"]
+        total["library_ms"] += library_ms or float("nan")
+        del x, w
+    print(f"[kernel] int8_gemm the ViT's 48 products a forward at batch 64: kernel {12 * total['ms']:.3f} ms, "
+          f"torch._int_mm {12 * total['library_ms']:.3f} ms, bound {12 * total['bound_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timed, "shape": "(12544, 768) -> 2304 int8 x int8, f32 out (the ViT's qkv at "
+            "batch 8)", "by_shape": rows}
+
+
+def check_conv3x3_i8_padding() -> dict:
+    """The int8 conv with ResNet-18's explicit ``(1, 1)`` at stride 2 (SAME would pad
+    (0, 1) on the even plane) against its plain version, bit for bit, int8 and f32 out;
+    the int8 form timed beside ``torch._int_mm`` on its im2col matrix and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, s, c, c_out = CONV_I8_PAD_SHAPE
+    so = s // 2
+    x = torch.randint(0, 128, (n, s, s, c), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (c_out, 9 * c), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(c_out, generator=gen, device="cuda") * 1e-5
+    bias = torch.randn(c_out, generator=gen, device="cuda") * 0.1
+    pads = [(1, 1), (1, 1)]
+    timed = None
+    for out_scale in (0.02, None):
+        kw = {"stride": 2, "padding": pads, "relu": True, "out_scale": out_scale}
+        got = conv3x3_i8(x, w, scale, bias, **kw)
+        want = conv3x3_i8_reference(x, w, scale, bias, **kw)
+        mismatches = (got != want).sum().item()
+        same = conv3x3_i8(x, w, scale, bias, **{**kw, "padding": "SAME"})
+        name = f"({n}, {s}, {s}, {c})->{c_out} stride 2 padding (1, 1) {'int8' if out_scale else 'f32'} out"
+        if mismatches or torch.equal(same, got):
+            raise AssertionError(f"conv3x3_i8 {name}: {mismatches} elements differ from the plain version "
+                                 f"(SAME {'equal' if torch.equal(same, got) else 'differs'})")
+        if out_scale is None:
+            print(f"[kernel] conv3x3_i8 {name}: 0 mismatches")
+            continue
+        ms = cuda_ms(lambda: conv3x3_i8(x, w, scale, bias, **kw), 20)
+        plain_ms = cuda_ms(lambda: conv3x3_i8_reference(x, w, scale, bias, **kw), 3, warmup=1)
+        b = bound(x.numel() + w.numel() + got.numel() + 8 * c_out, {"int8": 2 * n * so * so * 9 * c * c_out})
+        cols = im2col_nhwc(x, stride=2)
+        library_ms, note = int_mm_ms(cols, w.T.contiguous(), f"the im2col matrix {tuple(cols.shape)}")
+        del cols
+        print(f"[kernel] conv3x3_i8 {name}: 0 mismatches (SAME, padding (0, 1), differs); kernel {ms:.4f} ms, plain "
+              f"(float64) {plain_ms:.4f} ms, " + (note if library_ms is None else f"{note} {library_ms:.4f} ms")
+              + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b, "shape": name}
+    return timed
 
 
 def check_flash() -> dict:
@@ -1395,6 +1551,136 @@ def run_towers_stage(counters: dict, kernels: dict, smi: str, params_vit_pt) -> 
     shutil.rmtree(save_root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def plain_int8_kernels():
+    """The int8 towers' kernel calls go to the kernels' plain versions inside the scope."""
+    swaps = [(quant_module, "int8_gemm", int8_gemm_reference), (quant_module, "conv3x3_i8", conv3x3_i8_reference),
+             (quant_vit_module, "int8_gemm", int8_gemm_reference),
+             (quant_vit_module, "stem_gemm_u8", stem_gemm_u8_reference)]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    try:
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
+        yield
+    finally:
+        for module, name, original in saved:
+            setattr(module, name, original)
+
+
+def equal_to_plain_kernels(what: str, run) -> None:
+    """Fail unless ``run()`` gives, bit for bit, what it gives with the int8 kernels'
+    plain versions in their place (every other op the same, on the same device)."""
+    got = run()
+    with plain_int8_kernels():
+        want = run()
+    pairs = got.items() if isinstance(got, dict) else [("out", got)]
+    want = want if isinstance(want, dict) else {"out": want}
+    for key, value in pairs:
+        if not torch.equal(value, want[key]):
+            diff = (value.double() - want[key].double()).abs().max().item()
+            raise AssertionError(f"{what}: {key} differs from the plain-kernel program by up to {diff:.3e}")
+    print(f"[{what}] equals the same program with int8_gemm, stem_gemm_u8 and conv3x3_i8 replaced by their plain "
+          f"versions, bit for bit ({', '.join(k for k, _ in pairs)})")
+
+
+def time_engine(path: str, engine, smi: str) -> dict:
+    """Replay ms and inf/s of each registered size on the graph's inputs, and the peak
+    memory of one eager forward there above what was allocated before it (a replay
+    allocates nothing: its buffers lie in the graphs' pool)."""
+    out = {}
+    for b in engine.batch_sizes:
+        ms = cuda_ms(lambda: engine._replay(b), ENGINE_TIMING_ITERS[b])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine._forward(*engine._graphs[b].inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        out[b] = ms
+        print(f"[timing] {path} batch {b}: graph replay {ms:.3f} ms, {b / ms * 1e3:.1f} inf/s; an eager forward's "
+              f"peak memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held ({smi})")
+    return out
+
+
+def run_int8_towers_stage(counters: dict, kernels: dict, smi: str, cfg_vit, params_vit) -> None:
+    """Phase 19: the int8 towers at full width. The int8 ``videomae_base`` ViT
+    (``cfg_vit``, ``params_vit``: phase 8's) served by ``InferenceEngine`` at 8 and 64,
+    its tower bit for bit against the plain-kernel program at both and correlated with
+    the f32 mirror; the int8 ResNet-18 (``pretrain_config`` with ``resnet18``, random
+    weights), baseline and resident engines at 8."""
+    none = dict.fromkeys(counters, 0)
+    H, W = cfg_vit.data.video_resize
+    calib = (np.random.default_rng(0).random((2, cfg_vit.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+    depth = VIT_CONFIGS[cfg_vit.model.video_backbone][0]
+
+    # -- the int8 videomae_base ViT ----------------------------------------------------
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg_vit, params_vit, quantize_calib_clips=calib, batch_sizes=INT8_VIT_SIZES, device="cuda")
+    build = engine.quantized_forward.build_seconds
+    print(f"[int8 vit] engine built in {time.perf_counter() - t0:.1f} s: calibration and quantization on the CPU "
+          f"{build['calibration']:.1f} s, logit recalibration on the card {build['recalibration']:.1f} s")
+    q = engine.quantized_forward.quantized_tree
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    vit_launches = {**none, "stem_gemm_u8": 1, "int8_gemm": 4 * depth}
+    for b in INT8_VIT_SIZES:
+        clip = torch.randint(0, 256, (b, 16, H, W, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        tokens, counts, secs = drive_counted(counters, kernels, f"int8_vit_tower_{b}", lambda: quant_vit_forward(q, clip),
+                                             vit_launches)
+        print(f"[int8 vit] eager tower at batch {b}: tokens {tuple(tokens.shape)} in {secs * 1e3:.1f} ms (first call); "
+              f"launches {counts}")
+        if not torch.isfinite(tokens).all():
+            raise AssertionError(f"int8 vit tokens at {b} are not finite")
+        equal_to_plain_kernels(f"int8 vit tower batch {b}", lambda: quant_vit_forward(q, clip))
+        if b == INT8_VIT_SIZES[0]:
+            ref = vit_forward_f32(params_vit["params"]["video_encoder"]["vit"], normalize_clip(clip))
+            corr = np.corrcoef(tokens.double().flatten().cpu().numpy(), ref.double().flatten().cpu().numpy())[0, 1]
+            rel = ((tokens - ref).abs().mean() / ref.abs().mean()).item()
+            print(f"[int8 vit] tokens against vit_forward_f32 on the card at batch {b}: correlation {corr:.6f}, mean "
+                  f"drift {rel:.4f} (random weights, no floor at full width)")
+            del ref
+        del tokens, clip
+    torch.cuda.empty_cache()
+    expected = {"fused_window": 1, "stem_gemm_u8": 1, "int8_gemm": 4 * depth}
+    requests = [engine_request(1900, 8, cfg_vit), engine_request(1901, 5, cfg_vit), engine_request(1902, 64, cfg_vit)]
+    check_graph_replay("engine_int8_vit", engine, requests, counters, kernels, expected)
+    args = [torch.from_numpy(a).cuda() for a in engine._pad_to(*requests[0], 8)]
+    equal_to_plain_kernels("engine_int8_vit eager program at 8", lambda: engine._forward(*args))
+    time_engine("engine_int8_vit", engine, smi)
+    del engine, q, args, requests
+    torch.cuda.empty_cache()
+
+    # -- the int8 ResNet-18, baseline and resident --------------------------------------
+    cfg = pretrain_config()
+    cfg.model.video_backbone = "resnet18"
+    params = init_params(cfg, torch.Generator().manual_seed(0), FusionClassifier)
+    requests = [engine_request(1910, 8, cfg), engine_request(1911, 5, cfg)]
+    logits = {}
+    for resident in (False, True):
+        path = f"engine_int8_resnet18{'_resident' if resident else ''}"
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, params, quantize_calib_clips=calib, quantize_resident=resident,
+                                 batch_sizes=INT8_RESNET_SIZES, device="cuda")
+        build = engine.quantized_forward.build_seconds
+        print(f"[{path}] built in {time.perf_counter() - t0:.1f} s: calibration {build['calibration']:.1f} s, "
+              f"recalibration {build['recalibration']:.1f} s")
+        check_graph_replay(path, engine, requests, counters, kernels,
+                           {"fused_window": 1, "int8_gemm": 4, "conv3x3_i8": 16})
+        args = [torch.from_numpy(a).cuda() for a in engine._pad_to(*requests[0], 8)]
+        equal_to_plain_kernels(f"{path} eager program at 8", lambda: engine._forward(*args))
+        time_engine(path, engine, smi)
+        logits[resident] = engine.predict(*requests[0])["logits"].astype(np.float64)
+        del engine, args
+        torch.cuda.empty_cache()
+    base, res = logits[False], logits[True]
+    spread = np.sqrt(np.mean((base - base.mean()) ** 2))
+    drift = np.sqrt(np.mean((res - base) ** 2)) / max(spread, 1e-12)
+    corr = np.corrcoef(res.ravel(), base.ravel())[0, 1]
+    print(f"[int8 resnet18] resident against baseline logits at 8: relative RMS drift {drift:.4f}, correlation "
+          f"{corr:.6f}, max abs diff {np.abs(res - base).max():.4e}")
+    if not np.isfinite(res).all() or not corr > 0.99:
+        raise AssertionError(f"int8 resnet18: resident logits drift from the baseline's: correlation {corr}")
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1438,6 +1724,15 @@ def main() -> None:
         "replaces": "tpuhar/ops/conv3x3.py:142",
         **check_conv3x3_i8(),
     }
+    kernels["int8_gemm"] = {
+        "name": "int8_gemm", "route": "cuda",
+        "source": "tpuhar_torch/csrc/stem_u8.cu",
+        "replaces": "tpuhar/ops/stem.py:254",
+        "also_replaces": "tpuhar/ops/quant.py:65 (int8_dense, an XLA int8 product) and the 1x1 and 7x7 "
+                         "tpuhar/ops/quant.py:44 int8_conv of the int8 ResNet-18",
+        **check_int8_gemm(),
+    }
+    kernels["conv3x3_i8"]["explicit_padding"] = check_conv3x3_i8_padding()
     kernels["flash_lean"] = {
         "name": "flash_lean", "route": "cuda",
         "source": "tpuhar_torch/csrc/flash_attn.cu",
@@ -1463,7 +1758,7 @@ def main() -> None:
     }
     counters = {
         "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
-        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "flash_lean": flash_lean,
+        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
         "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
     }
 
@@ -1626,10 +1921,6 @@ def main() -> None:
           f"restored: every parameter, buffer and the optimizer's step equal")
     del restored, trained
     shutil.rmtree(save_dir, ignore_errors=True)
-    for name, k in kernels.items():
-        k["launches"] = sum(k["launches_by_path"].values())
-        if k["launches"] <= 0:
-            raise AssertionError(f"no main path launched {name}")
 
     small = {key: t[:PRETRAIN_CHECK_BATCH] for key, t in train_batches[0].items()}
     gen_dropout = torch.Generator(device="cuda").manual_seed(1)
@@ -1685,8 +1976,11 @@ def main() -> None:
         torch.cuda.empty_cache()
     run_classification_stage(counters, kernels, smi)
     run_towers_stage(counters, kernels, smi, params_pt)
+    run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] <= 0:
+            raise AssertionError(f"no main path launched {name}")
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The operand checks of the bf16 and int8 convs, the uint8 stem, the flash kernels
+"""The operand checks of the bf16 and int8 convs (the int8 conv's padding too), the
+uint8 stem and the int8 GEMM, the flash kernels
 (forward and backward) and the fused window featurizer, as
 pure functions of shapes, strides and addresses: what the Hopper kernels take and what
 the wrappers refuse before any launch. No device is needed; the kernels themselves are held against their plain
@@ -6,7 +7,7 @@ versions on the card by ``tests/test_torch_kernels_cuda.py``."""
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import check_conv3x3_i8_shapes, check_conv3x3_shapes, conv3x3_bn_act
+from tpuhar_torch.ops.conv3x3 import check_conv3x3_i8_shapes, check_conv3x3_shapes, conv3x3_bn_act, conv3x3_i8_pad_lo
 from tpuhar_torch.ops.flash_lean import (
     HEAD_DIM,
     check_flash_grad_operands,
@@ -23,7 +24,7 @@ from tpuhar_torch.ops.fused_window import (
     launch_plan,
     median_taps,
 )
-from tpuhar_torch.ops.stem import check_stem_u8_shapes
+from tpuhar_torch.ops.stem import check_int8_gemm_shapes, check_stem_u8_shapes
 
 
 @pytest.mark.parametrize(
@@ -138,6 +139,67 @@ def test_stem_u8_shapes_taken(col, w):
 def test_stem_u8_shapes_refused(col, w, match):
     with pytest.raises(ValueError, match=match):
         check_stem_u8_shapes(col, w)
+
+
+@pytest.mark.parametrize(
+    "x,w",
+    [
+        ((100352, 768), (2304, 768)),  # the int8 ViT at batch 64: qkv, out, mlp_in, mlp_out
+        ((100352, 768), (768, 768)),
+        ((8, 1568, 768), (3072, 768)),
+        ((8, 1568, 3072), (768, 3072)),
+        ((128, 112, 112, 192), (64, 192)),  # ResNet-18's stem on its im2col rows, K padded
+        ((128, 28, 28, 64), (128, 64)),  # and its downsamples
+        ((128, 14, 14, 128), (256, 128)),
+        ((128, 7, 7, 256), (512, 256)),
+    ],
+)
+def test_int8_gemm_shapes_taken(x, w):
+    check_int8_gemm_shapes(x, w)
+
+
+@pytest.mark.parametrize(
+    "x,w,match",
+    [
+        ((4, 112, 112, 147), (64, 147), "multiple of 64"),  # the stem's K unpadded
+        ((4, 768), (768, 2304), r"K-major \(C0, K\) expected"),  # int8_dense's (K, N) weights
+        ((4, 768), (48, 768), "of 32"),
+        ((4, 640), (256, 768), "do not match"),
+    ],
+)
+def test_int8_gemm_shapes_refused(x, w, match):
+    with pytest.raises(ValueError, match=match) as err:
+        check_int8_gemm_shapes(x, w)
+    assert str(err.value).startswith("int8_gemm kernel:")
+
+
+@pytest.mark.parametrize(
+    "size,stride,padding,lo",
+    [
+        (56, 2, [(1, 1), (1, 1)], 1),  # ResNet-18's stride-2 convs: not SAME
+        (56, 2, "SAME", 0),
+        (56, 1, [(1, 1), (1, 1)], 1),
+        (7, 1, "SAME", 1),
+        (7, 2, [(1, 1), (1, 1)], 1),  # an odd plane: (1, 1) is SAME there
+        (14, 2, [(0, 1), (0, 1)], 0),
+    ],
+)
+def test_conv3x3_i8_pads_taken(size, stride, padding, lo):
+    assert conv3x3_i8_pad_lo(size, stride, padding) == lo
+
+
+@pytest.mark.parametrize(
+    "size,stride,padding,match",
+    [
+        (56, 1, "VALID", "side of 54"),
+        (56, 1, [(2, 2), (2, 2)], "side of 58"),
+        (56, 2, [(2, 2), (2, 2)], "side of 29"),
+        (56, 1, [(1, 1), (0, 2)], "both axes alike"),
+    ],
+)
+def test_conv3x3_i8_pads_refused(size, stride, padding, match):
+    with pytest.raises(ValueError, match=match):
+        conv3x3_i8_pad_lo(size, stride, padding)
 
 
 def _views(B, H, N):

@@ -8,6 +8,8 @@ one (and nvcc), from the repository root:
 (``--noconftest``: the tests' conftest imports JAX, which the GPU machine need not
 have; this file imports none.)
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ from tpuhar_torch.ops.conv3x3 import (
 )
 from tpuhar_torch.ops.featurize import featurize_windows
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
-from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference, verify_byte_map
+from tpuhar_torch.ops.stem import int8_gemm, int8_gemm_reference, stem_gemm_u8, stem_gemm_u8_reference, verify_byte_map
 
 pytestmark = pytest.mark.cuda
 
@@ -323,6 +325,69 @@ def test_stem_u8_refuses(cuda):
         stem_gemm_u8(col, w.T.contiguous(), scale, bias)
 
 
+def _gemm_case(m, k, n, device, seed=0):
+    """Full-range int8 codes and weights: at K = 3072 |acc| reaches 4.9e7 > 2^24, where
+    the int32 -> f32 convert rounds."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)  # K-major
+    scale = torch.rand(n, generator=gen, device=device) * 1e-6
+    bias = torch.randn(n, generator=gen, device=device) * 0.5
+    return x, w, scale, bias
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [
+        (12544, 768, 2304),  # the int8 ViT at batch 8: qkv (9 tiles of 256), out, mlp_in, mlp_out
+        (12544, 768, 768),
+        (12544, 768, 3072),
+        (12544, 3072, 768),
+        (100352, 192, 64),  # ResNet-18's stem rows (K 147 padded to 192: a partial
+        # 128-byte chunk) and a narrow output, a quarter of one tile
+        (100352, 64, 128),  # a downsample: one 64-byte K chunk
+        (1000, 192, 64),  # ragged M
+        (77, 128, 96),
+    ],
+)
+@pytest.mark.parametrize("out_scale", [None, 0.05])
+def test_int8_gemm_matches_plain_exactly(cuda, m, k, n, out_scale):
+    x, w, scale, bias = _gemm_case(m, k, n, cuda)
+    for relu in (False, True):
+        before = int8_gemm.launches
+        got = int8_gemm(x, w, scale, bias, relu=relu, out_scale=out_scale)
+        assert int8_gemm.launches == before + 1
+        want = int8_gemm_reference(x, w, scale, bias, relu=relu, out_scale=out_scale)
+        assert got.dtype == want.dtype == (torch.float32 if out_scale is None else torch.int8)
+        assert got.shape == want.shape == (m, n)
+        assert torch.equal(got, want)
+
+
+def test_int8_gemm_zero_fill_past_k_stays_zero(cuda):
+    """K = 192 with the codes past 147 zero, as ResNet-18's stem rows are: the second
+    chunk's zero fill adds 0 (the u8 form's map would make it -127, against zero
+    weights), and the codes' own zeros stay zeros."""
+    x, w, scale, bias = _gemm_case(3000, 192, 64, cuda)
+    x[:, 147:] = 0
+    w[:, 147:] = 0
+    want = int8_gemm_reference(x[:, :147].contiguous(), w[:, :147].contiguous(), scale, bias, relu=True)
+    assert torch.equal(int8_gemm(x, w, scale, bias, relu=True), want)
+
+
+def test_int8_gemm_refuses(cuda):
+    x, w, scale, bias = _gemm_case(64, 192, 64, cuda)
+    with pytest.raises(ValueError, match="int8"):
+        int8_gemm(x.view(torch.uint8), w, scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_gemm(x.T, w[:, :64].contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int8_gemm(x[:, :147].contiguous(), w[:, :147].contiguous(), scale, bias)
+    with pytest.raises(ValueError, match=r"K-major \(C0, K\) expected"):
+        int8_gemm(x, w.T.contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="positive"):
+        int8_gemm(x, w, scale, bias, out_scale=0.0)
+
+
 def _conv_i8_case(n, s, c, c_out, stride, residual, device, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     so = -(-s // stride)
@@ -366,6 +431,39 @@ def test_conv3x3_i8_matches_plain_exactly(cuda, n, s, c, c_out, stride, residual
         assert got.dtype == want.dtype == (torch.float32 if out_scale is None else torch.int8)
         assert got.shape == want.shape
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "n,s,c,c_out,stride,residual,out_scale",
+    [
+        (8, 56, 64, 128, 2, False, 0.02),  # ResNet-18's layer1_0 conv1 (SAME would pad (0, 1))
+        (128, 56, 64, 128, 2, False, None),
+        (8, 28, 128, 256, 2, False, 0.02),
+        (8, 14, 256, 512, 2, False, 0.02),
+        (8, 56, 64, 64, 1, True, 0.02),  # an identity block's conv2
+        (3, 7, 512, 512, 1, True, None),
+        (2, 9, 64, 96, 2, False, None),  # an odd plane: (1, 1) is SAME there
+    ],
+)
+def test_conv3x3_i8_explicit_padding_matches_plain(cuda, n, s, c, c_out, stride, residual, out_scale):
+    x, w, scale, bias, res = _conv_i8_case(n, s, c, c_out, stride, residual, cuda)
+    kw = dict(stride=stride, padding=[(1, 1), (1, 1)], residual=res, res_scale=0.01 if residual else None,
+              out_scale=out_scale)
+    before = conv3x3_i8.launches
+    got = conv3x3_i8(x, w, scale, bias, **kw)
+    assert conv3x3_i8.launches == before + 1
+    want = conv3x3_i8_reference(x, w, scale, bias, **kw)
+    assert got.shape == want.shape == (n, -(-s // stride), -(-s // stride), c_out)
+    assert torch.equal(got, want)
+    if stride == 2 and s % 2 == 0:  # SAME is another conv on an even plane
+        assert not torch.equal(conv3x3_i8(x, w, scale, bias, **{**kw, "padding": "SAME"}), want)
+
+
+def test_conv3x3_i8_refuses_another_output_side(cuda):
+    x, w, scale, bias, _ = _conv_i8_case(2, 8, 64, 64, 1, False, cuda)
+    for padding, match in (("VALID", "side of 6"), ([(2, 2), (2, 2)], "side of 10"), ([(1, 1), (0, 2)], "alike")):
+        with pytest.raises(ValueError, match=match):
+            conv3x3_i8(x, w, scale, bias, padding=padding)
 
 
 def test_conv3x3_i8_refuses(cuda):
@@ -731,15 +829,23 @@ def _engine_case(path, device):
     from tpuhar_torch.bridge import init_params
     from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config, vit_config
 
-    vit = path.startswith("vit")
+    vit = "vit" in path
     cfg = vit_config() if vit else flagship_config()
     if vit:
         cfg.model.video_backbone = "videomae_tiny"
     cfg.data.video_resize, cfg.data.video_frames_per_window = (ENGINE_SIZE, ENGINE_SIZE), ENGINE_FRAMES
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "stem_gemm_u8", "conv3x3_i8", "flash_lean"), 0)
+    launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "stem_gemm_u8", "conv3x3_i8", "int8_gemm", "flash_lean"), 0)
     launches["fused_window"] = 1
-    if path.startswith("int8"):
+    if path in ("int8_vit", "int8_resnet18", "int8_resnet18_resident"):  # the ViT with vit_config()'s tanh GELU
+        cfg.model.video_backbone = "videomae_tiny" if path == "int8_vit" else "resnet18"
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        clips = np.random.default_rng(0).integers(0, 256, (2, ENGINE_FRAMES, ENGINE_SIZE, ENGINE_SIZE, 3), dtype=np.uint8)
+        resident = path.endswith("resident")
+        kw = dict(quantize_calib_clips=clips, quantize_resident=resident)
+        fn, _ = build_int8_forward(cfg, 4, device=device, params=params, calib_clips=clips, resident=resident)
+        launches.update(dict(stem_gemm_u8=1, int8_gemm=16) if path == "int8_vit" else dict(int8_gemm=4, conv3x3_i8=16))
+    elif path.startswith("int8"):
         clips = np.random.default_rng(0).integers(0, 256, (2, ENGINE_FRAMES, ENGINE_SIZE, ENGINE_SIZE, 3), dtype=np.uint8)
         resident = path == "int8_resident"
         kw = dict(quantize_calib_clips=clips, quantize_resident=resident, verify_byte_map=True)
@@ -770,7 +876,11 @@ def _assert_bitwise(got, want, what):
             raise AssertionError(f"{what}: {key} differs from the eager call by up to {diff:.3e}")
 
 
-@pytest.mark.parametrize("path", ["bf16", "bf16_unfolded", "int8_resident", "int8_baseline", "vit", "vit_unfolded"])
+@pytest.mark.parametrize(
+    "path",
+    ["bf16", "bf16_unfolded", "int8_resident", "int8_baseline", "vit", "vit_unfolded", "int8_vit", "int8_resnet18",
+     "int8_resnet18_resident"],
+)
 def test_engine_replays_the_eager_program(cuda, path):
     """One CUDA graph per registered size, each holding the eager forward's kernel
     launches; a replay (``predict``, padded 3 → 4 and 2 → 2) equals the eager program on
@@ -800,6 +910,40 @@ def test_engine_replays_the_eager_program(cuda, path):
         for out, batch in zip(outs, batches):
             imu, video = (batch["imu"], batch["video"]) if isinstance(batch, dict) else batch
             _assert_bitwise(out, engine.predict(imu, video), f"{path} stream depth {depth}")
+
+
+@contextlib.contextmanager
+def _plain_int8_kernels():
+    """The int8 towers' kernel wrappers replaced by their plain versions inside."""
+    from tpuhar_torch.ops import quant, quant_vit
+
+    swaps = [(quant, "int8_gemm", int8_gemm_reference), (quant, "conv3x3_i8", conv3x3_i8_reference),
+             (quant_vit, "int8_gemm", int8_gemm_reference), (quant_vit, "stem_gemm_u8", stem_gemm_u8_reference)]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    try:
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
+        yield
+    finally:
+        for module, name, original in saved:
+            setattr(module, name, original)
+
+
+@pytest.mark.parametrize("path", ["int8_vit", "int8_resnet18", "int8_resnet18_resident"])
+def test_int8_towers_equal_their_plain_kernel_programs(cuda, path):
+    """Each int8 tower's program on the card equals, bit for bit, the same program with
+    its kernels' plain versions in their place: every other op is the same on the same
+    device."""
+    cfg, params, kw, fn, launches = _engine_case(path, cuda)
+    imu, video = (torch.from_numpy(a).to(cuda) for a in _engine_request(4, 90))
+    before = int8_gemm.launches
+    got = fn(imu, video)
+    assert int8_gemm.launches == before + launches["int8_gemm"]
+    with _plain_int8_kernels():
+        want = fn(imu, video)
+    assert int8_gemm.launches == before + launches["int8_gemm"]
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
 
 
 def test_imu_only_engine_with_scorers_replays_eagerly(cuda):

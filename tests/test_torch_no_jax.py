@@ -14,7 +14,7 @@ from tpuhar_torch.ops import fused_window as fused_window_module
 from tpuhar_torch.ops.conv3x3 import conv3x3_bn_act, conv3x3_i8, conv3x3_i8_reference
 from tpuhar_torch.ops.flash_lean import flash_lean
 from tpuhar_torch.ops.fused_window import featurize_windows_auto
-from tpuhar_torch.ops.stem import stem_gemm_u8, stem_gemm_u8_reference
+from tpuhar_torch.ops.stem import int8_gemm, int8_gemm_reference, stem_gemm_u8, stem_gemm_u8_reference
 
 torch.set_num_threads(2)
 
@@ -29,7 +29,7 @@ names = [m.name for m in pkgutil.walk_packages(tpuhar_torch.__path__, "tpuhar_to
 for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.train.loop",
              "tpuhar_torch.train.factory", "tpuhar_torch.train.checkpoint", "tpuhar_torch.train.optim",
              "tpuhar_torch.ops.augment", "tpuhar_torch.eval.metrics", "tpuhar_torch.utils.profiling",
-             "tpuhar_torch.serving"):
+             "tpuhar_torch.serving", "tpuhar_torch.serving_quant", "tpuhar_torch.ops.quant_vit"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -105,9 +105,9 @@ def test_cpu_tensors_take_the_plain_paths(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_int8_paths():
-    """The int8 stem and conv on CPU tensors, at shapes the kernels refuse (K not a
-    multiple of 64, C0 and C not multiples of 32), give their plain results and
-    launch nothing."""
+    """The int8 stem, GEMM and conv on CPU tensors, at shapes and pads the kernels refuse
+    (K not a multiple of 64, C0 and C not multiples of 32, unequal pads per axis), give
+    their plain results and launch nothing."""
     rng = np.random.default_rng(1)
     col = torch.from_numpy(rng.integers(0, 256, (2, 3, 3, 48), dtype=np.uint8))
     w = torch.from_numpy(rng.integers(-127, 128, (24, 48), dtype=np.int8))  # (C0, K)
@@ -116,14 +116,57 @@ def test_cpu_tensors_take_the_plain_int8_paths():
     wc = torch.from_numpy(rng.integers(-127, 128, (40, 9 * 24), dtype=np.int8))
     res = torch.from_numpy(rng.integers(-127, 128, (2, 3, 3, 40), dtype=np.int8))
     sc, bc = torch.full((40,), 1e-4), torch.zeros(40)
-    before = stem_gemm_u8.launches, conv3x3_i8.launches
+    before = stem_gemm_u8.launches, conv3x3_i8.launches, int8_gemm.launches
     assert torch.equal(
         stem_gemm_u8(col, w, scale, bias, out_scale=0.1),
         stem_gemm_u8_reference(col, w, scale, bias, out_scale=0.1),
     )
     kw = dict(stride=2, residual=res, res_scale=0.02, out_scale=0.05)
     assert torch.equal(conv3x3_i8(x, wc, sc, bc, **kw), conv3x3_i8_reference(x, wc, sc, bc, **kw))
-    assert (stem_gemm_u8.launches, conv3x3_i8.launches) == before
+    # explicit pads the kernel refuses ((0, 2) at stride 2 on 5²: a side of 3 it does write,
+    # but unequal pads per axis) and a K of 147 (ResNet-18's unpadded 7·7·3)
+    pads = [(0, 2), (1, 1)]
+    assert torch.equal(conv3x3_i8(x, wc, sc, bc, padding=pads, **kw), conv3x3_i8_reference(x, wc, sc, bc, padding=pads, **kw))
+    xq = torch.from_numpy(rng.integers(-127, 128, (2, 5, 147), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (24, 147), dtype=np.int8))
+    assert torch.equal(int8_gemm(xq, wq, scale, bias, relu=True), int8_gemm_reference(xq, wq, scale, bias, relu=True))
+    assert (stem_gemm_u8.launches, conv3x3_i8.launches, int8_gemm.launches) == before
+
+
+_INT8_TOWERS = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None
+import numpy as np, torch
+from tpuhar_torch.bridge import init_params
+from tpuhar_torch.config import Config
+from tpuhar_torch.serving_quant import build_quantized_forward
+for backbone, resident in (("videomae_tiny", False), ("resnet18", False), ("resnet18", True)):
+    cfg = Config()
+    m = cfg.model
+    m.video_backbone, m.video_d_model, m.compute_dtype, m.head_norm = backbone, 32, "float32", "layer"
+    m.imu_d_model, m.imu_nhead, m.imu_num_layers, m.fusion_heads, m.num_classes = 32, 4, 1, 4, 4
+    cfg.data.video_resize, cfg.data.video_frames_per_window = (32, 32), 2
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    clips = np.random.default_rng(0).integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8)
+    fn = build_quantized_forward(cfg, params, clips, device="cpu", resident=resident)
+    out = fn(torch.zeros(2, 250, 6), torch.from_numpy(clips))
+    assert out["logits"].shape == (2, 4) and torch.isfinite(out["logits"]).all(), backbone
+jax_package = sorted(m for m in sys.modules if m == "tpuhar" or m.startswith("tpuhar."))
+assert not jax_package, jax_package
+print("ok")
+"""
+
+
+def test_int8_towers_serve_without_jax():
+    """The int8 ViT and ResNet-18 serving paths (calibration, quantization, logit
+    recalibration and the forward) run with JAX and flax unimportable and load no
+    module of the JAX package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _INT8_TOWERS], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):

@@ -35,6 +35,8 @@ SIGNATURES = {
     "tpuhar_conv3x3_bn_act": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream
     "tpuhar_stem_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x_q, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream
+    "tpuhar_int8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x, w, scale, bias, residual, out, M, S, So, C, C_out, stride, pad_lo, relu,
     # res_scale, int8_out, out_scale, stream
     "tpuhar_conv3x3_i8": (

@@ -1,9 +1,9 @@
-// Fused int8 3x3 SAME conv on Hopper (sm_90a), int8 tensor cores through wgmma.
+// Fused int8 3x3 conv on Hopper (sm_90a), int8 tensor cores through wgmma.
 //
 // The int8 form of the TPU kernel tpuhar/ops/conv3x3.py: conv3x3_bn_act, and what XLA
 // ran for ops/quant.py: int8_conv in the int8 tpu_cnn tower (down1 and every residual
-// conv):
-//   acc = conv3x3_same(x, w, stride)                  (int8 x int8, int32 accumulate)
+// conv) and in the int8 ResNet-18 (its 16 3x3 convs):
+//   acc = conv3x3(x, w, stride, pad_lo)               (int8 x int8, int32 accumulate)
 //   y   = acc * scale + bias [+ res * res_scale]      (f32, scale = x_scale * w_scale)
 //   y   = relu ? max(y, 0) : y
 //   out = int8_out ? clip(rint(y / out_scale), -127, 127) : y
@@ -11,9 +11,10 @@
 // (9*C, C_out) and transposed, so that each output channel's K run is contiguous),
 // scale/bias (C_out,) f32, residual (N, So, So, C_out) int8, out (N, So, So, C_out)
 // int8 or f32, So = ceil(S / stride). The source pixel of output (yo, xo) and tap
-// (dy, dx) is (yo*stride + dy - pad_lo, xo*stride + dx - pad_lo), with XLA's SAME
-// split: pad_lo = 1 at stride 1, 0 at stride 2 on an even plane. The sums are exact in
-// int32: |acc| <= 4608 * 127^2 < 2^31.
+// (dy, dx) is (yo*stride + dy - pad_lo, xo*stride + dx - pad_lo): XLA's SAME split
+// (pad_lo = 1 at stride 1, 0 at stride 2 on an even plane) or an explicit pad, such as
+// ResNet-18's (1, 1) at stride 2 (the wrapper takes a pad only where it gives So
+// outputs a side). The sums are exact in int32: |acc| <= 4608 * 127^2 < 2^31.
 //
 // What bounds it: operations. At batch 256 (4096 frames) a 14x14x256 conv is 0.95 TOP
 // against about 0.4 GB of x, weights, residual and out: at the card's int8 peak the

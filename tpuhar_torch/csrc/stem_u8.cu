@@ -1,4 +1,5 @@
-// uint8 patch-major stem GEMM on Hopper (sm_90a), int8 tensor cores through wgmma.
+// uint8 patch-major stem GEMM on Hopper (sm_90a), int8 tensor cores through wgmma, and
+// its signed-int8 form.
 //
 // Replaces the TPU kernel tpuhar/ops/stem.py: stem_gemm_u8_pallas (body `kernel`) and
 // its XLA twin stem_gemm_u8, which the JAX serving program runs:
@@ -9,6 +10,12 @@
 // on u8 rows x (M, K), int8 weights w (C0, K) (K-major: the transpose of the JAX
 // package's (K, C0), packed once by ops/stem.pack_stem_u8), scale/bias (C0,) f32,
 // out (M, C0).
+//
+// The signed form (tpuhar_int8_gemm, kByteMap = false) reads x as int8 codes and skips
+// the byte map: the same epilogue(x @ w.T) stands for the XLA int8 products of the JAX
+// package's int8 towers (ops/quant.py: int8_dense, the ViT's dense layers, and
+// ResNet-18's 7x7 stem on its im2col rows and its 1x1 downsample convs). Its K-chunk
+// zero fill stays 0 (no map), so K past the map's extent adds 0 * 0.
 //
 // What bounds it: bytes. At batch 256 (802,816 rows) it reads 616 MB of pixels and
 // writes 205 MB of int8 codes, 0.25 ms at the card's memory rate, against 0.32 TOP, 0.16
@@ -70,14 +77,18 @@ __device__ __forceinline__ uint32_t byte_map(uint32_t w) {
 
 // One K chunk of a consumer: its rows' bytes from the stage's A tile into `a` (the
 // ldmatrix address of this lane at k-step 0 is `a_lane`, the swizzle's XOR `a_swz`),
-// mapped, then four RS wgmmas against the stage's B tile, committed as one group.
+// mapped when kByteMap (the uint8 wire; int8 codes go as they lie), then four RS wgmmas
+// against the stage's B tile, committed as one group.
+template <bool kByteMap>
 __device__ __forceinline__ void mma_chunk(int (&acc)[BN / 2], uint32_t (&a)[4][4], uint32_t a_lane,
                                           int a_chunk, int a_swz, uint32_t b_tile, bool first) {
 #pragma unroll
   for (int kk = 0; kk < BK / 32; ++kk) {
     ldmatrix_x4(a[kk], a_lane + (((2 * kk + a_chunk) ^ a_swz) << 4));
+    if constexpr (kByteMap) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) a[kk][q] = byte_map(a[kk][q]);
+      for (int q = 0; q < 4; ++q) a[kk][q] = byte_map(a[kk][q]);
+    }
   }
   wgmma_fence();  // the A registers were written by this thread
 #pragma unroll
@@ -86,6 +97,7 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[BN / 2], uint32_t (&a)[4][4
   wgmma_commit();
 }
 
+template <bool kByteMap>
 __global__ void __launch_bounds__(THREADS, 1)
 stem_u8_kernel(const float* __restrict__ scale, const float* __restrict__ bias,
                void* __restrict__ out, int M, int K, int C0, int n_tiles, int relu,
@@ -153,9 +165,9 @@ stem_u8_kernel(const float* __restrict__ scale, const float* __restrict__ bias,
         mbar_wait(&full_bar[s], (g / STAGES) & 1);
         const uint32_t stage = smem_base + s * STAGE_BYTES;
         if (it & 1)
-          mma_chunk(acc, a1, stage + row * 128, mi >> 1, mr, stage + A_BYTES, false);
+          mma_chunk<kByteMap>(acc, a1, stage + row * 128, mi >> 1, mr, stage + A_BYTES, false);
         else
-          mma_chunk(acc, a0, stage + row * 128, mi >> 1, mr, stage + A_BYTES, it == 0);
+          mma_chunk<kByteMap>(acc, a0, stage + row * 128, mi >> 1, mr, stage + A_BYTES, it == 0);
         if (it > 0) {
           wgmma_wait<1>();  // the group of chunk g - 1 has read B and its A registers
           if (lane == 0) mbar_arrive(&empty_bar[(g - 1) % STAGES]);
@@ -169,12 +181,12 @@ stem_u8_kernel(const float* __restrict__ scale, const float* __restrict__ bias,
   }
 }
 
-}  // namespace
-
-extern "C" int tpuhar_stem_u8(const void* x, const void* w, const void* scale,
-                              const void* bias, void* out, int M, int K, int C0, int relu,
-                              int int8_out, float out_scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(stem_u8_kernel,
+// Launch the kernel over x (M, K) bytes (u8 pixels when kByteMap, else int8 codes) and
+// w (C0, K) int8; the arguments of both C entries below.
+template <bool kByteMap>
+int launch(const void* x, const void* w, const void* scale, const void* bias, void* out, int M,
+           int K, int C0, int relu, int int8_out, float out_scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(stem_u8_kernel<kByteMap>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (C0 + BN - 1) / BN;
@@ -185,8 +197,8 @@ extern "C" int tpuhar_stem_u8(const void* x, const void* w, const void* scale,
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return static_cast<int>(err);
-  // pixels (M, K) u8 and weights (C0, K) int8, both read in boxes of 128 K bytes that
-  // land in the 128-byte swizzle; rows past M or C0 and K past K arrive as zeros
+  // x (M, K) and weights (C0, K), both read in boxes of 128 K bytes that land in the
+  // 128-byte swizzle; rows past M or C0 and K past K arrive as zeros
   CUtensorMap x_map, w_map;
   const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
   const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(C0)};
@@ -195,9 +207,24 @@ extern "C" int tpuhar_stem_u8(const void* x, const void* w, const void* scale,
   if (!encode_tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 2, x_dims, strides, x_box) ||
       !encode_tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 2, w_dims, strides, w_box))
     return static_cast<int>(cudaErrorInvalidValue);
-  stem_u8_kernel<<<static_cast<unsigned>(tiles < sms ? tiles : sms), THREADS, SMEM_BYTES,
-                   static_cast<cudaStream_t>(stream)>>>(
+  stem_u8_kernel<kByteMap><<<static_cast<unsigned>(tiles < sms ? tiles : sms), THREADS, SMEM_BYTES,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, K, C0, n_tiles,
       relu, int8_out, out_scale, x_map, w_map);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tpuhar_stem_u8(const void* x, const void* w, const void* scale,
+                              const void* bias, void* out, int M, int K, int C0, int relu,
+                              int int8_out, float out_scale, void* stream) {
+  return launch<true>(x, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream);
+}
+
+// epilogue(x_q @ w.T) on int8 codes x_q (M, K): the stem kernel without the byte map
+extern "C" int tpuhar_int8_gemm(const void* x_q, const void* w, const void* scale,
+                                const void* bias, void* out, int M, int K, int C0, int relu,
+                                int int8_out, float out_scale, void* stream) {
+  return launch<false>(x_q, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream);
 }

@@ -8,9 +8,9 @@ its stem), two rounds of cross-attention fusion and the LayerNorm classifier hea
 giving logits, MSP and energy OOD scores and the fused embedding. ``build_forward``
 runs the tower in the compute dtype: the flagship's ``tpu_cnn`` (``flagship_config``,
 the clip shipped patch-major) or the ``videomae_base`` ViT (``vit_config``, the clip
-NHWC, attention through the flash kernel); ``build_int8_forward`` runs the ``tpu_cnn``
-tower's int8 PTQ form (``serving_quant``), the program the JAX package's ``bench.py``
-reports as its headline. ``build_pretrain_task`` builds the cross-modal SigLIP
+NHWC, attention through the flash kernel); ``build_int8_forward`` runs a tower's int8
+PTQ form (``serving_quant``: ``tpu_cnn``, ResNet-18 or a ViT), for ``tpu_cnn`` the
+program the JAX package's ``bench.py`` reports as its headline. ``build_pretrain_task`` builds the cross-modal SigLIP
 pretraining of ``pretrain_config`` (``tpuhar/cli.py: Pipeline.run_pretraining``);
 ``build_classification_task`` the IMU classifier's linear probe or finetune of
 ``classify_config`` (``Pipeline.run_classification``), ``build_video_task`` and
@@ -250,18 +250,22 @@ def build_int8_forward(
     seed: int = 0,
     params: Optional[Dict] = None,
     calib_clips: Optional[np.ndarray] = None,
-    resident: bool = True,
+    resident: Optional[bool] = None,
 ) -> Tuple[Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]], Tuple]:
-    """The int8 PTQ serving forward of a ``tpu_cnn`` configuration, as the JAX
-    package's ``bench.py`` builds its headline program: returns ``(fn(imu_raw,
-    video_u8) -> dict, example_args)`` from ``serving_quant.build_quantized_forward``.
+    """The int8 PTQ serving forward of a configuration whose tower the JAX package
+    quantizes (``tpu_cnn``, ResNet-18, the ViTs), as its ``bench.py`` builds its
+    headline program: returns ``(fn(imu_raw, video_u8) -> dict, example_args)`` from
+    ``serving_quant.build_quantized_forward``.
 
     ``params`` is a flax-layout variable tree before any folding (``None`` draws one
     with ``init_params`` from ``seed``); ``calib_clips`` defaults to 2 clips of
-    uint8 noise from ``np.random.default_rng(seed)``. The clip is consumed raw and
-    patch-major ``(B, T, H/16, W/16, 768)``; ``resident`` picks the int8-resident tower.
+    uint8 noise from ``np.random.default_rng(seed)``. The clip is consumed raw:
+    patch-major ``(B, T, H/16, W/16, 768)`` for a ``tpu_cnn`` tower, NHWC ``(B, T, H, W,
+    3)`` otherwise. ``resident`` picks a CNN tower's int8-resident form (``None``: the
+    resident form of a CNN tower, the baseline of a ViT, which has no other; ``True``
+    with a ViT raises).
     """
-    from .serving_quant import build_quantized_forward
+    from .serving_quant import _VIT_BACKBONES, build_quantized_forward
 
     d = cfg.data
     if params is None:
@@ -271,8 +275,12 @@ def build_int8_forward(
         calib_clips = (
             np.random.default_rng(seed).random((2, d.video_frames_per_window, H, W, 3)) * 255
         ).astype(np.uint8)
+    if resident is None:
+        resident = cfg.model.video_backbone not in _VIT_BACKBONES
     fn = build_quantized_forward(cfg, params, calib_clips, device=device, resident=resident)
-    video_example = to_patch_major(np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8))
+    video_example = np.zeros((batch, d.video_frames_per_window, H, W, 3), np.uint8)
+    if cfg.model.video_backbone.startswith("tpu_cnn"):
+        video_example = to_patch_major(video_example)
     example_args = (
         torch.zeros((batch, d.imu_window_size, d.imu_channels), device=device),
         torch.from_numpy(video_example).to(device),

@@ -8,8 +8,9 @@ then the affine, residual and ReLU in f32); a CUDA tensor launches the bf16 kern
 ``conv3x3_i8`` is its int8 form, which also takes the place of the XLA int8 convs of
 the JAX package's quantized tower (its ``ops/quant.int8_conv``, stride 1 and 2):
 ``act(acc · scale + bias [+ residual · res_scale])``, requantized to int8 or stored
-f32. The CPU takes ``conv3x3_i8_reference``; a CUDA tensor launches the ``wgmma`` s8
-kernel of ``csrc/conv3x3_i8.cu`` or raises.
+f32, with XLA's SAME padding or explicit ``(lo, hi)`` pairs (ResNet-18's ``(1, 1)``,
+which at stride 2 is not SAME). The CPU takes ``conv3x3_i8_reference``; a CUDA tensor
+launches the ``wgmma`` s8 kernel of ``csrc/conv3x3_i8.cu`` or raises.
 
 Each wrapper's ``.launches`` counts its kernel's launches. Unlike the TPU function
 there is no quiet fallback for shapes a kernel does not take.
@@ -204,8 +205,9 @@ def quantize_activations(x: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
-def int8_conv(x_q, w_q, x_scale, w_scale, *, stride: int = 1, padding: str = "SAME"):
-    """int8 NHWC conv, rescaled to f32: ``acc · (x_scale · w_scale)``.
+def int8_conv(x_q, w_q, x_scale, w_scale, *, stride: int = 1, padding: Padding = "SAME"):
+    """int8 NHWC conv, rescaled to f32: ``acc · (x_scale · w_scale)``; ``padding`` as
+    ``conv_pads`` reads it.
 
     The accumulator is computed in float64, which holds every int8 × int8 sum of the
     tower exactly (|acc| ≤ 4608·127² < 2⁵³), and rounds to f32 as XLA's int32 → f32
@@ -221,20 +223,23 @@ def conv3x3_i8_reference(
     bias: torch.Tensor,
     *,
     stride: int = 1,
+    padding: Padding = "SAME",
     residual: Optional[torch.Tensor] = None,
     res_scale: Optional[float] = None,
     relu: bool = True,
     out_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain version: ``int8_conv`` (float64 accumulator, exact), then the epilogue
-    in f32 in the JAX package's order."""
+    """Plain version: ``int8_conv`` (float64 accumulator, exact) with ``padding``, then
+    the epilogue in f32 in the JAX package's order. The result is contiguous NHWC, as
+    the kernel's is (cuDNN's float64 conv returns NCHW memory, whose NHWC view would
+    send later reductions through another summation order)."""
     C_out, C = w_packed.shape[0], x.shape[-1]
-    y = int8_conv(x, w_packed.T.reshape(3, 3, C, C_out), 1.0, scale, stride=stride) + bias.float()
+    y = int8_conv(x, w_packed.T.reshape(3, 3, C, C_out), 1.0, scale, stride=stride, padding=padding) + bias.float()
     if residual is not None:
         y = y + residual.float() * res_scale
     if relu:
         y = torch.relu(y)
-    return y if out_scale is None else quantize_activations(y, out_scale)
+    return (y if out_scale is None else quantize_activations(y, out_scale)).contiguous()
 
 
 def check_conv3x3_i8_shapes(x_shape, w_shape, stride: int = 1, residual_shape=None) -> None:
@@ -262,6 +267,27 @@ def check_conv3x3_i8_shapes(x_shape, w_shape, stride: int = 1, residual_shape=No
         raise ValueError(f"conv3x3_i8 kernel: x of {N * S * S * C} elements exceeds 2^31")
 
 
+def conv3x3_i8_pad_lo(size: int, stride: int, padding: Padding = "SAME") -> int:
+    """The low pad the int8 kernel takes for ``padding`` (``"SAME"`` or one ``(lo, hi)``
+    pair per spatial axis, as ``conv_pads`` reads it) on a square ``size`` plane.
+
+    The kernel pads both axes alike and writes ``⌈size / stride⌉`` outputs a side, so
+    it takes a padding only when the two axes' pairs are equal and ``(size + lo + hi −
+    3) // stride + 1`` is that side: SAME, and ``(1, 1)`` at stride 1 and at stride 2.
+    Raises ``ValueError`` on any other."""
+    pads = conv_pads((size, size), (3, 3), stride, padding)
+    if pads[0] != pads[1] or min(pads[0]) < 0:
+        raise ValueError(f"conv3x3_i8 kernel: padding {padding!r} must pad both axes alike, got {pads}")
+    lo, hi = pads[0]
+    side, so = (size + lo + hi - 3) // stride + 1, -(-size // stride)
+    if side != so:
+        raise ValueError(
+            f"conv3x3_i8 kernel: padding {padding!r} at stride {stride} on {size}² gives a side of {side}, "
+            f"the kernel writes ⌈{size}/{stride}⌉ = {so}"
+        )
+    return lo
+
+
 def conv3x3_i8(
     x: torch.Tensor,
     w_packed: torch.Tensor,
@@ -269,12 +295,13 @@ def conv3x3_i8(
     bias: torch.Tensor,
     *,
     stride: int = 1,
+    padding: Padding = "SAME",
     residual: Optional[torch.Tensor] = None,
     res_scale: Optional[float] = None,
     relu: bool = True,
     out_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused int8 3×3 SAME conv: ``act(acc · scale + bias [+ residual · res_scale])``,
+    """Fused int8 3×3 conv: ``act(acc · scale + bias [+ residual · res_scale])``,
     requantized to int8 with ``out_scale`` or stored f32.
 
     Args:
@@ -282,8 +309,11 @@ def conv3x3_i8(
       w_packed: ``(C_out, 9·C)`` int8 (``pack_conv3x3_i8`` of the HWIO kernel).
       scale: ``(C_out,)`` f32, the input's scale times the weights' (``x_scale·w_scale``).
       bias: ``(C_out,)`` f32.
-      stride: 1 or 2, with XLA's SAME padding (stride 2 on an even plane pads 0
-        before and 1 after).
+      stride: 1 or 2.
+      padding: ``"SAME"`` (XLA's split: stride 2 on an even plane pads 0 before and 1
+        after) or ``(lo, hi)`` pairs, such as ResNet-18's ``[(1, 1), (1, 1)]``; the
+        kernel takes those whose output side is ``⌈S / stride⌉``
+        (``conv3x3_i8_pad_lo``).
       residual: optional ``(N, S', S', C_out)`` int8, added as ``residual · res_scale``.
       relu: apply ReLU after the residual.
       out_scale: requantize with ``clip(round(y / out_scale), −127, 127)``; ``None``
@@ -291,7 +321,7 @@ def conv3x3_i8(
     """
     if x.device.type == "cpu":
         return conv3x3_i8_reference(
-            x, w_packed, scale, bias, stride=stride, residual=residual,
+            x, w_packed, scale, bias, stride=stride, padding=padding, residual=residual,
             res_scale=res_scale, relu=relu, out_scale=out_scale,
         )
     tensors = {"x": x, "w_packed": w_packed}
@@ -303,6 +333,7 @@ def conv3x3_i8(
         if t.data_ptr() % 16:
             raise ValueError(f"conv3x3_i8 kernel: {name} must be 16-byte aligned")
     check_conv3x3_i8_shapes(x.shape, w_packed.shape, stride, None if residual is None else residual.shape)
+    pad_lo = conv3x3_i8_pad_lo(x.shape[1], stride, padding)
     if residual is not None and res_scale is None:
         raise ValueError("conv3x3_i8 kernel: a residual needs its res_scale")
     if out_scale is not None and not out_scale > 0:
@@ -322,7 +353,7 @@ def conv3x3_i8(
         status = lib.tpuhar_conv3x3_i8(
             x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            M, S, So, C, C_out, stride, same_padding(S, 3, stride)[0], int(relu),
+            M, S, So, C, C_out, stride, pad_lo, int(relu),
             0.0 if residual is None else float(res_scale),
             int(out_scale is not None), 1.0 if out_scale is None else float(out_scale),
             torch.cuda.current_stream(x.device).cuda_stream,

@@ -12,6 +12,12 @@ int8. A CPU tensor takes the plain path (``stem_gemm_u8_reference``); a CUDA ten
 launches the kernel of ``csrc/stem_u8.cu``, the port of ``stem_gemm_u8_pallas`` and of
 its XLA twin ``stem_gemm_u8``, or raises. ``stem_gemm_u8.launches`` counts the kernel's
 launches. Only the uint8 wire is ported: the centered int8 wire is not.
+
+``int8_gemm`` is the same kernel without the byte map, on int8 codes: the fused
+``epilogue(x_q @ w_packed.T)`` that stands for the XLA int8 products of the JAX
+package's int8 towers (``int8_dense``: the ViT's dense layers; ResNet-18's 7×7 stem on
+its im2col rows and its 1×1 downsample convs). ``int8_gemm_reference`` is its plain
+version; ``int8_gemm.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -60,6 +66,18 @@ def _check_wire(col_u8: torch.Tensor) -> None:
         raise TypeError(f"stem_gemm_u8 takes uint8 patch-major pixels, got {col_u8.dtype}")
 
 
+def _epilogue(acc: torch.Tensor, scale, bias, relu: bool, out_scale: Optional[float]) -> torch.Tensor:
+    """``acc·scale + bias`` in f32, ReLU, and with ``out_scale``
+    ``clip(round(y / out_scale), −127, 127)`` as int8: the kernels' epilogue, plainly."""
+    y = acc * scale.float() + bias.float()
+    if relu:
+        y = torch.relu(y)
+    if out_scale is None:
+        return y
+    s = torch.tensor(out_scale, dtype=torch.float32, device=y.device)
+    return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+
+
 def stem_gemm_u8_reference(
     col_u8: torch.Tensor,
     w_packed: torch.Tensor,
@@ -74,35 +92,40 @@ def stem_gemm_u8_reference(
     ReLU and, with ``out_scale``, ``clip(round(y / out_scale), −127, 127)`` as int8."""
     _check_wire(col_u8)
     x = torch.bitwise_xor(torch.clamp(col_u8, min=1), 0x80).view(torch.int8)
-    acc = (x.double() @ w_packed.double().T).float()
-    y = acc * scale.float() + bias.float()
-    if relu:
-        y = torch.relu(y)
-    if out_scale is None:
-        return y
-    s = torch.tensor(out_scale, dtype=torch.float32, device=y.device)
-    return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+    return _epilogue((x.double() @ w_packed.double().T).float(), scale, bias, relu, out_scale)
+
+
+def _check_gemm_shapes(kernel: str, col_shape, w_shape) -> None:
+    if len(w_shape) != 2 or len(col_shape) < 1:
+        raise ValueError(f"{kernel} kernel: rows (..., K) and weights (C0, K), got {tuple(col_shape)}, {tuple(w_shape)}")
+    C0, K = w_shape
+    if col_shape[-1] != K:
+        if col_shape[-1] == C0:
+            raise ValueError(
+                f"{kernel} kernel: weights {tuple(w_shape)} look like (K, C0); K-major (C0, K) "
+                "expected (ops/stem.pack_stem_u8)"
+            )
+        raise ValueError(f"{kernel} kernel: rows {tuple(col_shape)} do not match weights (C0, K) = {(C0, K)}")
+    if K % 64 or C0 % 32 or min(K, C0) <= 0:
+        raise ValueError(f"{kernel} kernel: K={K} must be a multiple of 64 and C0={C0} of 32")
+    M = math.prod(col_shape[:-1])
+    if M >= 2**31:
+        raise ValueError(f"{kernel} kernel: {M} rows exceed 2^31")
 
 
 def check_stem_u8_shapes(col_shape, w_shape) -> None:
     """Raise ``ValueError`` on shapes the uint8 stem kernel does not take: pixels
     ``(..., K)`` against K-major weights ``(C0, K)`` (``pack_stem_u8``), ``K`` a multiple
     of 64 and ``C0`` of 32."""
-    if len(w_shape) != 2 or len(col_shape) < 1:
-        raise ValueError(f"stem_u8 kernel: pixels (..., K) and weights (C0, K), got {tuple(col_shape)}, {tuple(w_shape)}")
-    C0, K = w_shape
-    if col_shape[-1] != K:
-        if col_shape[-1] == C0:
-            raise ValueError(
-                f"stem_u8 kernel: weights {tuple(w_shape)} look like (K, C0); K-major (C0, K) "
-                "expected (ops/stem.pack_stem_u8)"
-            )
-        raise ValueError(f"stem_u8 kernel: pixels {tuple(col_shape)} do not match weights (C0, K) = {(C0, K)}")
-    if K % 64 or C0 % 32 or min(K, C0) <= 0:
-        raise ValueError(f"stem_u8 kernel: K={K} must be a multiple of 64 and C0={C0} of 32")
-    M = math.prod(col_shape[:-1])
-    if M >= 2**31:
-        raise ValueError(f"stem_u8 kernel: {M} rows exceed 2^31")
+    _check_gemm_shapes("stem_u8", col_shape, w_shape)
+
+
+def check_int8_gemm_shapes(x_shape, w_shape) -> None:
+    """Raise ``ValueError`` on shapes the int8 GEMM kernel does not take: the stem's
+    (``check_stem_u8_shapes``), on int8 codes ``(..., K)``. A K that is not a multiple
+    of 64 (ResNet-18's 7·7·3 = 147) is padded with zero columns by the caller, in the
+    codes and in the packed weights alike."""
+    _check_gemm_shapes("int8_gemm", x_shape, w_shape)
 
 
 def stem_gemm_u8(
@@ -159,6 +182,79 @@ def stem_gemm_u8(
 
 
 stem_gemm_u8.launches = 0
+
+
+def int8_gemm_reference(
+    x_q: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    relu: bool = False,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version: the int8 product against ``w_packed`` ``(C0, K)`` in float64, exact
+    for every K the towers have (|acc| ≤ 3072·127² < 2⁵³), rounded to f32 as XLA's
+    int32 → f32 convert rounds, then ``acc·scale + bias``, ReLU and the optional requant
+    in f32, in the JAX package's order."""
+    if x_q.dtype != torch.int8:
+        raise TypeError(f"int8_gemm takes int8 codes, got {x_q.dtype}")
+    acc = (x_q.double() @ w_packed.double().T).float()
+    return _epilogue(acc, scale, bias, relu, out_scale)
+
+
+def int8_gemm(
+    x_q: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    relu: bool = False,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused ``epilogue(x_q @ w_packed.T)`` on int8 codes.
+
+    Args:
+      x_q: ``(..., K)`` int8 codes.
+      w_packed: ``(C0, K)`` int8, K-major.
+      scale, bias: ``(C0,)`` f32, applied as ``acc · scale + bias`` (``scale`` is the
+        codes' scale times the weights', ``x_scale · w_scale``).
+      relu: apply ReLU.
+      out_scale: requantize to int8 with this scale; ``None`` returns f32.
+    Returns ``(..., C0)``, int8 with ``out_scale``, else f32.
+    """
+    if x_q.device.type == "cpu":
+        return int8_gemm_reference(x_q, w_packed, scale, bias, relu=relu, out_scale=out_scale)
+    for name, t in (("x_q", x_q), ("w_packed", w_packed)):
+        if not t.is_cuda or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"int8_gemm kernel: {name} must be a contiguous int8 CUDA tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_gemm kernel: {name} must be 16-byte aligned")
+    check_int8_gemm_shapes(x_q.shape, w_packed.shape)
+    C0, K = w_packed.shape
+    M = x_q.numel() // K
+    if out_scale is not None and not out_scale > 0:
+        raise ValueError(f"int8_gemm kernel: out_scale must be positive, got {out_scale}")
+    scale = scale.to(device=x_q.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=x_q.device, dtype=torch.float32).contiguous()
+    if scale.shape != (C0,) or bias.shape != (C0,):
+        raise ValueError("int8_gemm kernel: scale and bias must be (C0,)")
+    out = torch.empty((*x_q.shape[:-1], C0), dtype=torch.float32 if out_scale is None else torch.int8,
+                      device=x_q.device)
+    lib = _ext.library()
+    with torch.cuda.device(x_q.device):
+        status = lib.tpuhar_int8_gemm(
+            x_q.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), M, K, C0, int(relu),
+            int(out_scale is not None), 1.0 if out_scale is None else float(out_scale),
+            torch.cuda.current_stream(x_q.device).cuda_stream,
+        )
+    _ext.check(status, "tpuhar_int8_gemm")
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0
 
 
 def verify_byte_map(device) -> None:

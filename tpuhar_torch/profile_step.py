@@ -3,6 +3,7 @@
     python -m tpuhar_torch.profile_step              # the four serving programs
     python -m tpuhar_torch.profile_step --pretrain   # the pretraining step
     python -m tpuhar_torch.profile_step --classify   # the classification steps
+    python -m tpuhar_torch.profile_step --int8-towers  # the int8 ViT and ResNet-18
 
 Builds the serving forwards from random weights of seed 0: the flagship's
 ``entry.build_forward`` (``bf16``) and ``entry.build_int8_forward`` in its
@@ -27,7 +28,11 @@ the classification stage's train steps the same way: the IMU classifier of
 ``entry.classify_config()`` at batch 64 in its linear probe and its finetune
 (``imu_linear_probe``, ``imu_finetune``), and the fusion and video-only classifiers on
 ``pretrain_config()``'s ``videomae_base`` with the flash kernels at batch 16
-(``fusion``, ``video``).
+(``fusion``, ``video``). ``--int8-towers`` profiles the int8 towers' serving forwards
+(``entry.build_int8_forward``): the int8 ``videomae_base`` ViT of ``vit_config()``
+(``int8_vit``) at batch 64 and 8, and the int8 ResNet-18 of ``pretrain_config()`` with
+``resnet18`` in its resident and baseline forms (``int8_resnet18_resident``,
+``int8_resnet18``) at batch 8, each on NHWC clips.
 
 The first line is the card's name and power limit as ``nvidia-smi`` gives them.
 Without a CUDA device it raises.
@@ -186,11 +191,39 @@ def profile_classify(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+def profile_int8_towers(smi: str) -> None:
+    """The int8 towers' serving forwards on device-resident NHWC clips."""
+    from .models.crossmodal import FusionClassifier
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    resnet = pretrain_config()
+    resnet.model.video_backbone = "resnet18"
+    programs = [("int8_vit", vit_config(), None, (64, 8)), ("int8_resnet18_resident", resnet, True, (8,)),
+                ("int8_resnet18", resnet, False, (8,))]
+    for name, cfg, resident, batches in programs:
+        params = init_params(cfg, torch.Generator().manual_seed(0), FusionClassifier)
+        fn = build_int8_forward(cfg, 8, device="cuda", params=params, resident=resident)[0]
+        d = cfg.data
+        H, W = d.video_resize
+        for batch in batches:
+            inputs = (
+                torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0,
+                torch.randint(0, 256, (batch, d.video_frames_per_window, H, W, 3),
+                              generator=gen, device="cuda", dtype=torch.uint8),
+            )
+            ms = step_ms(fn, inputs, iters=5 if batch > 8 else 20)
+            print_profile(name, batch, ms, device_profile(fn, inputs, 2 if batch > 8 else STEPS),
+                          2 if batch > 8 else STEPS, smi)
+        del fn
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     """``argv``: the command-line arguments (none: the serving programs)."""
     parser = argparse.ArgumentParser(description="Profile a serving or training step on one CUDA device.")
     parser.add_argument("--pretrain", action="store_true", help="profile the pretraining step instead")
     parser.add_argument("--classify", action="store_true", help="profile the classification steps instead")
+    parser.add_argument("--int8-towers", action="store_true", help="profile the int8 ViT and ResNet-18 instead")
     args = parser.parse_args([] if argv is None else argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device; torch.cuda.is_available() is False")
@@ -206,6 +239,9 @@ def main(argv=None) -> None:
         return
     if args.classify:
         profile_classify(smi)
+        return
+    if args.int8_towers:
+        profile_int8_towers(smi)
         return
 
     configs = {"flagship": flagship_config(), "vit": vit_config()}

@@ -35,7 +35,7 @@ from .ood import MahalanobisScorer, energy_score, fit_ood_thresholds, msp_score
 from .ops.conv3x3 import conv3x3_bn_act, conv3x3_i8
 from .ops.flash_lean import flash_lean
 from .ops.fused_window import featurize_windows_auto
-from .ops.stem import stem_gemm_u8, to_patch_major
+from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
 from .utils.profiling import StepProfiler
 
 PATCH = 16  # the tpu_cnn stem's patch: the patch-major wire is (..., H/16, W/16, 768)
@@ -45,6 +45,7 @@ KERNEL_COUNTERS = {
     "conv3x3_bn_act": conv3x3_bn_act,
     "stem_gemm_u8": stem_gemm_u8,
     "conv3x3_i8": conv3x3_i8,
+    "int8_gemm": int8_gemm,
     "flash_lean": flash_lean,
 }
 
@@ -96,11 +97,12 @@ class InferenceEngine:
     least refit the embedding scorers on served embeddings (``fit_embedding_scorers``).
 
     The constructor takes the reference's arguments (``quantize_calib_clips`` and
-    friends for the int8 ``tpu_cnn`` tower, ``extra_scorers``, ``temperature`` dividing
-    the logits before MSP and energy, ``fast_gelu``/``fast_attention`` for ViT towers;
-    see ``tpuhar/serving.py``) and ``device``. Not ported: ``mesh`` (ROADMAP queue 1 item
-    8), the centered int8 wire, and the towers the port lacks (``build_video_encoder`` and
-    ``serving_quant`` refuse them).
+    friends for the int8 towers, ``extra_scorers``, ``temperature`` dividing the logits
+    before MSP and energy, ``fast_gelu``/``fast_attention`` for ViT towers; see
+    ``tpuhar/serving.py``) and ``device``. An int8 engine serves every tower the JAX
+    package quantizes (``serving_quant``): ``tpu_cnn`` on the patch-major wire, ResNet-18
+    and the ViTs on NHWC clips; ``quantized_forward`` is its ``build_quantized_forward``
+    program. Not ported: ``mesh`` (ROADMAP queue 1 item 8) and the centered int8 wire.
     """
 
     def __init__(
@@ -194,10 +196,12 @@ class InferenceEngine:
                 resident=quantize_resident,
             )
             self._program = qforward.core
-            # the int8 tree folds the ImageNet affine into a stem that reads raw uint8
-            # patch-major pixels; the device fuses the u8 byte map into the stem GEMM
-            self.patch_major = True
-            if verify_byte_map:
+            self.quantized_forward = qforward
+            # a tpu_cnn int8 tree folds the ImageNet affine into a stem that reads raw
+            # uint8 patch-major pixels, the device fusing the u8 byte map into the stem
+            # GEMM; ResNet-18 and the ViTs take the NHWC clip
+            self.patch_major = bb.startswith("tpu_cnn")
+            if verify_byte_map and self.patch_major:
                 from .ops.stem import verify_byte_map as _verify
 
                 _verify(self.device)

@@ -136,7 +136,13 @@ from tpuhar_torch.entry import (
     pretrain_config,
     vit_config,
 )
+from tpuhar_torch.eval.calibration import apply_temperature, expected_calibration_error, fit_temperature
+from tpuhar_torch.eval.evaluator import Evaluator, train_classifier
+from tpuhar_torch.eval.fewshot_parallel import fewshot_cell, fewshot_rows, init_run_trees, run_parallel_fewshot
+from tpuhar_torch.eval.metrics import metrics_from_confusion
+from tpuhar_torch.eval.zeroshot import class_prototypes, run_zero_shot, zero_shot_metrics
 from tpuhar_torch.losses import cross_entropy_loss
+from tpuhar_torch.models import convert
 from tpuhar_torch.models.crossmodal import CrossModalModel, FusionClassifier, VideoClassifier
 from tpuhar_torch.models import video as video_models
 from tpuhar_torch.models.video import VIT_CONFIGS, VideoEncoder
@@ -146,6 +152,8 @@ from tpuhar_torch.ops.conv3x3 import (
     conv3x3_i8,
     conv3x3_i8_reference,
 )
+from tpuhar_torch.ood import KNOWN_SCORES, OODEvaluator
+from tpuhar_torch.ops import attention as attention_module
 from tpuhar_torch.ops import flash_lean as flash_lean_module
 from tpuhar_torch.ops.featurize import featurize_windows
 from tpuhar_torch.ops.flash_lean import (
@@ -175,6 +183,7 @@ from tpuhar_torch.serving import InferenceEngine, benchmark_engine
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
 from tpuhar_torch.train.checkpoint import restore_checkpoint
 from tpuhar_torch.train.loop import ClassificationTrainer, CrossModalTrainer
+from tpuhar_torch.profile_step import device_profile
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 from tpuhar_torch.utils.profiling import StepProfiler
@@ -313,6 +322,22 @@ REMAT_BATCH = 16
 # more than this share of a leaf's largest element fails
 REMAT_RTOL = 1e-3
 IMU_ENGINE_SIZES = [8, 256]
+# phase 20, the evaluate stage: 32 classes (the configuration's); the graft's eval forward
+# at batch 2; the zero-shot prototypes from 2 clips a class at batch 16 (4 batches), each
+# held by cosine to the same prototypes with the plain attention (both bf16: only the
+# attention's sum order and P's rounding differ); leave-one-out of the first and the
+# last class with the fusion classifier, one epoch of two batches of 16 (the depth cut
+# from train_epochs' 100 epochs of a dataset), its train step timed and profiled; the
+# few-shot grid at k = 10 with 5 runs (few_shot_samples [10, 20, 50, 100] cut to [10],
+# 100 epochs to 2), windows a class: 12 to train, 4 to fit and 4 to test; each batched
+# run within 5 points of balanced accuracy (the JAX package's per-cell bound between its
+# two harnesses) of the same run trained alone
+EVAL_CLASSES, GRAFT_BATCH, CLIP_SHAPE = 32, 2, (16, 224, 224)  # CLIP_SHAPE: frames, height, width
+EVAL_PATTERN = 4.0
+ZEROSHOT_CLIPS_PER_CLASS, ZEROSHOT_BATCH, ZEROSHOT_COSINE_MIN = 2, 16, COSINE_MIN
+LOO_CLASSES, LOO_BATCH, LOO_STEPS, LOO_TIMED_STEPS, LOO_PROFILED_STEPS = (0, 31), 16, 2, 3, 3
+FEWSHOT_RUNS, FEWSHOT_K, FEWSHOT_EPOCHS, FEWSHOT_ROW_ATOL = 5, 10, 2, 5.0
+FEWSHOT_WINDOWS = {"train": 12, "val": 4, "test": 4}
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -1681,6 +1706,427 @@ def run_int8_towers_stage(counters: dict, kernels: dict, smi: str, cfg_vit, para
         raise AssertionError(f"int8 resnet18: resident logits drift from the baseline's: correlation {corr}")
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The ViT's flash attention calls go to ``flash_lean_reference`` inside the scope."""
+    original = attention_module.flash_lean
+    attention_module.flash_lean = flash_lean_reference
+    try:
+        yield
+    finally:
+        attention_module.flash_lean = original
+
+
+def tree_equal(got: dict, want: dict, what: str) -> int:
+    """Fail unless two nested dicts of arrays have the same leaves, bit for bit; returns
+    the number of leaves."""
+    flat = lambda t, p="": ([(f"{p}/{k}", v) for k, v in t.items() if not isinstance(v, dict)]  # noqa: E731
+                            + [x for k, v in t.items() if isinstance(v, dict) for x in flat(v, f"{p}/{k}")])
+    a, b = dict(flat(got)), dict(flat(want))
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: leaves differ: {sorted(a.keys() ^ b.keys())[:5]}")
+    bad = [k for k in a if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, first {bad[:3]}")
+    return len(a)
+
+
+def eval_windows(per_class: int, seed: int):
+    """IMU windows of ``EVAL_CLASSES`` classes, ``per_class`` each: unit noise plus a fixed
+    pattern of their class at ``EVAL_PATTERN`` times its scale (learnable within the cut
+    epochs, so that the runs' predictions spread over the classes), and their labels."""
+    patterns = np.random.default_rng(2024).standard_normal((EVAL_CLASSES, 6, 250)).astype(np.float32)
+    labels = np.repeat(np.arange(EVAL_CLASSES), per_class).astype(np.int32)
+    windows = np.random.default_rng(seed).standard_normal((len(labels), 6, 250)).astype(np.float32)
+    return windows + EVAL_PATTERN * patterns[labels], labels
+
+
+def window_batches(windows: np.ndarray, labels: np.ndarray, batch: int, *, clips: bool = False, seed: int = 0) -> list:
+    """Zero-padded batches on the card (``imu``, ``label``, ``n_valid``; with ``clips`` a
+    seeded uint8 clip of ``CLIP_SHAPE`` a row)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for start in range(0, len(labels), batch):
+        n = min(batch, len(labels) - start)
+        imu, lab = np.zeros((batch, 6, 250), np.float32), np.zeros((batch,), np.int64)
+        imu[:n], lab[:n] = windows[start:start + n], labels[start:start + n]
+        b = {"imu": torch.from_numpy(imu).cuda(), "label": torch.from_numpy(lab).cuda(), "n_valid": n}
+        if clips:
+            b["video"] = torch.randint(0, 256, (batch, *CLIP_SHAPE, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        out.append(b)
+    return out
+
+
+def sample_runs(labels: np.ndarray, k: int, runs: int):
+    """Each run's k rows of each class (seeded ``run + 42``) and their labels, ``(R, n)``:
+    the few-shot core's input where no DataFrame is at hand."""
+    idx = np.stack([np.concatenate([np.random.default_rng(run + 42).choice(np.flatnonzero(labels == c), k, replace=False)
+                                    for c in range(EVAL_CLASSES)]) for run in range(runs)])
+    return idx, labels[idx]
+
+
+def check_weights_io(counters: dict, kernels: dict, params_vit, save_root: Path) -> None:
+    """Phase 20, weights I/O: phase 8's ``videomae_base`` ViT exported to the HF layout,
+    saved as ``.pt``, loaded and converted back bit for bit; the fusion classifier built
+    with ``model.video_weights_path`` against the same model loaded from the tree: the
+    grafted leaves and the eval forward (12 flash launches) bit for bit; the ResNet-18
+    and MobileNetV2 round trips."""
+    cfg = vit_config()
+    depth, _, heads = VIT_CONFIGS[cfg.model.video_backbone]
+    vit = params_vit["params"]["video_encoder"]["vit"]
+    path = save_root / "videomae_base.pt"
+    t0 = time.perf_counter()
+    convert.save_state_dict(convert.export_videomae_state_dict(vit, depth, heads), path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = convert.load_state_dict(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    converted = convert.convert_video_backbone(loaded, cfg)
+    convert_s = time.perf_counter() - t0
+    n = tree_equal(converted, vit, "videomae_base export → .pt → load → convert")
+    print(f"[weights] videomae_base: export and save {export_s:.2f} s ({path.stat().st_size / 2**20:.0f} MiB, "
+          f"{len(loaded)} tensors), load_state_dict {load_s:.2f} s, convert_video_backbone {convert_s:.2f} s; "
+          f"{n} leaves bit for bit")
+
+    base = init_params(cfg, torch.Generator().manual_seed(1), FusionClassifier)
+    direct_tree = {**base, "params": {**base["params"], "video_encoder": {**base["params"]["video_encoder"], "vit": vit}}}
+    graft_cfg = copy.deepcopy(cfg)
+    graft_cfg.model.video_pretrained, graft_cfg.model.video_weights_path = True, str(path)
+    t0 = time.perf_counter()
+    grafted = build_fusion_task(graft_cfg, device="cuda", params=base, steps_per_epoch=1)
+    graft_s = time.perf_counter() - t0
+    tree_equal(variables_to_numpy(grafted.model)["params"]["video_encoder"]["vit"], vit, "grafted ViT")
+    direct = build_fusion_task(cfg, device="cuda", params=direct_tree, steps_per_epoch=1)
+    w, lab = eval_windows(1, 2000)
+    batch = window_batches(w[:GRAFT_BATCH], lab[:GRAFT_BATCH], GRAFT_BATCH, clips=True, seed=2000)[0]
+    got, counts, fwd_s = drive_counted(counters, kernels, "evaluate_graft", lambda: grafted.eval_step(grafted.state, batch),
+                                       {**dict.fromkeys(counters, 0), "flash_lean": depth})
+    want = direct.eval_step(direct.state, batch)
+    for key in ("logits", "embeddings", "preds"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"grafted videomae_base: {key} differs from the directly loaded model")
+    print(f"[weights] build_fusion_task with video_weights_path (load, convert, graft, f32 masters on the card) "
+          f"{graft_s:.1f} s; the grafted ViT's leaves and its eval forward at batch {GRAFT_BATCH} equal the model "
+          f"loaded from the tree bit for bit (logits, embeddings, preds); launches {counts}")
+    del grafted, direct, base, direct_tree, converted, loaded
+    torch.cuda.empty_cache()
+
+    for backbone in ("resnet18", "mobilenet_v2"):
+        cfg_cnn = pretrain_config()
+        cfg_cnn.model.video_backbone = backbone
+        tree = init_params(cfg_cnn, torch.Generator().manual_seed(2), CrossModalModel)
+        encoder = {"params": tree["params"]["video_encoder"], "batch_stats": tree["batch_stats"]["video_encoder"]}
+        cnn_path = save_root / f"{backbone}.pth"
+        t0 = time.perf_counter()
+        convert.save_state_dict(convert.export_video_backbone(encoder, cfg_cnn), cnn_path)
+        params, stats = convert.convert_video_backbone(convert.load_state_dict(cnn_path), cfg_cnn)
+        n = tree_equal(params, encoder["params"]["backbone"], backbone) + tree_equal(
+            stats, encoder["batch_stats"]["backbone"], f"{backbone} statistics")
+        print(f"[weights] {backbone}: export, save, load and convert {time.perf_counter() - t0:.2f} s; {n} leaves "
+              f"bit for bit")
+
+
+def run_zero_shot_check(counters: dict, kernels: dict, smi: str, params_pt) -> object:
+    """Phase 20, zero-shot: ``pretrain_config()``'s ``videomae_base`` ``CrossModalModel``
+    (phase 13's weights) makes the prototypes of 32 classes from 2 clips each at batch 16
+    (12 flash launches a batch), each held by cosine to the same computation with the
+    plain attention; then nearest-prototype classification of IMU windows. Returns the
+    task, for the DataFrame entries."""
+    cfg = pretrain_config()
+    depth = VIT_CONFIGS[cfg.model.video_backbone][0]
+    task = build_pretrain_task(cfg, device="cuda", params=params_pt, steps_per_epoch=1)
+    labels = np.random.default_rng(3000).permutation(np.repeat(np.arange(EVAL_CLASSES), ZEROSHOT_CLIPS_PER_CLASS))
+    clips = window_batches(np.zeros((len(labels), 6, 250), np.float32), labels, ZEROSHOT_BATCH, clips=True, seed=3000)
+    imu = window_batches(*eval_windows(4, 3001), cfg.training.train_batch_size)
+
+    def run():
+        t0 = time.perf_counter()
+        protos = class_prototypes(task, clips, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = zero_shot_metrics(task, protos, imu, cfg)
+        return protos, metrics, t1 - t0, time.perf_counter() - t1
+
+    (protos, metrics, proto_s, imu_s), counts, _ = drive_counted(
+        counters, kernels, "evaluate_zeroshot", run, {**dict.fromkeys(counters, 0), "flash_lean": depth * len(clips)})
+    with plain_attention():
+        plain = class_prototypes(task, clips, cfg)
+    cos = (protos.double() * plain.double()).sum(dim=1) / (protos.double().norm(dim=1) * plain.double().norm(dim=1))
+    print(f"[zeroshot] prototypes of {EVAL_CLASSES} classes from {len(labels)} clips at batch {ZEROSHOT_BATCH}: "
+          f"{proto_s:.2f} s; {imu[0]['imu'].shape[0] * len(imu)} IMU windows classified in {imu_s:.2f} s; balanced "
+          f"accuracy {metrics['balanced_accuracy']:.2f}% (random weights); launches {counts}; per-class cosine to the "
+          f"plain attention's prototypes: min {cos.min().item():.6f}, mean {cos.mean().item():.6f} ({smi})")
+    if not (torch.isfinite(protos).all() and cos.min().item() >= ZEROSHOT_COSINE_MIN):
+        raise AssertionError(f"zero-shot prototypes: cosine to the plain attention's {cos.min().item()}")
+    return task
+
+
+def run_loo_check(counters: dict, kernels: dict, smi: str, save_root: Path) -> None:
+    """Phase 20, leave-one-out: two held-out classes with ``pretrain_config()``'s
+    ``videomae_base`` fusion classifier through ``OODEvaluator.held_out_rows``: one epoch
+    of two batches of 16 (12/12/12 flash launches a step), a validation batch, then the
+    ID-test, OOD and ID-train evaluations and the five scores' rows; then one train
+    step's device profile (busy share)."""
+    cfg = pretrain_config()
+    cfg.training.train_epochs = 1
+    cfg.paths = PathConfig(base_output=save_root)
+    cfg.ood.scores = list(KNOWN_SCORES)
+    depth = VIT_CONFIGS[cfg.model.video_backbone][0]
+    ev = OODEvaluator(cfg, device="cuda")
+    for i, c in enumerate(LOO_CLASSES):
+        loo = copy.deepcopy(cfg)
+        loo.model.num_classes = EVAL_CLASSES - 1
+        w, lab = eval_windows(3, 4000 + i)
+        keep = lab != c
+        remap = np.cumsum(np.arange(EVAL_CLASSES) != c) - 1  # the ID classes renumbered 0..30
+        order = np.random.default_rng(4000 + i).permutation(int(keep.sum()))
+        w_id, lab_id = w[keep][order], remap[lab[keep]][order].astype(np.int32)
+        n = LOO_STEPS * LOO_BATCH
+        train = window_batches(w_id[:n], lab_id[:n], LOO_BATCH, clips=True, seed=4100 + i)
+        val = window_batches(w_id[n:n + LOO_BATCH], lab_id[n:n + LOO_BATCH], LOO_BATCH, clips=True, seed=4200 + i)
+        id_test = window_batches(w_id[n + LOO_BATCH:n + 2 * LOO_BATCH], lab_id[n + LOO_BATCH:n + 2 * LOO_BATCH],
+                                 LOO_BATCH, clips=True, seed=4300 + i)
+        ood = window_batches(w[~keep], lab[~keep], LOO_BATCH, clips=True, seed=4400 + i)  # labels c, unmapped
+        evals = len(val) + len(id_test) + len(ood) + len(train)
+        rows, counts, class_s = drive_counted(
+            counters, kernels, f"evaluate_loo_fusion_{c}",
+            lambda: ev.held_out_rows(c, loo, "fusion", len(train), train, val, id_test, ood, train, verbose=False),
+            {**dict.fromkeys(counters, 0), "flash_lean": depth * (len(train) + evals),
+             "flash_bwd_dkv": depth * len(train), "flash_bwd_dq": depth * len(train)})
+        print(f"[loo fusion] held-out class {c}: build, {len(train)} steps of batch {LOO_BATCH}, validation and "
+              f"{len(id_test) + len(ood) + len(train)} evaluation batches in {class_s:.1f} s; launches {counts}; "
+              + ", ".join(f"{r['score']} AUROC {r['auroc']:.3f} FPR95 {r['fpr_at_95tpr']:.3f}" for r in rows)
+              + f" (random weights; {smi})")
+        if [r["score"] for r in rows] != list(KNOWN_SCORES) or not all(0.0 <= r["auroc"] <= 1.0 for r in rows):
+            raise AssertionError(f"loo class {c}: rows {rows}")
+    # the LOO fusion step's device time and busy share
+    task = build_fusion_task(loo, device="cuda", params=init_params(loo, torch.Generator().manual_seed(5), FusionClassifier),
+                             steps_per_epoch=LOO_STEPS)
+    dropout = torch.Generator(device="cuda").manual_seed(0)
+    step = lambda b: task.train_step(task.state, b, dropout)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOO_TIMED_STEPS):
+        step(train[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / LOO_TIMED_STEPS * 1e3
+    prof = device_profile(step, (train[0],), LOO_PROFILED_STEPS)
+    print(f"[timing] loo fusion videomae_base train step batch {LOO_BATCH}: {step_ms:.3f} ms "
+          f"({LOO_BATCH / step_ms * 1e3:.1f} samples/s); device {prof['device_ms']:.3f} ms a step in "
+          f"{prof['ops']:.0f} ops, busy {100 * prof['busy']:.1f}% ({LOO_PROFILED_STEPS} profiled steps; {smi})")
+    del task
+    torch.cuda.empty_cache()
+
+
+def run_fewshot_check(counters: dict, kernels: dict, smi: str) -> None:
+    """Phase 20, the parallel few-shot harness at ``classify_config()``'s IMU classifier:
+    32 classes, R = 5 runs, k = 10, both modes, cut to 2 epochs, through ``fewshot_rows``
+    (no hand kernel runs: the IMU classifier's layers are PyTorch's); then each cell's
+    batched runs against the five runs trained one after the other through the same code
+    (dropout off), per run, with both times."""
+    cfg = classify_config()
+    cfg.training.train_epochs = FEWSHOT_EPOCHS
+    cfg.eval.few_shot_samples, cfg.eval.few_shot_runs = [FEWSHOT_K], FEWSHOT_RUNS
+    train_w, train_l = eval_windows(FEWSHOT_WINDOWS["train"], 5000)
+    fit_w, fit_l = eval_windows(FEWSHOT_WINDOWS["val"], 5001)
+    test_w, test_l = eval_windows(FEWSHOT_WINDOWS["test"], 5002)
+    idx, lab = sample_runs(train_l, FEWSHOT_K, FEWSHOT_RUNS)
+    data = (train_w, {FEWSHOT_K: (idx, lab)}, fit_w, fit_l, test_w, test_l)
+    rows, counts, grid_s = drive_counted(
+        counters, kernels, "evaluate_fewshot",
+        lambda: fewshot_rows(cfg, None, *data, device="cuda", generator=torch.Generator().manual_seed(0),
+                             log=lambda line: print(f"[fewshot] {line}")),
+        dict.fromkeys(counters, 0))
+    print(f"[fewshot] the grid (k={FEWSHOT_K}, R={FEWSHOT_RUNS}, {len(cfg.eval.eval_modes)} modes, {FEWSHOT_EPOCHS} "
+          f"epochs of {idx.shape[1] // 32} steps of batch 32) in {grid_s:.1f} s, {len(rows)} rows; no hand kernel "
+          f"launched ({counts})")
+    if len(rows) != FEWSHOT_RUNS * len(cfg.eval.eval_modes):
+        raise AssertionError(f"few-shot rows: {len(rows)}")
+    cfg0 = copy.deepcopy(cfg)
+    cfg0.model.imu_dropout = cfg0.model.classifier_dropout = 0.0
+    for mode in cfg.eval.eval_modes:
+        trees = init_run_trees(cfg0, mode, None, FEWSHOT_RUNS, torch.Generator().manual_seed(1))
+        evals = (fit_w, fit_l, test_w, test_l)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        together = fewshot_cell(cfg0, mode, trees, train_w, idx, lab, *evals, device="cuda",
+                                generator=torch.Generator(device="cuda"))
+        batched_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = [fewshot_cell(cfg0, mode, trees[r:r + 1], train_w, idx[r:r + 1], lab[r:r + 1], *evals, device="cuda",
+                              generator=torch.Generator(device="cuda"), run_ids=[r])[0] for r in range(FEWSHOT_RUNS)]
+        sequential_s = time.perf_counter() - t0
+        bal = [(metrics_from_confusion(together[r])["balanced_accuracy"], metrics_from_confusion(alone[r])["balanced_accuracy"])
+               for r in range(FEWSHOT_RUNS)]
+        moved = [int(np.abs(together[r] - alone[r]).sum()) // 2 for r in range(FEWSHOT_RUNS)]
+        worst = max(abs(a - b) for a, b in bal)
+        print(f"[fewshot {mode}] batched {FEWSHOT_RUNS} runs {batched_s:.2f} s, the same runs one after the other "
+              f"{sequential_s:.2f} s ({sequential_s / batched_s:.2f}x); balanced accuracy per run (batched, alone): "
+              + ", ".join(f"({a:.2f}, {b:.2f})" for a, b in bal)
+              + f"; test windows predicted otherwise per run {moved} of {len(test_l)}; largest difference {worst:.2f} "
+              f"points (bound {FEWSHOT_ROW_ATOL}; {smi})")
+        if not worst <= FEWSHOT_ROW_ATOL:
+            raise AssertionError(f"few-shot {mode}: batched runs differ from the runs alone by {worst} points")
+
+
+def run_evaluator_check(counters: dict, kernels: dict, smi: str, save_root: Path) -> None:
+    """Phase 20, ``Evaluator.evaluate`` and calibration on ``classify_config()``'s IMU
+    classifier finetuned (``train_classifier``, one epoch of batch 64): the test
+    batches' metrics and ECE, the temperature fitted on the validation batches and the
+    ECE after it."""
+    cfg = classify_config()
+    cfg.training.train_epochs = 1
+    cfg.paths = PathConfig(base_output=save_root)
+    batch = cfg.training.train_batch_size
+    train = window_batches(*eval_windows(FEWSHOT_WINDOWS["train"], 6000), batch)
+    val = window_batches(*eval_windows(FEWSHOT_WINDOWS["val"], 6001), batch)
+    test = window_batches(*eval_windows(FEWSHOT_WINDOWS["test"], 6002), batch)
+    task, _ = train_classifier(cfg, "finetune", len(train), train, val, save_root / "evaluate",
+                               generator=torch.Generator().manual_seed(0), device="cuda")
+    evaluator = Evaluator(task, cfg)
+    out, counts, eval_s = drive_counted(counters, kernels, "evaluate_imu", lambda: evaluator.evaluate(test),
+                                        dict.fromkeys(counters, 0))
+    _, val_labels, val_logits, _ = evaluator.predict(val)
+    t0 = time.perf_counter()
+    temperature = fit_temperature(torch.from_numpy(val_logits).cuda(), torch.from_numpy(val_labels).cuda())
+    fit_s = time.perf_counter() - t0
+    after = expected_calibration_error(apply_temperature(torch.from_numpy(out["logits"]).cuda(), temperature),
+                                       out["labels"])
+    m, cal = out["metrics"], out["calibration"]
+    print(f"[evaluate] finetuned IMU classifier ({len(train)} steps of batch {batch}) on {len(out['labels'])} test "
+          f"windows in {eval_s:.2f} s: accuracy {m['accuracy']:.2f}%, balanced {m['balanced_accuracy']:.2f}%, macro "
+          f"F1 {m['f1_macro']:.2f}%; ECE {cal['ece']:.4f} (MCE {cal['mce']:.4f}); temperature {temperature:.4f} fitted on "
+          f"{len(val_labels)} validation windows in {fit_s:.2f} s, ECE after {after['ece']:.4f}; launches {counts} ({smi})")
+    if len(out["labels"]) != 4 * EVAL_CLASSES or not np.isfinite(out["logits"]).all() or not np.isfinite(temperature):
+        raise AssertionError(f"evaluate: {len(out['labels'])} rows, temperature {temperature}")
+
+
+def write_manifests(save_root: Path, with_clips: bool):
+    """The evaluate stage's data as a user's preprocessed tree: the IMU manifest (splits
+    ``train``/``val``/``test``, windows banks only) and, with ``with_clips``, the clip
+    manifest (splits ``clip_*``, 2, 1 and 1 windows a class, with JPEG frame banks of
+    ``CLIP_SHAPE``). Returns ``(imu {split: DataFrame}, clip {split: DataFrame})``."""
+    import pandas as pd
+
+    pre = save_root / "preprocessed"
+    pre.mkdir(parents=True, exist_ok=True)
+
+    def split(name, per_class, seed):
+        windows, labels = eval_windows(per_class, seed)
+        np.save(pre / f"{name}_windows.npy", np.ascontiguousarray(windows.transpose(0, 2, 1)))
+        return pd.DataFrame({"split": name, "label": labels, "class_name": [f"c{c:02d}" for c in labels],
+                             "bank_idx": np.arange(len(labels)), "video_exists": True,
+                             "video_path": [f"video/{name}_{i}.mp4" for i in range(len(labels))], "start_frame": 0})
+
+    imu = {s: split(s, FEWSHOT_WINDOWS[s], 7000 + i) for i, s in enumerate(("train", "val", "test"))}
+    clip = {}
+    if with_clips:
+        import cv2
+
+        T, H, W = CLIP_SHAPE
+        ramp = np.linspace(0, 96, W, dtype=np.float32)
+        for i, (s, per_class) in enumerate((("clip_train", 2), ("clip_val", 1), ("clip_test", 1))):
+            clip[s] = split(s, per_class, 7100 + i)
+            table = np.zeros((len(clip[s]), T, 2), np.int64)
+            offset = 0
+            with open(pre / f"{s}_frames.bin", "wb") as f:
+                for row, label in enumerate(clip[s]["label"]):
+                    for j in range(T):  # a smooth frame: the class's tint over a moving ramp
+                        frame = np.empty((H, W, 3), np.uint8)
+                        frame[:] = (np.add.outer(ramp[:H], np.roll(ramp, 14 * j)) / 2 + 4 * label)[..., None].astype(np.uint8)
+                        ok, buf = cv2.imencode(".jpg", frame, [cv2.IMWRITE_JPEG_QUALITY, 90])
+                        f.write(buf.tobytes())
+                        table[row, j] = (offset, len(buf))
+                        offset += len(buf)
+            np.save(pre / f"{s}_frame_index.npy", table)
+            (pre / f"{s}_frame_index.meta.json").write_text(json.dumps({"bank_format_version": 2}))
+    return imu, clip
+
+
+def run_dataframe_entries(counters: dict, kernels: dict, smi: str, zeroshot_task, save_root: Path) -> None:
+    """Phase 20 over manifests, where pandas imports (and, for clips, OpenCV): the
+    parallel few-shot grid (``run_parallel_fewshot``, its window banks), and with clips
+    ``run_zero_shot`` and one held-out class of ``run_loo_experiments(model_kind=
+    "fusion")`` (``BatchLoader``s decoding the JPEG frame banks, ``Evaluator``)."""
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        print("[evaluate manifests] pandas does not import here: the DataFrame entries were not driven (the cores above were)")
+        return
+    try:
+        import cv2  # noqa: F401
+        with_clips = True
+    except ImportError:
+        with_clips = False
+    t0 = time.perf_counter()
+    imu, clip = write_manifests(save_root, with_clips)
+    print(f"[evaluate manifests] pandas {pandas.__version__}; OpenCV {'imports' if with_clips else 'does not import'}; "
+          f"manifests written in {time.perf_counter() - t0:.1f} s ({sum(map(len, imu.values()))} IMU windows, "
+          f"{sum(map(len, clip.values()))} clips in JPEG frame banks)")
+    cfg = classify_config()
+    cfg.paths = PathConfig(base_output=save_root)
+    cfg.training.train_epochs = FEWSHOT_EPOCHS
+    cfg.eval.few_shot_samples, cfg.eval.few_shot_runs = [FEWSHOT_K], FEWSHOT_RUNS
+    df, counts, grid_s = drive_counted(
+        counters, kernels, "evaluate_fewshot_manifest",
+        lambda: run_parallel_fewshot(cfg, None, imu["train"], imu["test"], imu["val"], device="cuda", verbose=False),
+        dict.fromkeys(counters, 0))
+    print(f"[evaluate manifests] run_parallel_fewshot: {len(df)} rows in {grid_s:.1f} s; finetune balanced accuracy "
+          f"per run {[round(v, 2) for v in df[df['mode'] == 'finetune']['balanced_accuracy']]}")
+    if len(df) != FEWSHOT_RUNS * len(cfg.eval.eval_modes):
+        raise AssertionError(f"run_parallel_fewshot: {len(df)} rows")
+    if not with_clips:
+        print("[evaluate manifests] OpenCV does not import here: run_zero_shot and the fusion leave-one-out over "
+              "manifests were not driven")
+        return
+    cfg_pt = pretrain_config()
+    cfg_pt.paths = PathConfig(base_output=save_root)
+    depth = VIT_CONFIGS[cfg_pt.model.video_backbone][0]
+    clip_batches = -(-len(clip["clip_train"]) // cfg_pt.training.pretrain_batch_size)
+    out, counts, zs_s = drive_counted(
+        counters, kernels, "evaluate_zeroshot_manifest",
+        lambda: run_zero_shot(zeroshot_task, clip["clip_train"], clip["clip_test"], cfg_pt,
+                              save_path=save_root / "zeroshot_results.json"),
+        {**dict.fromkeys(counters, 0), "flash_lean": depth * clip_batches})
+    print(f"[evaluate manifests] run_zero_shot over the frame banks in {zs_s:.1f} s: "
+          f"{json.loads((save_root / 'zeroshot_results.json').read_text())['video_prototype_zeroshot']['balanced_accuracy']:.2f}% "
+          f"balanced accuracy; launches {counts}")
+    cfg_pt.training.train_epochs, cfg_pt.training.train_batch_size = 1, LOO_BATCH
+    held_out = 0
+    n_id = {s: int((clip[s]["label"] != held_out).sum()) for s in clip}
+    steps = n_id["clip_train"] // LOO_BATCH
+    n_ood = int((clip["clip_test"]["label"] == held_out).sum())
+    evals = sum(-(-n // LOO_BATCH) for n in (n_id["clip_val"], n_id["clip_test"], n_ood, n_id["clip_train"]))
+    rows, counts, loo_s = drive_counted(
+        counters, kernels, "evaluate_loo_manifest",
+        lambda: OODEvaluator(cfg_pt, device="cuda").run_loo_experiments(
+            clip["clip_train"], clip["clip_val"], clip["clip_test"], classes=[held_out], verbose=False, model_kind="fusion"),
+        {**dict.fromkeys(counters, 0), "flash_lean": depth * (steps + evals), "flash_bwd_dkv": depth * steps,
+         "flash_bwd_dq": depth * steps})
+    print(f"[evaluate manifests] run_loo_experiments(model_kind='fusion') over the frame banks, class {held_out}: "
+          f"{len(rows)} rows in {loo_s:.1f} s; launches {counts}")
+
+
+def run_evaluate_stage(counters: dict, kernels: dict, smi: str, params_vit, params_pt) -> None:
+    """Phase 20: the evaluate stage at full width (weights I/O, zero-shot, leave-one-out
+    with the fusion classifier, the parallel few-shot harness, ``Evaluator`` and
+    calibration), on the cores; then, where pandas imports, the DataFrame entries over
+    manifests written here."""
+    save_root = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_evaluate"
+    shutil.rmtree(save_root, ignore_errors=True)
+    save_root.mkdir(parents=True)
+    check_weights_io(counters, kernels, params_vit, save_root)
+    zeroshot_task = run_zero_shot_check(counters, kernels, smi, params_pt)
+    run_loo_check(counters, kernels, smi, save_root)
+    run_fewshot_check(counters, kernels, smi)
+    run_evaluator_check(counters, kernels, smi, save_root)
+    run_dataframe_entries(counters, kernels, smi, zeroshot_task, save_root)
+    del zeroshot_task
+    torch.cuda.empty_cache()
+    shutil.rmtree(save_root, ignore_errors=True)
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1977,6 +2423,7 @@ def main() -> None:
     run_classification_stage(counters, kernels, smi)
     run_towers_stage(counters, kernels, smi, params_pt)
     run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
+    run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

@@ -76,3 +76,20 @@ def test_cross_entropy_matches_jax():
         want = JL.cross_entropy_loss(jnp.asarray(logits), jnp.asarray(labels), reduction=reduction)
         got = L.cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(labels), reduction=reduction)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+
+def test_evaluation_rows_with_labels_outside_the_classes_match_jax():
+    """``cross_entropy_rows`` (the predict steps' per-row loss) on labels outside
+    ``[0, C)``: a negative label counts from the end, one outside ``[-C, C)`` gives NaN, as
+    the JAX package's ``cross_entropy_loss`` gathers them."""
+    import jax.numpy as jnp
+
+    from tpuhar.losses import cross_entropy_loss as jce
+    from tpuhar_torch.losses import cross_entropy_rows
+
+    logits = np.array([[1.0, 2.0, 3.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [2.0, 2.0, 0.0]], np.float32)
+    labels = np.array([0, 3, -1, -4])
+    got = cross_entropy_rows(torch.from_numpy(logits), torch.from_numpy(labels)).numpy()
+    want = np.asarray(jce(jnp.asarray(logits), jnp.asarray(labels), reduction="none"))
+    np.testing.assert_allclose(got, want, rtol=1e-6, equal_nan=True)
+    assert np.isnan(got[[1, 3]]).all()

@@ -104,10 +104,13 @@ def test_init_params_of_the_crossmodal_model():
                                   p["imu_encoder"]["block0"]["self_attn"]["query"]["kernel"])
 
 
-def test_weights_io_is_refused():
+def test_weights_io_is_refused(tmp_path):
+    """A ``video_weights_path`` that names no checkpoint is refused when the task is
+    built (weights I/O is ported: the graft itself is held by ``test_torch_convert.py``)."""
     cfg = _config()
-    cfg.model.video_weights_path = "videomae.safetensors"
-    with pytest.raises(NotImplementedError, match="weights"):
+    cfg.model.video_pretrained = True
+    cfg.model.video_weights_path = str(tmp_path / "videomae.pt")
+    with pytest.raises(FileNotFoundError):
         build_crossmodal_task(cfg, 1, {}, device="cpu")
 
 

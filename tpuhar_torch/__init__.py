@@ -7,7 +7,9 @@ Serving slices (``entry``): the flagship bf16 IMU+video fusion forward
 CUDA graph per registered batch size, padding, chunking, a pipelined stream, OOD
 scorers and thresholds, IMU-only serving). Training slice (``entry``, ``train``, ``losses``):
 the cross-modal SigLIP pretraining of the ``videomae_base`` model
-(``build_pretrain_task(pretrain_config())``). Plain tensor code is PyTorch; the kernels
+(``build_pretrain_task(pretrain_config())``), the classifiers, and the evaluate stage
+(``eval``, ``ood.OODEvaluator``) over the data loaders (``data``), with pretrained video
+backbones converted and grafted (``models.convert``). Plain tensor code is PyTorch; the kernels
 on these paths are written by hand for ``sm_90a`` in ``csrc/`` (the fused window
 featurizer, the fused 3x3 conv in bf16 and int8, the uint8 stem GEMM, flash attention
 and its dK/dV and dQ backward), each with its plain PyTorch version beside it. Module names mirror ``tpuhar/``. The port imports

@@ -21,9 +21,15 @@ def init_confusion(num_classes: int, device="cpu") -> torch.Tensor:
 
 
 def confusion_update(cm: torch.Tensor, labels, preds, valid) -> torch.Tensor:
-    """``cm`` with one batch added: each valid row adds 1 at ``[label, pred]``."""
+    """``cm`` with one batch added: each valid row adds 1 at ``[label, pred]``. As the
+    JAX package's scatter, an index in ``[-C, 0)`` counts from the end and a row with an
+    index outside ``[-C, C)`` adds nothing (the leave-one-out harness's OOD rows keep
+    the held-out class's label, which can be ``C``)."""
     labels, preds, valid = (torch.as_tensor(t, device=cm.device) for t in (labels, preds, valid))
-    return cm.index_put((labels.long(), preds.long()), valid.to(cm.dtype), accumulate=True)
+    labels, preds = labels.long(), preds.long()
+    C = cm.shape[0]
+    inside = (labels >= -C) & (labels < C) & (preds >= -C) & (preds < C)
+    return cm.index_put((labels % C, preds % C), (valid & inside).to(cm.dtype), accumulate=True)
 
 
 def metrics_from_confusion(cm) -> Dict[str, float]:

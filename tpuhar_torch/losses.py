@@ -64,6 +64,17 @@ def cross_entropy_loss(logits, labels, *, reduction: str = "mean"):
     return _reduce(nll, reduction)
 
 
+def cross_entropy_rows(logits, labels):
+    """Per-row cross-entropy of an evaluation batch, as the JAX package's gather reads
+    it: a label in ``[-C, 0)`` counts from the end, and a row whose label lies outside
+    ``[-C, C)`` gives NaN (the leave-one-out harness's OOD rows keep the held-out
+    class's label, which can be ``C``)."""
+    C = logits.shape[-1]
+    labels = labels.long()
+    nll = cross_entropy_loss(logits, labels % C, reduction="none")
+    return torch.where((labels >= -C) & (labels < C), nll, torch.full_like(nll, float("nan")))
+
+
 def focal_loss(logits, labels, *, alpha: float = 1.0, gamma: float = 2.0, reduction: str = "mean"):
     """Focal loss ``alpha·(1 − p_t)^gamma · CE``, with ``p_t = exp(−CE)``."""
     ce = cross_entropy_loss(logits, labels, reduction="none")

@@ -63,21 +63,19 @@ class CrossModalModel(MasterWeights):
         self.record_use_dtypes()
 
     def forward(self, imu, video, *, train: bool = False, generator=None):
-        imu_feat, imu_tokens = self.imu_encoder(imu, train=train, generator=generator)
-        video_feat, video_tokens = self.video_encoder(video, train=train)
-        ip = self.imu_proj(imu_feat, train=train).float()
-        vp = self.video_proj(video_feat, train=train).float()
+        """``imu`` or ``video`` may be ``None``: that tower does not run and its two
+        outputs are left out (the zero-shot pass reads one projection at a time)."""
         t, b = self.temperature, self.bias
         if not self.train_loss_scalars:
             t, b = t.detach(), b.detach()
-        return {
-            "imu_proj": l2_normalize(ip),
-            "video_proj": l2_normalize(vp),
-            "logit_scale": t,
-            "logit_bias": b,
-            "imu_tokens": imu_tokens,
-            "video_tokens": video_tokens,
-        }
+        out = {"logit_scale": t, "logit_bias": b}
+        if imu is not None:
+            imu_feat, out["imu_tokens"] = self.imu_encoder(imu, train=train, generator=generator)
+            out["imu_proj"] = l2_normalize(self.imu_proj(imu_feat, train=train).float())
+        if video is not None:
+            video_feat, out["video_tokens"] = self.video_encoder(video, train=train)
+            out["video_proj"] = l2_normalize(self.video_proj(video_feat, train=train).float())
+        return out
 
 
 def _classifier_head(config, in_features: int, dtype) -> ClassifierHead:

@@ -8,17 +8,26 @@ seeded subsample and L2 normalization) and holds its fitted arrays as f32 tensor
 ``to(device)`` moves them once, and ``score`` is plain tensor code in full f32 (TF32
 off, the counterpart of ``Precision.HIGHEST``) that a CUDA graph can capture. The
 thresholds (``fit_ood_thresholds``, ``fpr_at_tpr``) are numpy, as in the reference.
-The leave-one-activity-out harness is not ported yet.
+
+The leave-one-activity-out harness (``leave_one_out_split``, ``OODEvaluator``): for
+each held-out class, a classifier (the IMU classifier, or the fusion classifier on IMU
+and video) trains on the other classes; its logits and embeddings on ID-test and OOD
+windows give every configured score's AUROC and FPR at 95% TPR, the embedding scorers
+fitted on the ID-train embeddings.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from .eval.metrics import auroc
 
 
 @contextlib.contextmanager
@@ -213,3 +222,163 @@ def fpr_at_tpr(ood_scores, is_ood, tpr: float = 0.95) -> float:
         return float("nan")
     thresh = np.quantile(s[pos], 1.0 - tpr)
     return float((s[~pos] >= thresh).mean())
+
+
+# ---------------------------------------------------------------------------------
+# Leave-one-activity-out harness
+# ---------------------------------------------------------------------------------
+KNOWN_SCORES = ("msp", "energy", "mahalanobis", "knn", "rmd")
+
+
+def leave_one_out_split(df, held_out_class: int, remap=None):
+    """``(id_df, ood_df, remap)``: the rows whose label is not ``held_out_class``, their
+    labels remapped to ``0..C-2``, and the rows whose label is. ``remap`` (from the train
+    split) is shared by the other splits, so that a split missing a class cannot shift
+    the later labels; an ID row whose label is not in it is dropped."""
+    id_df = df[df["label"] != held_out_class].copy()
+    ood_df = df[df["label"] == held_out_class].copy()
+    if remap is None:
+        remap = {old: new for new, old in enumerate(sorted(id_df["label"].unique()))}
+    else:
+        dropped = int((~id_df["label"].isin(remap)).sum())
+        if dropped:
+            print(f"[OOD] dropping {dropped} ID rows with labels absent from the train split's class set")
+            id_df = id_df[id_df["label"].isin(remap)]
+    id_df["label"] = id_df["label"].map(remap)
+    return id_df, ood_df, remap
+
+
+def _score_names(config) -> List[str]:
+    names = list(config.ood.scores)
+    unknown = set(names) - set(KNOWN_SCORES)
+    if unknown:  # a typo would silently drop a score's rows
+        raise ValueError(f"Unknown ood.scores {sorted(unknown)}; known: {sorted(KNOWN_SCORES)}")
+    return names
+
+
+class OODEvaluator:
+    """Leave-one-activity-out OOD evaluation on ``device``; ``generator`` (default
+    seeded ``training.seed``) gives each held-out class's task its init and fit
+    generators."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None, *, device):
+        self.config = config
+        from .train.factory import default_generator
+
+        self.generator = default_generator(config, generator)
+        self.device = device
+
+    def run_loo_experiments(self, train_df, val_df, test_df, classes: Optional[List[int]] = None, encoder_params=None,
+                            verbose: bool = True, model_kind: str = "imu", reuse_checkpoints: bool = False):
+        """One row per held-out class and score (``held_out_class``, ``score``,
+        ``auroc``, ``fpr_at_95tpr``, ``id_accuracy``, ``n_id``, ``n_ood``) over
+        manifests. ``model_kind``: "imu" (the IMU classifier) or "fusion" (the fusion
+        classifier on IMU and video; its scores read the fused embedding).
+        ``reuse_checkpoints``: a class whose ``ood_loo_{c}`` directory holds a finished
+        run (``training_history.json``) is scored from its ``last`` checkpoint (else
+        ``best_model``) instead of trained again."""
+        import pandas as pd
+
+        from .data.loader import BatchLoader
+
+        if model_kind not in ("imu", "fusion"):
+            raise ValueError(f"Unknown model_kind: {model_kind}")
+        _score_names(self.config)
+        mode = "classification" if model_kind == "imu" else "fusion"
+        classes = classes or list(self.config.ood.leave_out_classes) or sorted(train_df["label"].unique())
+        rows = []
+        for c in classes:
+            id_train, _, remap = leave_one_out_split(train_df, c)
+            id_val, _, _ = leave_one_out_split(val_df, c, remap=remap)
+            id_test, ood_test, _ = leave_one_out_split(test_df, c, remap=remap)
+            if len(ood_test) == 0 or len(id_train) == 0:
+                continue
+            loo_cfg = copy.deepcopy(self.config)
+            loo_cfg.model.num_classes = len(remap)
+            bs = min(loo_cfg.training.train_batch_size, max(len(id_train), 1))
+            loader = lambda df, **kw: BatchLoader(df, loo_cfg, mode=mode, prefetch=0, device=self.device, **kw)  # noqa: E731,B023
+            rows += self.held_out_rows(
+                c, loo_cfg, model_kind, max(len(id_train) // bs, 1),
+                loader(id_train, batch_size=bs, shuffle=True, drop_last=True, seed=int(c)), loader(id_val),
+                loader(id_test), loader(ood_test), loader(id_train),
+                encoder_params=encoder_params, reuse_checkpoints=reuse_checkpoints, verbose=verbose,
+            )
+        return pd.DataFrame(rows)
+
+    def held_out_rows(self, held_out_class: int, loo_config, model_kind: str, steps_per_epoch: int, train: Iterable,
+                      val: Iterable, id_test: Iterable, ood_test: Iterable, id_train_eval: Iterable, *,
+                      encoder_params=None, reuse_checkpoints: bool = False, verbose: bool = True) -> List[Dict]:
+        """One held-out class on batch iterables (the core that needs no pandas):
+        ``loo_config`` with ``num_classes`` shrunk, the finetune of ``model_kind`` on
+        ``train`` (re-iterable; selected on ``val``) or its reused checkpoint, then the
+        scores of ``id_test`` against ``ood_test``, the embedding scorers fitted on
+        ``id_train_eval``. Returns the class's rows."""
+        from .bridge import init_params
+        from .eval.evaluator import Evaluator
+        from .models.crossmodal import FusionClassifier, IMUClassifier
+        from .train import checkpoint as ckpt
+        from .train.factory import build_classification_task, build_fusion_task, task_generators
+        from .train.loop import ClassificationTrainer
+
+        cfg, c = loo_config, held_out_class
+        names = _score_names(cfg)
+        init_gen, fit_gen = task_generators(self.generator, self.device)
+        if model_kind == "imu":
+            tree = init_params(cfg, init_gen, IMUClassifier)
+            task = build_classification_task(cfg, "finetune", steps_per_epoch, tree, encoder_params=encoder_params,
+                                             device=self.device)
+        elif model_kind == "fusion":
+            tree = init_params(cfg, init_gen, FusionClassifier)
+            task = build_fusion_task(cfg, steps_per_epoch, tree, encoder_params=encoder_params, device=self.device)
+        else:
+            raise ValueError(f"Unknown model_kind: {model_kind}")
+        save_dir = Path(cfg.paths.checkpoints_dir) / f"ood_loo_{c}"
+        reusable = None
+        if reuse_checkpoints and (save_dir / "training_history.json").exists():
+            reusable = next((save_dir / n for n in ("last", "best_model") if ckpt.checkpoint_exists(save_dir / n)), None)
+        if reusable is not None:
+            if verbose:
+                print(f"[OOD] class {c}: reusing completed checkpoint {reusable}")
+            task.state, _ = ckpt.restore_checkpoint(reusable, task.state)
+        else:
+            trainer = ClassificationTrainer(cfg, task.state, task.train_step, task.eval_step, save_dir, fit_gen, "finetune")
+            trainer.verbose = False
+            task.state = trainer.fit(train, val)
+
+        ev = Evaluator(task, cfg)
+        id_out, ood_out, tr_out = ev.evaluate(id_test), ev.evaluate(ood_test), ev.evaluate(id_train_eval)
+        C = cfg.model.num_classes
+        fitted = {
+            "mahalanobis": MahalanobisScorer.fit(tr_out["embeddings"], tr_out["labels"], C) if "mahalanobis" in names else None,
+            "knn": KNNScorer.fit(tr_out["embeddings"], k=cfg.ood.knn_k) if "knn" in names else None,
+            "rmd": RelativeMahalanobisScorer.fit(tr_out["embeddings"], tr_out["labels"], C) if "rmd" in names else None,
+        }
+        fitted = {k: (v.to(self.device) if v is not None else None) for k, v in fitted.items()}
+
+        def scores(out):
+            return compute_ood_scores(out["logits"], out["embeddings"], energy_temperature=cfg.ood.energy_temperature,
+                                      scores=names, **fitted)
+
+        id_scores, ood_scores = scores(id_out), scores(ood_out)
+        rows = []
+        for name in id_scores:
+            s = np.concatenate([id_scores[name], ood_scores[name]])
+            is_ood = np.concatenate([np.zeros(len(id_scores[name])), np.ones(len(ood_scores[name]))])
+            rows.append({
+                "held_out_class": c,
+                "score": name,
+                "auroc": auroc(s, is_ood),
+                "fpr_at_95tpr": fpr_at_tpr(s, is_ood),
+                "id_accuracy": id_out["metrics"]["accuracy"],
+                "n_id": int(len(id_scores[name])),
+                "n_ood": int(len(ood_scores[name])),
+            })
+        if verbose:
+            print(f"[OOD] held-out class {c}: AUROC {({r['score']: round(r['auroc'], 3) for r in rows})}", flush=True)
+        return rows
+
+    @staticmethod
+    def aggregate(results_df):
+        """Mean and std of AUROC, FPR at 95% TPR and ID accuracy per score across the
+        held-out classes."""
+        return results_df.groupby("score")[["auroc", "fpr_at_95tpr", "id_accuracy"]].agg(["mean", "std"])

@@ -164,7 +164,7 @@ def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple]) -> 
             labels = batch.get("label")
             if labels is None:
                 labels = torch.zeros(B, dtype=torch.long, device=logits.device)
-            loss_per = L.cross_entropy_loss(logits, labels, reduction="none")
+            loss_per = L.cross_entropy_rows(logits, labels)
             valid = torch.arange(B, device=logits.device) < torch.as_tensor(batch.get("n_valid", B), device=logits.device)
             return {
                 "logits": logits,

@@ -101,7 +101,16 @@ Phases; any failed check raises and the exit code is non-zero:
     weights), baseline and resident engines at 8 (one featurizer, 4 int8 GEMM and 16
     int8 conv launches a graph), each likewise against its plain-kernel program, and the
     resident-vs-baseline logit drift; each replay bit for bit with the eager program,
-    with its time, inf/s and peak memory.
+    with its time, inf/s and peak memory;
+20. the evaluate stage at full width: weights I/O, zero-shot, leave-one-out with the
+    fusion classifier, the parallel few-shot harness, ``Evaluator`` and calibration, on
+    their cores and then over manifests written here;
+21. the pipeline from raw files: a synthetic dataset (4 classes, 224² mp4v video) through
+    the port's command line in process (``cli.main``, ``--mode all`` then ``--mode serve``)
+    at ``pretrain_config()``'s full width, every artifact checked and each stage's kernel
+    launches held to what it runs, each stage's wall time and the served windows/s; the
+    preprocessor's window-scope route on the card against the CPU and its device route
+    against the host route.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -338,6 +347,30 @@ ZEROSHOT_CLIPS_PER_CLASS, ZEROSHOT_BATCH, ZEROSHOT_COSINE_MIN = 2, 16, COSINE_MI
 LOO_CLASSES, LOO_BATCH, LOO_STEPS, LOO_TIMED_STEPS, LOO_PROFILED_STEPS = (0, 31), 16, 2, 3, 3
 FEWSHOT_RUNS, FEWSHOT_K, FEWSHOT_EPOCHS, FEWSHOT_ROW_ATOL = 5, 10, 2, 5.0
 FEWSHOT_WINDOWS = {"train": 12, "val": 4, "test": 4}
+# phase 21, the pipeline from raw files: a synthetic dataset (4 classes, 4 samples a class
+# in each split, 224² video at 25 fps, seed 0) through `python -m tpuhar_torch`'s main in
+# process, `--mode all` then `--mode serve` (IMU-only, batch 64), with pretrain_config()
+# (videomae_base at full width and depth, flash on, batch 16) cut to 4 classes, one epoch
+# of pretraining and of each classifier, the few-shot grid at k = 2 with 2 runs and the
+# leave-one-out of class 0. The device route of the preprocessor on the card against the
+# host route (numpy and scipy) at the JAX package's own tolerance between the two
+# (tests/test_manifest_preprocess.py:122); the window-scope route on the card against the
+# same on the CPU at the featurizer's
+PIPELINE_CLASSES, PIPELINE_SAMPLES, PIPELINE_VIDEO, PIPELINE_SERVE_BATCH = 4, 4, (224, 224), 64
+PREPROCESS_DEVICE_ATOL = 2e-4
+PIPELINE_STAGES = ("run_preprocessing", "run_pretraining", "run_zeroshot", "run_classification", "run_evaluation",
+                   "run_ood", "generate_final_report", "run_serving")
+PIPELINE_ARTIFACTS = (
+    "results/classification_comparison.csv", "results/test_logits_linear_probe.npy",
+    "results/test_logits_finetune.npy", "results/fewshot_results_raw.csv", "results/fewshot_results_agg.csv",
+    "results/fewshot_table3.csv", "results/zeroshot_results.json", "results/ood_results.csv",
+    "results/ood_results_agg.csv", "results/final_report.json", "results/table3_fewshot.csv",
+    "results/serving_predictions_test.csv", "checkpoints/cross_modal/best_model.pt",
+    "checkpoints/final_model_params.pt", "checkpoints/classifier_finetune/best_model.pt",
+    "preprocessed/preprocessing_stats.json", "preprocessed/data_fingerprint.json",
+)
+PIPELINE_PLOTS = ("results/pretraining_curves.png", "results/confusion_linear_probe.png",
+                  "results/confusion_finetune.png")
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -2127,6 +2160,162 @@ def run_evaluate_stage(counters: dict, kernels: dict, smi: str, params_vit, para
     shutil.rmtree(save_root, ignore_errors=True)
 
 
+def pipeline_configs(cfg, root: Path, **data):
+    """``cfg`` writing under ``root`` with the given ``data`` fields, frames not cached."""
+    cfg = copy.deepcopy(cfg)
+    cfg.paths = PathConfig(base_input=cfg.paths.base_input, base_output=root)
+    cfg.data.extract_frames = False
+    for key, value in data.items():
+        setattr(cfg.data, key, value)
+    return cfg
+
+
+def run_pipeline_stage(counters: dict, kernels: dict, smi: str) -> None:
+    """Phase 21: the pipeline from raw files through the port's command line (``cli.main``
+    in process): ``--mode all`` (preprocess → pretrain → zeroshot → classify → evaluate →
+    ood → report) and ``--mode serve`` on the card. Every artifact is checked, the PNGs
+    left unwritten where matplotlib is missing are listed, and each stage's kernel
+    launches are held to what it runs: the flash forward, dK/dV and dQ 12 times a
+    pretraining step (the forward also 12 times a validation batch), the flash forward 12
+    times a zero-shot prototype batch, the featurizer once in serving's eager warm-up and
+    once in its graph (replayed once a batch), and nothing else. Then the preprocessor in
+    situ: its window-scope route on the card (the fused featurizer) against the same on
+    the CPU, and the CLI's device route against the host route."""
+    import pandas as pd
+
+    from tpuhar_torch import cli
+    from tpuhar_torch.data.preprocess import Preprocessor
+    from tpuhar_torch.data.synthetic import generate_synthetic_dataset
+
+    root = Path(__file__).resolve().parent / "tpuhar_torch" / "_build" / "chip_smoke_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root / "data", num_classes=PIPELINE_CLASSES, samples_per_class=PIPELINE_SAMPLES,
+                               video_size=PIPELINE_VIDEO, fps=25.0, seed=0)
+    print(f"[pipeline] synthetic dataset: {PIPELINE_CLASSES} classes x {PIPELINE_SAMPLES} samples x 3 splits, "
+          f"{PIPELINE_VIDEO[0]}x{PIPELINE_VIDEO[1]} mp4v video at 25 fps, in {time.perf_counter() - t0:.1f} s")
+    cfg = pretrain_config()
+    cfg.paths = PathConfig(base_input=root / "data", base_output=root / "out")
+    cfg.model.num_classes = PIPELINE_CLASSES
+    cfg.training.pretrain_epochs = cfg.training.train_epochs = 1
+    cfg.eval.few_shot_samples, cfg.eval.few_shot_runs = [2], 2
+    cfg.ood.leave_out_classes = [0]
+    config_path = root / "config.json"
+    cfg.save(config_path)
+
+    stages = {}  # stage → (launches, seconds)
+    originals = {name: getattr(cli.Pipeline, name) for name in PIPELINE_STAGES}
+
+    def counted(name, fn):
+        def run(self, *args, **kwargs):
+            before = {k: c.launches for k, c in counters.items()}
+            t = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stages[name] = ({k: c.launches - before[k] for k, c in counters.items()}, time.perf_counter() - t)
+        return run
+
+    for name, fn in originals.items():
+        setattr(cli.Pipeline, name, counted(name, fn))
+    try:
+        for path, mode in (("pipeline_all", ["--mode", "all"]),
+                           ("pipeline_serve", ["--mode", "serve", "--serve-batch", str(PIPELINE_SERVE_BATCH)])):
+            pipe, counts, seconds = drive_counted(
+                counters, kernels, path, lambda: cli.main(["--config", str(config_path), "--device", "cuda", *mode]), {})
+            print(f"[pipeline] python -m tpuhar_torch {' '.join(mode)} --device cuda: {seconds:.1f} s; launches {counts}")
+    finally:
+        for name, fn in originals.items():
+            setattr(cli.Pipeline, name, fn)
+
+    out = root / "out"
+    missing = [a for a in PIPELINE_ARTIFACTS if not (out / a).exists()]
+    if missing:
+        raise AssertionError(f"pipeline: artifacts not written: {missing}")
+    try:
+        import matplotlib  # noqa: F401
+        plots_expected = True
+    except ImportError:
+        plots_expected = False
+    unwritten = [p for p in PIPELINE_PLOTS if not (out / p).exists()]
+    print(f"[pipeline] every artifact written; PNGs not written (matplotlib "
+          f"{'imports' if plots_expected else 'is not installed'}): {unwritten}")
+    if plots_expected and unwritten:
+        raise AssertionError(f"pipeline: matplotlib imports but {unwritten} were not written")
+
+    meta = {s: pd.read_csv(out / "preprocessed" / f"{s}_metadata.csv") for s in ("train", "val", "test")}
+    bs, depth = cfg.training.pretrain_batch_size, VIT_CONFIGS[cfg.model.video_backbone][0]
+    steps = len(meta["train"]) // bs * cfg.training.pretrain_epochs
+    val_batches, proto_batches = -(-len(meta["val"]) // bs), -(-len(meta["train"]) // bs)
+    serve = pipe.serving_stats
+    graph = serve["graph_launches"]
+    zero = dict.fromkeys(counters, 0)
+    expected = {name: zero for name in PIPELINE_STAGES}
+    expected["run_pretraining"] = {**zero, "flash_lean": depth * (steps + val_batches),
+                                   "flash_bwd_dkv": depth * steps, "flash_bwd_dq": depth * steps}
+    expected["run_zeroshot"] = {**zero, "flash_lean": depth * proto_batches}
+    expected["run_serving"] = {**zero, "fused_window": 1 + graph.get("fused_window", 0)}
+    if steps < 1 or graph.get("fused_window") != 1 or serve["batches"] != -(-len(meta["test"]) // PIPELINE_SERVE_BATCH):
+        raise AssertionError(f"pipeline: {steps} pretraining steps, serving {serve}")
+    for name in PIPELINE_STAGES:
+        counts, seconds = stages[name]
+        launched = {k: n for k, n in counts.items() if n}
+        print(f"[pipeline] stage {name}: {seconds:.2f} s, launches {launched or 'none'} ({smi})")
+        if counts != expected[name]:
+            raise AssertionError(f"pipeline {name}: launches {counts}, expected {expected[name]}")
+    print(f"[pipeline] {len(meta['train'])}/{len(meta['val'])}/{len(meta['test'])} train/val/test windows; pretraining "
+          f"{steps} steps of {bs} and {val_batches} validation batch(es), {proto_batches} zero-shot prototype batches; "
+          f"serving {serve['windows']} windows in {serve['batches']} batch(es) of {PIPELINE_SERVE_BATCH} replayed, "
+          f"{serve['windows'] / serve['seconds']:.1f} windows/s ({serve['seconds']:.3f} s; {smi})")
+
+    report = json.loads((out / "results" / "final_report.json").read_text())
+    served = pd.read_csv(out / "results" / "serving_predictions_test.csv")
+    logits = np.load(out / "results" / "test_logits_finetune.npy")
+    zeroshot = json.loads((out / "results" / "zeroshot_results.json").read_text())["video_prototype_zeroshot"]
+    if (not {"classification", "few_shot", "ood", "pretraining_history"} <= set(report)
+            or len(served) != len(meta["test"]) or not served["pred"].between(0, PIPELINE_CLASSES - 1).all()
+            or not np.isfinite(served[["msp", "energy"]].to_numpy()).all()
+            or logits.shape != (len(meta["test"]), PIPELINE_CLASSES) or not np.isfinite(logits).all()
+            or not np.isfinite(report["pretraining_history"]["train"]).all()):
+        raise AssertionError(f"pipeline: report keys {sorted(report)}, {len(served)} served, logits {logits.shape}")
+    print(f"[pipeline] final_report.json: pretraining loss {report['pretraining_history']}, finetune balanced "
+          f"accuracy {report['classification']['finetune']['balanced_accuracy']:.2f}, zero-shot "
+          f"{zeroshot['balanced_accuracy']:.2f}; serving accuracy "
+          f"{float((served['pred'] == served['label']).mean()) * 100:.2f}%")
+
+    # the window-scope route: the fused featurizer on the card against its plain version on the CPU
+    n_windows = len(meta["test"])
+    on_card, on_cpu = (pipeline_configs(cfg, root / name, zscore_scope="window") for name in ("window_cuda", "window_cpu"))
+    _, counts, seconds = drive_counted(
+        counters, kernels, "pipeline_preprocess_window",
+        lambda: Preprocessor(on_card, device="cuda").preprocess_split("test"),
+        {**zero, "fused_window": -(-n_windows // 1024)})
+    Preprocessor(on_cpu, device="cpu").preprocess_split("test")
+    got, want = (np.load(Path(c.paths.preprocessed_dir) / "test_windows.npy") for c in (on_card, on_cpu))
+    err = float(np.abs(got - want).max())
+    print(f"[pipeline] Preprocessor(zscore_scope='window') on the card vs the CPU: {n_windows} windows in "
+          f"{seconds:.2f} s, max abs diff {err:.3e} (limit {FEATURIZE_ATOL}); launches {counts}")
+    if got.shape != want.shape or not err <= FEATURIZE_ATOL:
+        raise AssertionError(f"window-scope preprocessor: {got.shape} vs {want.shape}, max abs diff {err}")
+    # the CLI's device route on the card against the host route
+    host = pipeline_configs(cfg, root / "host", featurize_backend="host")
+    worst = 0.0
+    for split in ("train", "val", "test"):
+        Preprocessor(host, device="cpu").preprocess_split(split)
+        got, want = (np.load(Path(c.paths.preprocessed_dir) / f"{split}_windows.npy") for c in (cfg, host))
+        if got.shape != want.shape:
+            raise AssertionError(f"device vs host route, {split}: {got.shape} vs {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"[pipeline] featurize_backend='device' on the card vs 'host': max abs diff {worst:.3e} "
+          f"(limit {PREPROCESS_DEVICE_ATOL})")
+    if not worst <= PREPROCESS_DEVICE_ATOL:
+        raise AssertionError(f"device vs host route: max abs diff {worst}")
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2424,6 +2613,7 @@ def main() -> None:
     run_towers_stage(counters, kernels, smi, params_pt)
     run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
     run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
+    run_pipeline_stage(counters, kernels, smi)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

@@ -85,7 +85,7 @@ def _tasks(prepared):
     return build_classification_task(port_config(jcfg), "finetune", 1, variables, device="cpu"), jtask
 
 
-def test_evaluator_matches_jax(prepared):
+def test_evaluator_matches_jax(prepared, tmp_path):
     from tpuhar.data.loader import BatchLoader as JLoader
     from tpuhar.eval.evaluator import Evaluator as JEvaluator
 
@@ -104,8 +104,13 @@ def test_evaluator_matches_jax(prepared):
     assert mine["metrics"] == theirs["metrics"]
     assert mine["calibration"] == pytest.approx(theirs["calibration"], rel=1e-5, abs=1e-6)
     assert Evaluator(task, cfg).compute_metrics(mine["labels"], mine["predictions"]) == mine["metrics"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Evaluator(task, cfg).plot_confusion_matrix(mine["labels"], mine["predictions"])
+    # the plot (report.plots, matplotlib) is written, its counts the JAX package's
+    from tpuhar.report.plots import plot_confusion_matrix as jax_plot
+
+    png = tmp_path / "confusion.png"
+    cm = Evaluator(task, cfg).plot_confusion_matrix(mine["labels"], mine["predictions"], save_path=png)
+    assert png.stat().st_size > 0
+    np.testing.assert_array_equal(cm, jax_plot(theirs["labels"], theirs["predictions"], jcfg.model.num_classes))
 
 
 def test_classification_report_matches_jax(prepared):

@@ -36,7 +36,9 @@ for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.tr
              "tpuhar_torch.models.convert", "tpuhar_torch.data.manifest", "tpuhar_torch.data.loader",
              "tpuhar_torch.data.frames", "tpuhar_torch.eval.calibration", "tpuhar_torch.eval.evaluator",
              "tpuhar_torch.eval.fewshot_parallel", "tpuhar_torch.eval.zeroshot", "tpuhar_torch.eval.ablation",
-             "tpuhar_torch.ood"):
+             "tpuhar_torch.ood", "tpuhar_torch.data.preprocess", "tpuhar_torch.data.synthetic",
+             "tpuhar_torch.data.raw_stream", "tpuhar_torch.report.tables", "tpuhar_torch.report.plots",
+             "tpuhar_torch.utils", "tpuhar_torch.cli", "tpuhar_torch.__main__"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -53,8 +55,9 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # every module of the package was imported, the training ones (losses, train/*,
-    # ops/augment, eval/metrics, utils/profiling) and the evaluate stage's included
-    assert int(proc.stdout.split()[-1]) >= 40
+    # ops/augment, eval/metrics, utils/profiling), the evaluate stage's and the
+    # pipeline's (data preparation, reports, the command line) included
+    assert int(proc.stdout.split()[-1]) >= 48
 
 
 def _spy(monkeypatch, module, name: str) -> list:

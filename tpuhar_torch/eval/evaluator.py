@@ -93,7 +93,10 @@ class Evaluator:
         return pd.DataFrame(report).transpose()
 
     def plot_confusion_matrix(self, y_true, y_pred, class_names=None, save_path=None):
-        raise NotImplementedError("the report plots (report/plots.py) are not ported: ROADMAP queue 1 item 8")
+        """Draw the confusion matrix (``report.plots``, matplotlib); returns its counts."""
+        from ..report.plots import plot_confusion_matrix
+
+        return plot_confusion_matrix(y_true, y_pred, self.config.model.num_classes, class_names, save_path)
 
 
 def train_classifier(config, mode: str, steps_per_epoch: int, train_loader, val_loader, save_dir, *,

@@ -36,6 +36,7 @@ from .ops.conv3x3 import conv3x3_bn_act, conv3x3_i8
 from .ops.flash_lean import flash_lean
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
+from .utils import resolve_device
 from .utils.profiling import StepProfiler
 
 PATCH = 16  # the tpu_cnn stem's patch: the patch-major wire is (..., H/16, W/16, 768)
@@ -53,22 +54,6 @@ KERNEL_COUNTERS = {
 def kernel_launches() -> Dict[str, int]:
     """Each serving kernel's launch count so far."""
     return {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
-
-
-def serving_device(device) -> torch.device:
-    """``device`` as the engine serves on it: ``"cuda"`` (the current card unless an
-    index is given) raises without a CUDA device; ``"cpu"`` runs the plain paths."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "InferenceEngine on 'cuda' needs a CUDA device and torch.cuda.is_available() is "
-                "False; pass device='cpu' to serve on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
-    if dev.type != "cpu":
-        raise ValueError(f"the engine serves on 'cuda' or 'cpu', not {device!r}")
-    return dev
 
 
 @dataclass
@@ -147,7 +132,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "the centered int8 wire is not ported (ROADMAP.md, 'Not ported'); serve int8_wire='u8'"
             )
-        self.device = serving_device(device)
+        self.device = resolve_device(device, "InferenceEngine")
         # the constructor's inputs, for fit_embedding_scorers' rebuild
         self._ctor = dict(
             config=config, variables=variables, imu_only=imu_only, batch_sizes=batch_sizes,
@@ -230,7 +215,7 @@ class InferenceEngine:
         from .train import checkpoint as ckpt
         from .train.factory import build_classification_task, build_fusion_task
 
-        serving_device(device)  # refuse a missing card before building anything
+        resolve_device(device, "InferenceEngine")  # refuse a missing card before building anything
         model_cls = IMUClassifier if imu_only else FusionClassifier
         params = init_params(config, torch.Generator().manual_seed(0), model_cls)
         if imu_only:

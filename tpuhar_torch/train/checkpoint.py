@@ -2,7 +2,8 @@
 ``<name>.pt`` (``torch.save`` of the model's parameters and buffers, the optimizer's
 moments and count, which is also the schedule's position, and the step) and
 ``<name>.json`` (epoch, history and best metric, human-readable). The trainer keeps
-``last``, ``best_model`` and ``checkpoint_epoch_N`` pairs.
+``last``, ``best_model`` and ``checkpoint_epoch_N`` pairs; ``save_params`` writes the
+pipeline's bare ``final_model_params.pt``.
 """
 from __future__ import annotations
 
@@ -44,3 +45,11 @@ def restore_checkpoint(path, state, *, model_only: bool = False) -> Tuple[Any, D
 
 def checkpoint_exists(path) -> bool:
     return Path(path).with_suffix(".pt").exists()
+
+
+def save_params(path, model) -> None:
+    """The model's parameters alone, ``{name: tensor}`` in ``<path>.pt`` (the JAX
+    package's ``final_model_params.msgpack``)."""
+    path = Path(path).with_suffix(".pt")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({name: p.detach() for name, p in model.named_parameters()}, path)

@@ -1,15 +1,56 @@
-"""Rolling per-step wall-time statistics and the structured metric stream
-(``tpuhar/utils/profiling.py: StepProfiler, MetricsLogger``), copied so that the port
-imports nothing of the JAX package."""
+"""Trace scopes, rolling per-step wall-time statistics and the structured metric stream
+(``tpuhar/utils/profiling.py``), copied so that the port imports nothing of the JAX
+package.
+
+- ``trace(logdir)``: a ``torch.profiler`` trace of the host and, with a card, the
+  device, written as a Chrome trace ``logdir/trace.json`` (the JAX package writes
+  ``jax.profiler``'s TensorBoard trace).
+- ``annotate(name)``: a ``record_function`` scope, so host phases show in the trace.
+- ``StepProfiler``: rolling per-step wall time with percentiles.
+- ``MetricsLogger``: an append-only JSONL and CSV metric stream.
+"""
 from __future__ import annotations
 
 import csv
 import json
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+TRACE_FILENAME = "trace.json"
+
+
+@contextmanager
+def trace(logdir, enabled: bool = True):
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA where a card is
+    present) and write its Chrome trace to ``logdir/trace.json``, also when the block
+    raises. Yields the profiler (``key_averages()`` sums by kernel), or None when
+    ``enabled`` is False."""
+    if not enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(Path(logdir) / TRACE_FILENAME))
+
+
+@contextmanager
+def annotate(name: str):
+    """A named host-side scope visible in profiler traces."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class StepProfiler:

@@ -110,7 +110,19 @@ Phases; any failed check raises and the exit code is non-zero:
     at ``pretrain_config()``'s full width, every artifact checked and each stage's kernel
     launches held to what it runs, each stage's wall time and the served windows/s; the
     preprocessor's window-scope route on the card against the CPU and its device route
-    against the host route.
+    against the host route;
+22. data parallel over a mesh and the loader backends, on phase 21's dataset and frame
+    banks: the card's machine probed (``jpeglib.h``, the native decoder's build, whether
+    grain is installed, the CPU count); a 16-frame 224² clip's decode timed with OpenCV,
+    the native decoder and the process pool; three loaders (the default ``BatchLoader``,
+    ``BatchLoader(decode_processes=2)`` reading with ``backend="native"``, and
+    ``GrainBatchLoader(workers=2)``) giving equal batches; then in process an NCCL group
+    of one and ``create_mesh()``: two ``videomae_base`` pretraining steps at batch 16
+    through ``CrossModalTrainer(mesh=)`` from the pool loader's batches (24 flash
+    forwards, 24 of each backward kernel), the trained parameters bit for bit those of
+    the same two steps without a mesh from the default loader's; the flagship bf16
+    ``InferenceEngine(mesh=)`` at batch 8 (one featurizer and 4 fused convs a graph), its
+    ``predict`` and ``predict_stream`` bit for bit the engine's without a mesh.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -119,8 +131,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -371,6 +386,10 @@ PIPELINE_ARTIFACTS = (
 )
 PIPELINE_PLOTS = ("results/pretraining_curves.png", "results/confusion_linear_probe.png",
                   "results/confusion_finetune.png")
+# phase 22, the mesh and the loader backends: the pretraining steps (phase 21's train
+# split of 48 windows gives three batches of 16), the clips a decoder is timed on, the
+# engine's size and the requests it answers
+MESH_STEPS, MESH_DECODE_CLIPS, MESH_ENGINE_BATCH, MESH_REQUESTS = 2, 16, 8, (8, 5)
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -2170,7 +2189,7 @@ def pipeline_configs(cfg, root: Path, **data):
     return cfg
 
 
-def run_pipeline_stage(counters: dict, kernels: dict, smi: str) -> None:
+def run_pipeline_stage(counters: dict, kernels: dict, smi: str):
     """Phase 21: the pipeline from raw files through the port's command line (``cli.main``
     in process): ``--mode all`` (preprocess → pretrain → zeroshot → classify → evaluate →
     ood → report) and ``--mode serve`` on the card. Every artifact is checked, the PNGs
@@ -2313,7 +2332,160 @@ def run_pipeline_stage(counters: dict, kernels: dict, smi: str) -> None:
         raise AssertionError(f"device vs host route: max abs diff {worst}")
     del pipe
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
+    return cfg  # phase 22 reads its dataset and frame banks; main removes them after
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> None:
+    """Phase 22: data parallel over a mesh and the loader backends, on the dataset and
+    frame banks phase 21 wrote under ``cfg.paths`` (``pretrain_config()``'s 224², 16
+    frames). The probes; the decode times (host clock); three loaders, equal batch for
+    batch; then, in an NCCL group of one process, two pretraining steps through
+    ``CrossModalTrainer(mesh=)`` bit for bit against the same steps without a mesh, and
+    the flagship engine over the mesh bit for bit against the engine without one. At a
+    world of one every all-reduce and all-gather is an identity: the comparisons hold
+    the mesh paths to the one-device paths exactly."""
+    import pandas as pd
+    import torch.distributed as dist
+
+    from tpuhar_torch import native
+    from tpuhar_torch.data.frames import FrameBankReader
+    from tpuhar_torch.data.grain_loader import GrainBatchLoader
+    from tpuhar_torch.data.loader import BatchLoader, to_device
+    from tpuhar_torch.data.parallel_decode import ProcessDecodePool
+    from tpuhar_torch.parallel.mesh import create_mesh
+
+    t_phase = time.perf_counter()
+    jpeg = subprocess.run(["cc", "-E", "-"], input="#include <jpeglib.h>\n", capture_output=True, text=True).returncode == 0
+    built = native.decode_available()
+    print(f"[mesh] host: os.cpu_count() = {os.cpu_count()}; jpeglib.h {'found' if jpeg else 'missing'} (cc -E); the "
+          f"native decoder {'built' if built else 'did not build'}; grain "
+          f"{'installed' if importlib.util.find_spec('grain') else 'not installed'} (never imported: it imports JAX)")
+    pre = Path(cfg.paths.preprocessed_dir)
+    bank = (str(pre / "train_frames.bin"), str(pre / "train_frame_index.npy"))
+    reader = FrameBankReader(*bank)
+    hw = tuple(cfg.data.video_resize)
+    backend = "native" if built else "cv2"
+    if not built:
+        try:
+            reader.read_clip(0, hw, backend="native")
+        except RuntimeError as e:
+            print(f"[mesh] backend='native' raises without the decoder, as it must: {e}")
+        else:
+            raise AssertionError("backend='native' decoded a clip without the native decoder")
+
+    # a 16-frame 224² clip's decode: OpenCV, the native decoder, the process pool
+    rows = [r for r in range(len(reader)) if reader.has_frames(r)][:MESH_DECODE_CLIPS]
+
+    def per_clip(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) / len(rows) * 1e3
+
+    clips = {"cv2": [reader.read_clip(r, hw, backend="cv2") for r in rows]}
+    times = {"cv2": per_clip(lambda: [reader.read_clip(r, hw, backend="cv2") for r in rows])}
+    if built:
+        clips["native"] = [reader.read_clip(r, hw, backend="native") for r in rows]
+        times["native"] = per_clip(lambda: [reader.read_clip(r, hw, backend="native") for r in rows])
+    pool = ProcessDecodePool(2)
+    try:
+        specs = [{"kind": "bank", "i": i, "bin_path": bank[0], "idx_path": bank[1], "row": r, "resize_hw": hw,
+                  "backend": backend} for i, r in enumerate(rows)]
+        out = np.zeros((len(rows), cfg.data.video_frames_per_window, *hw, 3), np.uint8)
+        t0 = time.perf_counter()
+        pool.decode_batch(specs, out)  # the workers start: spawn, then import torch
+        start_s = time.perf_counter() - t0
+        times["pool of 2"] = per_clip(lambda: pool.decode_batch(specs, out))
+    finally:
+        pool.close()
+    reader.close()
+    if not np.array_equal(out, np.stack(clips[backend])):
+        raise AssertionError("the pool's clips differ from the reader's")
+    drift = max(int(np.abs(a.astype(np.int16) - b).max()) for a, b in zip(clips["cv2"], clips[backend]))
+    print(f"[mesh] decode of a {cfg.data.video_frames_per_window}-frame {hw[0]}x{hw[1]} clip, ms a clip over {len(rows)} "
+          f"clips: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" (the pool's first batch, workers starting: {start_s:.2f} s)"
+          + (f"; native vs cv2 max |diff| {drift}" if built else "") + " (host clock)")
+
+    # three loaders over the train split, equal batch for batch
+    df = pd.read_csv(pre / "train_metadata.csv")
+    kw = dict(mode="cross_modal", batch_size=cfg.training.pretrain_batch_size)
+    epochs, seconds = {}, {}
+    pooled_loader = BatchLoader(df, cfg, decode_processes=2, frame_backend=backend, prefetch=0, **kw)
+    for name, loader in (("default", BatchLoader(df, cfg, prefetch=0, **kw)), ("pool", pooled_loader),
+                         ("grain", GrainBatchLoader(df, cfg, workers=2, **kw))):
+        t0 = time.perf_counter()
+        epochs[name] = list(loader)
+        seconds[name] = time.perf_counter() - t0
+    pooled_loader.close()
+    for name in ("pool", "grain"):
+        if len(epochs[name]) != len(epochs["default"]) or len(epochs["default"]) < MESH_STEPS:
+            raise AssertionError(f"loader {name}: {len(epochs[name])} batches, default {len(epochs['default'])}")
+        for i, (got, want) in enumerate(zip(epochs[name], epochs["default"])):
+            if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"loader {name}: batch {i} differs from the default loader's")
+    print(f"[mesh] {len(df)} windows: the default, pool (decode_processes=2, backend={backend!r}) and grain-role "
+          f"(workers=2) loaders give equal batches ({len(epochs['default'])} of {kw['batch_size']}); an epoch "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()) + " (host clock, the workers' start included)")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = create_mesh()
+        print(f"[mesh] NCCL group of 1, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        cfg_pt = pretrain_config()
+        cfg_pt.paths = copy.deepcopy(cfg.paths)
+        params = init_params(cfg_pt, torch.Generator().manual_seed(0), CrossModalModel)
+        plain = build_pretrain_task(cfg_pt, device="cuda", params=params, steps_per_epoch=MESH_STEPS)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for batch in epochs["default"][:MESH_STEPS]:
+            plain.train_step(plain.state, to_device(batch, "cuda"), gen)
+        want = {n: p.detach().clone() for n, p in plain.model.named_parameters()}
+        del plain
+        torch.cuda.empty_cache()
+        task = build_pretrain_task(cfg_pt, device="cuda", params=params, steps_per_epoch=MESH_STEPS, mesh=mesh)
+        trainer = CrossModalTrainer(cfg_pt, task.state, task.train_step, task.eval_step,
+                                    Path(cfg.paths.checkpoints_dir) / "mesh_pretrain",
+                                    generator=torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+        batches = [to_device(b, "cuda") for b in epochs["pool"][:MESH_STEPS]]
+        depth = VIT_CONFIGS[cfg_pt.model.video_backbone][0]
+        expected = {**dict.fromkeys(counters, 0), "flash_lean": depth * MESH_STEPS,
+                    "flash_bwd_dkv": depth * MESH_STEPS, "flash_bwd_dq": depth * MESH_STEPS}
+        loss, counts, step_s = drive_counted(counters, kernels, "mesh_pretrain", lambda: trainer.train_epoch(batches),
+                                             expected)
+        differ = [n for n, p in task.model.named_parameters() if not torch.equal(p, want[n])]
+        if differ or not np.isfinite(loss):
+            raise AssertionError(f"mesh pretraining: loss {loss}, {len(differ)} parameters differ from the steps "
+                                 f"without a mesh: {differ[:5]}")
+        print(f"[mesh_pretrain] {MESH_STEPS} steps of {kw['batch_size']} through CrossModalTrainer(mesh=) from the pool "
+              f"loader in {step_s:.2f} s (the first included), mean loss {loss:.6f}; all {len(want)} parameters equal "
+              f"the steps without a mesh bit for bit; launches {counts} ({smi})")
+        del task, trainer, want, batches
+        torch.cuda.empty_cache()
+
+        cfg_f = flagship_config()
+        params_f = init_params(cfg_f, torch.Generator().manual_seed(0))
+        engine = InferenceEngine(cfg_f, params_f, batch_sizes=[MESH_ENGINE_BATCH], mesh=mesh, device="cuda")
+        requests = [engine_request(400 + i, n, cfg_f) for i, n in enumerate(MESH_REQUESTS)]
+        check_graph_replay("engine_bf16_mesh", engine, requests, counters, kernels,
+                           {"fused_window": 1, "conv3x3_bn_act": 4})
+        single = InferenceEngine(cfg_f, params_f, batch_sizes=[MESH_ENGINE_BATCH], device="cuda")
+        for args in requests:
+            bitwise_equal(engine.predict(*args), single.predict(*args), f"engine_bf16_mesh at {args[0].shape[0]}")
+        for args, got in zip(requests, engine.predict_stream(requests)):
+            bitwise_equal(got, single.predict(*args), "engine_bf16_mesh predict_stream")
+        print(f"[engine_bf16_mesh] predict on {list(MESH_REQUESTS)} rows and predict_stream equal the engine "
+              f"without a mesh bit for bit")
+        del engine, single
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] phase 22: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2613,7 +2785,11 @@ def main() -> None:
     run_towers_stage(counters, kernels, smi, params_pt)
     run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
     run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
-    run_pipeline_stage(counters, kernels, smi)
+    cfg_pipeline = run_pipeline_stage(counters, kernels, smi)
+    try:
+        run_mesh_stage(counters, kernels, smi, cfg_pipeline)
+    finally:
+        shutil.rmtree(Path(cfg_pipeline.paths.base_output).parent, ignore_errors=True)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

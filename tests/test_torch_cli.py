@@ -194,4 +194,7 @@ def test_cli_overrides_and_config_roundtrip(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="Pipeline on 'cuda' needs a CUDA device"):
         main(["--mode", "report", "--config", str(tmp_path / "port.json")])  # --device cuda is the default
     assert build_parser().parse_args([]).device == "cuda"
-    assert "8e" in build_parser().format_help()
+    assert "torchrun" in build_parser().format_help() and "8e" not in build_parser().format_help()  # the mesh is ported
+    with pytest.raises(NotImplementedError, match="item 8f"):  # tensor parallelism is not
+        main(["--mode", "report", "--config", str(tmp_path / "port.json"), "--set", "training.model_axis_size=2",
+              "--device", "cpu"])

@@ -6,8 +6,10 @@ once for this module by the JAX package's ``Preprocessor`` (window banks, frame 
 manifests). The manifest functions, ``FewShotSampler``'s rows and the loaders' batches
 are held to the JAX package's bit for bit: the loaders in all three modes, from the
 banks and from one file per window and one decode per clip, shuffled per epoch, with
-``drop_last`` and with the padded last batch's ``n_valid``. The JAX frame bank reader
-is read through its OpenCV path (``backend="cv2"``), the one the port has.
+``drop_last`` and with the padded last batch's ``n_valid``. The frame bank readers are
+compared through OpenCV (``backend="cv2"``) and through the native libjpeg decoder
+(``backend="native"``); ``tests/test_torch_loader_backends.py`` holds the process pool,
+the Grain-role loader and the native decoder to the JAX package's.
 """
 import dataclasses
 
@@ -199,12 +201,20 @@ def test_create_dataloaders_and_what_is_not_ported(prepared):
         assert (len(m), m.batch_size, m.shuffle, m.drop_last, m.seed) == (len(t), t.batch_size, t.shuffle, t.drop_last, t.seed)
     with pytest.raises(ValueError, match="Unknown mode"):
         pl.create_dataloaders(cfg, dfs["train"], dfs["val"], dfs["test"], mode="video")
-    cfg.data.loader_backend = "grain"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pl.create_dataloaders(cfg, dfs["train"], dfs["val"], dfs["test"])
-    cfg.data.loader_backend = "default"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pl.BatchLoader(dfs["val"], cfg, mode="fusion", decode_processes=2)
+    # the optional backends are ported (they were refused until ROADMAP item 8d)
+    from tpuhar_torch.data.grain_loader import GrainBatchLoader
+
+    cfg.data.loader_backend = jcfg.data.loader_backend = "grain"
+    mine = pl.create_dataloaders(cfg, dfs["train"], dfs["val"], dfs["test"], mode="classification")
+    theirs = create_dataloaders(jcfg, dfs["train"], dfs["val"], dfs["test"], mode="classification")
+    cfg.data.loader_backend = jcfg.data.loader_backend = "default"
+    for split in ("train", "val", "test"):
+        m, t = mine[split], theirs[split]
+        assert isinstance(m, GrainBatchLoader) and type(t).__name__ == "GrainBatchLoader"
+        assert (len(m), m.batch_size, m.shuffle, m.drop_last, m.seed) == (len(t), t.batch_size, t.shuffle, t.drop_last, t.seed)
+    pooled = pl.BatchLoader(dfs["val"], cfg, mode="fusion", decode_processes=2)
+    assert pooled.decode_processes == 2 and pooled._decode_pool is None  # the pool starts with the first batch
+    pooled.close()
 
 
 def test_imu_window_shape_fixing_matches_jax(tmp_path):
@@ -255,8 +265,8 @@ def test_frame_bank_reads_match_jax(prepared):
     for row in (0, len(mine) // 2, len(mine) - 1):
         assert mine.has_frames(row) == theirs.has_frames(row)
         for hw in ((64, 64), (32, 48)):
-            np.testing.assert_array_equal(mine.read_clip(row, hw), theirs.read_clip(row, hw, backend="cv2"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mine.read_clip(0, (64, 64), backend="native")
+            np.testing.assert_array_equal(mine.read_clip(row, hw, backend="cv2"), theirs.read_clip(row, hw, backend="cv2"))
+        np.testing.assert_array_equal(mine.read_clip(row, (64, 64), backend="native"),
+                                      theirs.read_clip(row, (64, 64), backend="native"))
     mine.close()
     theirs.close()

@@ -1,5 +1,6 @@
 """Guards of the port: it imports no JAX, CPU tensors take the plain paths, and the
 GPU smoke script fails without a CUDA device instead of falling back."""
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +26,7 @@ import importlib, pkgutil, sys
 # JAX, and the host libraries a machine with the card need not have: the port's modules
 # and chip_smoke import none of them (pandas, OpenCV and sklearn only inside the
 # functions that read a DataFrame, decode a clip or write a report)
-for name in ("jax", "jaxlib", "flax", "optax", "pandas", "cv2", "sklearn", "matplotlib", "transformers"):
+for name in ("jax", "jaxlib", "flax", "optax", "grain", "pandas", "cv2", "sklearn", "matplotlib", "transformers"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import tpuhar_torch
 names = [m.name for m in pkgutil.walk_packages(tpuhar_torch.__path__, "tpuhar_torch.")]
@@ -38,7 +39,9 @@ for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.tr
              "tpuhar_torch.eval.fewshot_parallel", "tpuhar_torch.eval.zeroshot", "tpuhar_torch.eval.ablation",
              "tpuhar_torch.ood", "tpuhar_torch.data.preprocess", "tpuhar_torch.data.synthetic",
              "tpuhar_torch.data.raw_stream", "tpuhar_torch.report.tables", "tpuhar_torch.report.plots",
-             "tpuhar_torch.utils", "tpuhar_torch.cli", "tpuhar_torch.__main__"):
+             "tpuhar_torch.utils", "tpuhar_torch.cli", "tpuhar_torch.__main__", "tpuhar_torch.native",
+             "tpuhar_torch.data.parallel_decode", "tpuhar_torch.data.grain_loader", "tpuhar_torch.parallel.mesh",
+             "tpuhar_torch.parallel.distributed", "tpuhar_torch.parallel.scope", "tpuhar_torch.ops.video"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -56,8 +59,9 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the package was imported, the training ones (losses, train/*,
     # ops/augment, eval/metrics, utils/profiling), the evaluate stage's and the
-    # pipeline's (data preparation, reports, the command line) included
-    assert int(proc.stdout.split()[-1]) >= 48
+    # pipeline's (data preparation, reports, the command line) and the mesh and loader
+    # backends' (parallel/*, native, data/{parallel_decode,grain_loader}) included
+    assert int(proc.stdout.split()[-1]) >= 55
 
 
 def _spy(monkeypatch, module, name: str) -> list:
@@ -177,6 +181,86 @@ def test_int8_towers_serve_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == "ok"
+
+
+_WORKERS = """
+import os, sys
+from pathlib import Path
+for name in ("pandas", "cv2"):
+    sys.modules[name] = None  # nothing below imports them at module load
+from tpuhar_torch import native
+from tpuhar_torch.data.grain_loader import GrainBatchLoader
+from tpuhar_torch.data.parallel_decode import ProcessDecodePool
+import tpuhar_torch.parallel.mesh, tpuhar_torch.parallel.distributed, tpuhar_torch.ops.video
+for name in ("pandas", "cv2"):
+    del sys.modules[name]
+import numpy as np
+import pandas as pd
+from tpuhar_torch.config import Config
+
+def children():
+    pids = []
+    for p in Path("/proc").iterdir():
+        if p.name.isdigit():
+            try:
+                status = (p / "status").read_text()
+            except OSError:
+                continue
+            ppid = next(int(line.split()[1]) for line in status.splitlines() if line.startswith("PPid:"))
+            if ppid == os.getpid():
+                pids.append(p.name)
+    return pids
+
+def loaded(pid):  # the shared libraries a process has mapped: pandas', OpenCV's, jaxlib's
+    maps = Path("/proc", pid, "maps").read_text()
+    return sorted({name for name in ("pandas", "cv2", "jaxlib") if f"/{name}/" in maps})
+
+cfg = Config.load(sys.argv[1])
+pre = Path(cfg.paths.preprocessed_dir)
+df = pd.read_csv(pre / "val_metadata.csv")
+seen, batches = set(), 0
+for batch in GrainBatchLoader(df, cfg, mode="fusion", batch_size=2, workers=2):
+    batches += 1
+    for pid in children():
+        seen.update(loaded(pid))
+assert batches == -(-len(df) // 2), batches
+pool = ProcessDecodePool(1)
+spec = {"kind": "bank", "i": 0, "bin_path": str(pre / "val_frames.bin"), "idx_path": str(pre / "val_frame_index.npy"),
+        "row": 0, "resize_hw": tuple(cfg.data.video_resize)}
+out = np.zeros((1, cfg.data.video_frames_per_window, *cfg.data.video_resize, 3), np.uint8)
+pool.decode_batch([spec], out)
+modules = pool._pool.submit(eval, "sorted(__import__('sys').modules)").result()
+pool.close()
+assert out.any() and "tpuhar_torch.data.frames" in modules
+forbidden = ("jax", "jaxlib", "flax", "optax", "grain", "tpuhar", "pandas") + (("cv2",) if native.decode_available() else ())
+bad = [m for m in modules if m.split(".")[0] in forbidden] + [m for m in seen if m in forbidden]
+assert not bad, bad
+print("ok", batches)
+"""
+
+
+def test_loader_workers_import_no_jax(synthetic_dataset, tmp_path):
+    """One epoch of the Grain-role loader on two spawned workers and a clip decoded by a
+    ``ProcessDecodePool`` worker, with JAX, Grain and the JAX package shadowed by packages
+    that fail to import (on the path of every spawned worker too): the modules load
+    without pandas or OpenCV, the workers map no pandas, OpenCV or jaxlib library, and
+    the pool's worker imports none of them."""
+    from tpuhar_torch.data.preprocess import Preprocessor
+    from tpuhar_torch.data.synthetic import make_synthetic_config
+
+    cfg = make_synthetic_config(synthetic_dataset, tmp_path / "out")
+    cfg.data.video_frames_per_window = 4
+    Preprocessor(cfg, device="cpu").preprocess_split("val")
+    cfg.save(tmp_path / "cfg.json")
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "jaxlib", "flax", "optax", "grain", "tpuhar"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(f"raise ImportError('{name} is shadowed')\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(shadow), str(ROOT)])}
+    proc = subprocess.run([sys.executable, "-c", _WORKERS, str(tmp_path / "cfg.json")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[0] == "ok"
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):

@@ -28,8 +28,8 @@ classes: the JAX engine's ``jax.jit`` of ``quant_vit_forward`` does not keep the
 function's bf16 roundings (``tests/test_torch_serving_quant.py`` holds the port to the
 eager JAX program to 1e-5).
 
-Left out: the mesh tests (queue 1 item 8); the ``NotImplementedError`` naming the item
-stands in their place.
+The mesh engine's tests are in ``tests/test_torch_engine_mesh.py`` (two gloo ranks);
+here a mesh whose data axis does not divide a registered size is refused.
 """
 import jax
 import jax.numpy as jnp
@@ -331,8 +331,9 @@ def test_refusals_match_the_reference(fusion, kw, error, match):
 
 
 def test_what_is_not_ported_raises(fusion, monkeypatch):
-    """The mesh (queue 1 item 8), the centered int8 wire ("Not ported"), and the card
-    asked for where there is none; an unknown wire
+    """A mesh whose data axis does not divide a registered batch size (the mesh itself is
+    ported: ``tests/test_torch_engine_mesh.py``), the centered int8 wire ("Not ported"),
+    and the card asked for where there is none; an unknown wire
     raises as the reference's ``serving.py:202-203`` does (which calibrates first: its
     test would cost seconds). ``from_checkpoint`` is ported: a path holding no checkpoint
     raises."""
@@ -340,8 +341,20 @@ def test_what_is_not_ported_raises(fusion, monkeypatch):
     clips = np.zeros((2, FRAMES, SIZE, SIZE, 3), np.uint8)
     with pytest.raises(ValueError, match="int8_wire must be 'u8' or 'centered', got 'i8'"):
         InferenceEngine(cfg, variables, quantize_calib_clips=clips, int8_wire="i8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InferenceEngine(cfg, variables, mesh=object(), device="cpu")
+    class TwoRanks:  # what the engine reads of a (2, 1) mesh
+        mesh_dim_names = ("data", "model")
+
+        def get_local_rank(self, axis):
+            return 0
+
+        def __getitem__(self, axis):
+            return type("Dim", (), {"size": lambda self: 2})()
+
+        def get_group(self, axis):
+            return None
+
+    with pytest.raises(ValueError, match=r"batch sizes \[3\] do not divide"):
+        InferenceEngine(cfg, variables, batch_sizes=[3, 4], mesh=TwoRanks(), device="cpu")
     with pytest.raises(NotImplementedError, match="Not ported"):
         InferenceEngine(cfg, variables, quantize_calib_clips=clips, int8_wire="centered", device="cpu")
     with pytest.raises(FileNotFoundError):

@@ -1,9 +1,11 @@
 """The pipeline and its command line (``tpuhar/cli.py``): preprocess → pretrain →
-zero-shot → classify → evaluate → ood → report, and serve, on one device.
+zero-shot → classify → evaluate → ood → report, and serve, on one device or data
+parallel over several.
 
     python -m tpuhar_torch --mode all --config cfg.json [--set section.key=value ...]
     python -m tpuhar_torch --mode serve --serve-batch 64
     python -m tpuhar_torch --device cpu ...   # the plain paths, no card
+    torchrun --standalone --nproc_per_node=N -m tpuhar_torch --mode all ...   # N processes
 
 ``Pipeline(config, device="cuda")`` runs every stage on ``device``: ``"cuda"`` (the
 default) raises without a card, ``"cpu"`` runs the kernels' plain versions. The stages
@@ -22,8 +24,15 @@ fresh parameters come from ``bridge.init_params`` with that generator.
 
 Every plot goes through ``Pipeline._plot``: where matplotlib is missing (the card's
 machine has none) it prints ``[Report] matplotlib is not installed: <path> not written``
-and the stage goes on; the JAX package's CLI does not start without matplotlib. Not
-ported: the training mesh (ROADMAP queue 1 item 8e): one device trains and serves.
+and the stage goes on; the JAX package's CLI does not start without matplotlib.
+
+Several processes (torchrun): ``Pipeline`` joins the process group
+(``parallel.distributed.initialize_distributed``) and builds the data-parallel mesh
+(``parallel.mesh.maybe_mesh``), which every pretraining and classification task, trainer
+and serving engine takes; every rank runs those stages over the same global batches and
+holds its rows of each. Rank 0 alone preprocesses, writes checkpoints, reports and
+results, and runs the stages that take no mesh (zero-shot, few-shot, leave-one-out,
+ablations, the final report); the other ranks wait for it at a barrier after each.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ from .data.preprocess import Preprocessor
 from .eval.evaluator import Evaluator, FewShotEvaluator, save_results_table
 from .models.crossmodal import CrossModalModel, IMUClassifier
 from .ood import OODEvaluator
+from .parallel.distributed import initialize_distributed
+from .parallel.mesh import agree, barrier, is_main, maybe_mesh
 from .report import plots
 from .report.tables import create_article_tables_from_results
 from .train import checkpoint as ckpt
@@ -52,16 +63,37 @@ from .train.steps import precision_scope
 from .utils import check_dataset_paths, describe_devices, resolve_device, set_seed
 
 
+def _main_only(stage):
+    """A stage that rank 0 alone runs; the other ranks wait for it, take its root
+    generator's state (the seeds it drew) and get None."""
+
+    def run(self, *args, **kwargs):
+        try:
+            return stage(self, *args, **kwargs) if is_main(self.mesh) else None
+        finally:
+            if self.mesh is not None:
+                self.root_key.set_state(agree(self.root_key.get_state(), self.mesh))
+
+    run.__name__, run.__doc__ = stage.__name__, stage.__doc__
+    return run
+
+
 class Pipeline:
-    """The stages over the port on one device (``tpuhar/cli.py: Pipeline``)."""
+    """The stages over the port (``tpuhar/cli.py: Pipeline``) on ``device``, over the
+    data-parallel ``mesh`` of a multi-process run (None in one process)."""
 
     def __init__(self, config: Optional[Config] = None, *, device="cuda"):
         self.config = config or CONFIG
-        self.device = resolve_device(device, "Pipeline")
+        resolve_device(device, "Pipeline")  # a missing card raises before any process group starts
+        initialize_distributed(device=device)
+        self.device = resolve_device(device, "Pipeline")  # the card of this rank's LOCAL_RANK
+        self.mesh = maybe_mesh(self.config)
         self.config.paths.ensure_dirs()
         self.root_key = set_seed(self.config.training.seed)
         self.serving_stats: Dict = {}  # run_serving's windows, batches, seconds and graph launches
         print(f"[Pipeline] devices: {describe_devices()}; running on {self.device}")
+        if self.mesh is not None:
+            print(f"[Pipeline] training mesh: {dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}")
         status = check_dataset_paths(self.config)
         if not status["ok"]:
             print(f"[Pipeline] dataset path check: {status}")
@@ -93,9 +125,9 @@ class Pipeline:
             return False
         return True
 
-    def _crossmodal_task(self, steps_per_epoch: int):
+    def _crossmodal_task(self, steps_per_epoch: int, mesh=None):
         params = init_params(self.config, self._next_key(), CrossModalModel)
-        return build_crossmodal_task(self.config, steps_per_epoch, params, device=self.device)
+        return build_crossmodal_task(self.config, steps_per_epoch, params, device=self.device, mesh=mesh)
 
     def _load_pretrained_encoder(self):
         """The best cross-modal checkpoint's IMU encoder subtree ``(params, batch_stats)``
@@ -109,6 +141,7 @@ class Pipeline:
         return tree["params"]["imu_encoder"], tree["batch_stats"].get("imu_encoder")
 
     # -- stages ---------------------------------------------------------------------
+    @_main_only
     def run_preprocessing(self) -> Dict:
         print("\n=== Stage: preprocessing ===")
         return Preprocessor(self.config, device=self.device).run_full_preprocessing()
@@ -121,16 +154,17 @@ class Pipeline:
         spe = max(len(loaders["train"]), 1)
         # the f32 operands' matmul precision (default full f32); bf16 towers are untouched
         with precision_scope(str(getattr(cfg.training, "pretrain_matmul_precision", "float32"))):
-            task = self._crossmodal_task(spe)
+            task = self._crossmodal_task(spe, self.mesh)
             trainer = CrossModalTrainer(
                 cfg, task.state, task.train_step, task.eval_step,
-                Path(cfg.paths.checkpoints_dir) / "cross_modal", self._next_key(self.device),
+                Path(cfg.paths.checkpoints_dir) / "cross_modal", self._next_key(self.device), mesh=self.mesh,
             )
             task.state = trainer.fit(loaders["train"], loaders["val"], resume=resume)
-        self._plot(plots.plot_training_curves, trainer.history,
-                   save_path=Path(cfg.paths.results_dir) / "pretraining_curves.png", title="Cross-modal pretraining")
-        print(f"[Pretrain] best val loss: {trainer.best_metric:.4f}")
-        ckpt.save_params(Path(cfg.paths.checkpoints_dir) / "final_model_params", task.model)
+        if is_main(self.mesh):
+            self._plot(plots.plot_training_curves, trainer.history,
+                       save_path=Path(cfg.paths.results_dir) / "pretraining_curves.png", title="Cross-modal pretraining")
+            print(f"[Pretrain] best val loss: {trainer.best_metric:.4f}")
+        ckpt.save_params(Path(cfg.paths.checkpoints_dir) / "final_model_params", task.model, mesh=self.mesh)
         return trainer
 
     def run_classification(self, classify_mode: str = "both", resume: bool = False):
@@ -153,11 +187,12 @@ class Pipeline:
             spe = max(len(loaders["train"]), 1)
             task = build_classification_task(
                 cfg, mode, spe, init_params(cfg, self._next_key(), IMUClassifier),
-                encoder_params=enc_params, encoder_batch_stats=enc_bs, device=self.device,
+                encoder_params=enc_params, encoder_batch_stats=enc_bs, device=self.device, mesh=self.mesh,
             )
             trainer = ClassificationTrainer(
                 cfg, task.state, task.train_step, task.eval_step,
                 Path(cfg.paths.checkpoints_dir) / f"classifier_{mode}", self._next_key(self.device), mode,
+                mesh=self.mesh,
             )
             task.state = trainer.fit(loaders["train"], loaders["val"], resume=resume)
             best = trainer.save_dir / "best_model"
@@ -178,15 +213,19 @@ class Pipeline:
                 "cal_temperature": temp,
                 "cal_ece_scaled": scaled["ece"],
             }
-            print(f"[Classify:{mode}] test bal_acc={result['metrics']['balanced_accuracy']:.2f}")
-            self._plot(plots.plot_confusion_matrix, result["labels"], result["predictions"], cfg.model.num_classes,
-                       save_path=results_dir / f"confusion_{mode}.png")
-            np.save(results_dir / f"test_logits_{mode}.npy", result["logits"])
+            if is_main(self.mesh):
+                print(f"[Classify:{mode}] test bal_acc={result['metrics']['balanced_accuracy']:.2f}")
+                self._plot(plots.plot_confusion_matrix, result["labels"], result["predictions"],
+                           cfg.model.num_classes, save_path=results_dir / f"confusion_{mode}.png")
+                np.save(results_dir / f"test_logits_{mode}.npy", result["logits"])
         df = pd.DataFrame(comparison).T
-        df.to_csv(results_dir / "classification_comparison.csv")
-        print(f"\n{df}")
+        if is_main(self.mesh):
+            df.to_csv(results_dir / "classification_comparison.csv")
+            print(f"\n{df}")
+        barrier(self.mesh)
         return df
 
+    @_main_only
     def run_evaluation(self):
         print("\n=== Stage: few-shot evaluation ===")
         cfg = self.config
@@ -216,6 +255,7 @@ class Pipeline:
         print(f"\n{table}")
         return raw
 
+    @_main_only
     def run_zeroshot(self) -> Dict:
         """Zero-shot IMU classification by video class prototypes →
         ``zeroshot_results.json``."""
@@ -236,6 +276,7 @@ class Pipeline:
         print(pd.DataFrame(results).T)
         return results
 
+    @_main_only
     def run_ablations(self):
         """The encoder and featurizer ablation grid → ``ablation_results.csv``."""
         print("\n=== Stage: ablations ===")
@@ -248,6 +289,7 @@ class Pipeline:
         print(f"\n{df}")
         return df
 
+    @_main_only
     def run_ood(self, resume: bool = False):
         """Leave-one-activity-out OOD scoring; ``resume`` reuses finished ``ood_loo_{c}``
         checkpoints, so an interrupted sweep trains only its missing classes."""
@@ -306,7 +348,7 @@ class Pipeline:
             kw["quantize_calib_clips"] = calib[1]
             kw["quantize_calib_imu"] = calib[0]
         engine = InferenceEngine.from_checkpoint(cfg, checkpoint, imu_only=imu_only, batch_sizes=[batch_size],
-                                                 device=self.device, **kw)
+                                                 device=self.device, mesh=self.mesh, **kw)
         if ood_id_fpr is not None:
             val_df = self._metadata("val").head(8 * batch_size)
             calib_imu, calib_video = [], []
@@ -338,7 +380,9 @@ class Pipeline:
         pred_df = pd.DataFrame(rows)
         result[pred_df.columns] = pred_df
         out_path = Path(cfg.paths.results_dir) / f"serving_predictions_{split}.csv"
-        result.to_csv(out_path, index=False)
+        if is_main(self.mesh):
+            result.to_csv(out_path, index=False)
+        barrier(self.mesh)
         acc = float((result["pred"] == result["label"]).mean()) * 100
         self.serving_stats = {"windows": served, "batches": batches, "seconds": wall,
                               "graph_launches": dict(engine.graph_launches.get(batch_size, {}))}
@@ -351,11 +395,11 @@ class Pipeline:
         exist; a zero-shot failure is printed and skipped."""
         cfg = self.config
         t0 = time.time()
-        if not (Path(cfg.paths.preprocessed_dir) / "train_metadata.csv").exists():
+        if not agree((Path(cfg.paths.preprocessed_dir) / "train_metadata.csv").exists(), self.mesh):
             self.run_preprocessing()
         else:
             print("[run_all] preprocessing artifacts found — skipping")
-        if not ckpt.checkpoint_exists(Path(cfg.paths.checkpoints_dir) / "cross_modal" / "best_model"):
+        if not agree(ckpt.checkpoint_exists(Path(cfg.paths.checkpoints_dir) / "cross_modal" / "best_model"), self.mesh):
             self.run_pretraining(resume=resume)
         else:
             print("[run_all] pretraining checkpoint found — skipping")
@@ -370,6 +414,7 @@ class Pipeline:
         self.generate_final_report()
         print(f"[run_all] total {time.time() - t0:.0f}s")
 
+    @_main_only
     def generate_final_report(self) -> Dict:
         """``final_report.json`` from the stages' artifacts, then the article tables."""
         import pandas as pd
@@ -411,8 +456,9 @@ class Pipeline:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpuhar_torch",
-        description="Cross-modal IMU-video HAR pipeline on PyTorch (one CUDA device, or the CPU with --device "
-        "cpu). Training over a mesh of devices is not ported (ROADMAP queue 1 item 8e).",
+        description="Cross-modal IMU-video HAR pipeline on PyTorch: one CUDA device, the CPU with --device cpu, "
+        "or data parallel over N processes under `torchrun --nproc_per_node=N -m tpuhar_torch` (one card each, "
+        "or gloo on the CPU).",
     )
     parser.add_argument(
         "--mode",

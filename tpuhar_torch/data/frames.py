@@ -10,8 +10,8 @@ F, 2)`` int64 table ``{split}_frame_index.npy`` of each window's frames' ``(offs
 length)`` (``-1`` where a frame is missing). A ``.meta.json`` sidecar with
 ``bank_format_version`` 2 marks standard-colour JPEGs; a bank without it was written
 before the channel-order fix and holds RGB under cv2's BGR label, so its frames are
-served without the flip. The native batched JPEG decoder is not ported (ROADMAP queue 1
-item 8): frames decode through OpenCV.
+served without the flip. The reader decodes a clip in one call of the batched libjpeg
+decoder (``tpuhar_torch.native``) where it builds, else frame by frame through OpenCV.
 """
 from __future__ import annotations
 
@@ -139,17 +139,28 @@ class FrameBankReader:
         return bool((self.table[row, :, 0] >= 0).any())
 
     def read_clip(self, row: int, resize_hw, *, backend: str = "auto", threads: int = 1) -> np.ndarray:
-        """One window's cached frames → ``(F, H, W, 3)`` uint8 RGB, resized, black where
-        a frame is missing or does not decode. ``backend`` "auto" and "cv2" decode frame
-        by frame through OpenCV; "native" (the batched libjpeg decoder) is not ported.
-        ``threads`` is the native decoder's and is not read here."""
-        if backend == "native":
-            raise NotImplementedError("the native JPEG decoder is not ported: ROADMAP queue 1 item 8 (orchestration)")
-        if backend not in ("auto", "cv2"):
+        """One window's cached frames → ``(F, H, W, 3)`` uint8 RGB, black where a frame is
+        missing.
+
+        ``backend="auto"`` decodes the clip in one call of the native decoder
+        (``tpuhar_torch.native``, ``threads`` threads) where it builds, the bank is not
+        a legacy one and the stored frames are ``resize_hw``; otherwise frame by frame
+        through OpenCV, which also resizes. ``"native"`` raises where the native path
+        cannot decode the clip (it never falls back); ``"cv2"`` forces OpenCV."""
+        if backend not in ("auto", "native", "cv2"):
             raise ValueError(f"unknown backend {backend!r}")
+        H, W = resize_hw
+        if backend != "cv2":
+            clip = self._read_clip_native(row, H, W, threads)
+            if clip is not None:
+                return clip
+            if backend == "native":
+                raise RuntimeError(
+                    f"native decode unavailable, legacy bank or stored frame size != {tuple(resize_hw)} "
+                    "(see tpuhar_torch.native.decode_available())"
+                )
         import cv2
 
-        H, W = resize_hw
         F = self.table.shape[1]
         out = np.zeros((F, H, W, 3), dtype=np.uint8)
         for j in range(F):
@@ -163,6 +174,27 @@ class FrameBankReader:
                 img = cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR)
             out[j] = img if self.legacy_color else img[..., ::-1]
         return out
+
+    def _read_clip_native(self, row: int, H: int, W: int, threads: int) -> Optional[np.ndarray]:
+        """The clip's present frames read into one buffer and decoded in one C call;
+        None where the decoder is unavailable, the bank is legacy or a frame does not
+        decode at ``(H, W)``."""
+        from .. import native
+
+        if self.legacy_color or not native.decode_available():
+            return None
+        entries = self.table[row]  # (F, 2) of (offset, length)
+        parts = []
+        offs = np.zeros(len(entries), np.int64)
+        lens = np.zeros(len(entries), np.int64)
+        pos = 0
+        for j, (off, length) in enumerate(entries):
+            if off < 0 or length <= 0:
+                continue
+            parts.append(os.pread(self.fd, int(length), int(off)))
+            offs[j], lens[j] = pos, int(length)
+            pos += int(length)
+        return native.decode_jpeg_bank(b"".join(parts), offs, lens, H, W, threads=threads)
 
     def close(self):
         try:

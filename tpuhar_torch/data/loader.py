@@ -15,7 +15,9 @@ batches, copied so that the port imports nothing of the JAX package.
 
 The loaders yield numpy batches, as the JAX package's do; with ``device`` set they
 yield the batch the port's steps take (``to_device``: tensors on that device, labels
-int64). pandas and OpenCV are imported by the functions that need them.
+int64). Clips decode on threads, or in a pool of processes (``decode_processes``,
+``parallel_decode``); ``data.loader_backend="grain"`` gives ``grain_loader.GrainBatchLoader``
+instead. pandas and OpenCV are imported by the functions that need them.
 """
 from __future__ import annotations
 
@@ -27,8 +29,6 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
-
-_NOT_PORTED = "is not ported: ROADMAP queue 1 item 8 (orchestration)"
 
 
 def to_device(batch: Dict, device) -> Dict:
@@ -150,15 +150,26 @@ def decode_clip(video_path, start_frame: int, *, num_frames: int, window_seconds
 # ---------------------------------------------------------------------------------
 # Batch loaders
 # ---------------------------------------------------------------------------------
+def epoch_order(n: int, shuffle: bool, seed: int, epoch: int) -> np.ndarray:
+    """The rows of an epoch: in order, or shuffled by ``seed + epoch``."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(order)
+    return order
+
+
 class BatchLoader:
     """A deterministic, optionally shuffled batch iterator over a window manifest.
 
     ``mode``: "classification" → ``{imu, label, idx, n_valid}``; "cross_modal" →
     ``{imu, video, idx, n_valid}``; "fusion" → ``{imu, video, label, idx, n_valid}``.
-    ``decode_workers`` threads decode a batch's clips; a ``prefetch`` thread builds the
-    next batches ahead. ``return_info`` passes ``class_name``/``user_id`` through as
-    lists. ``device``: yield ``to_device`` batches on it (``None``: numpy, as the JAX
-    package's loader). ``decode_processes`` > 0 (a process pool) is not ported.
+    ``decode_workers`` threads decode a batch's clips, or with ``decode_processes`` > 0
+    (default ``data.decode_processes``) a ``parallel_decode.ProcessDecodePool`` of that
+    many processes, made at the first batch of clips (``close`` ends it); a ``prefetch``
+    thread builds the next batches ahead. ``frame_backend`` is ``FrameBankReader.
+    read_clip``'s ``backend`` ("auto", "native" or "cv2"). ``return_info`` passes
+    ``class_name``/``user_id`` through as lists. ``device``: yield ``to_device`` batches
+    on it (``None``: numpy, as the JAX package's loader).
     """
 
     def __init__(
@@ -176,6 +187,7 @@ class BatchLoader:
         prefetch: int = 2,
         return_info: bool = False,
         device=None,
+        frame_backend: str = "auto",
     ):
         self.df = df.reset_index(drop=True)
         self.config = config
@@ -190,8 +202,8 @@ class BatchLoader:
         self.decode_processes = int(
             decode_processes if decode_processes is not None else getattr(d, "decode_processes", 0) or 0
         )
-        if self.decode_processes > 0:
-            raise NotImplementedError(f"decoding clips in a process pool (decode_processes) {_NOT_PORTED}")
+        self._decode_pool = None
+        self.frame_backend = frame_backend
         self.prefetch = prefetch
         self.return_info = return_info
         self.device = device
@@ -217,6 +229,7 @@ class BatchLoader:
         from .frames import FrameBankReader
 
         banks = {}
+        self._frame_bank_paths = {}
         for split, top in splits:
             base = Path(self.config.paths.preprocessed_dir)
             bin_path, idx_path = base / f"{split}_frames.bin", base / f"{split}_frame_index.npy"
@@ -226,6 +239,7 @@ class BatchLoader:
             if reader.table.shape[1] != self.config.data.video_frames_per_window or top >= len(reader):
                 return None
             banks[split] = reader
+            self._frame_bank_paths[split] = (str(bin_path), str(idx_path))
         return banks
 
     def _open_banks(self):
@@ -253,10 +267,7 @@ class BatchLoader:
         self.epoch = epoch
 
     def _order(self) -> np.ndarray:
-        order = np.arange(len(self.df))
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        return order
+        return epoch_order(len(self.df), self.shuffle, self.seed, self.epoch)
 
     def _make_batch(self, rows_idx: np.ndarray) -> Dict:
         B = self.batch_size
@@ -286,6 +297,11 @@ class BatchLoader:
             T = d.video_frames_per_window
             video = np.zeros((B, T, H, W, 3), dtype=np.uint8)
             base = Path(self.config.paths.base_input)
+            threads = int(getattr(d, "decode_threads", 1) or 1)
+            if self.decode_processes > 0:
+                self._decode_with_processes(rows, video, base, (H, W), T, threads)
+                batch["video"] = video
+                return batch
 
             def _decode(i_row):
                 i, row = i_row
@@ -293,7 +309,7 @@ class BatchLoader:
                     reader = self._frame_banks[row["split"]]
                     r = int(row["bank_idx"])
                     if reader.has_frames(r):
-                        video[i] = reader.read_clip(r, (H, W), threads=int(getattr(d, "decode_threads", 1) or 1))
+                        video[i] = reader.read_clip(r, (H, W), backend=self.frame_backend, threads=threads)
                         return
                     if not bool(row.get("video_exists", True)):
                         return  # a black clip
@@ -311,6 +327,39 @@ class BatchLoader:
                     _decode(item)
             batch["video"] = video
         return batch
+
+    def _decode_with_processes(self, rows, video, base: Path, resize_hw, T: int, threads: int) -> None:
+        """A batch's clips decoded in the process pool, each row as the thread path
+        decodes it: cached frames, black (no video), or one decode of the mp4."""
+        from .parallel_decode import ProcessDecodePool
+
+        if self._decode_pool is None:
+            self._decode_pool = ProcessDecodePool(self.decode_processes)
+        d = self.config.data
+        specs = []
+        for i, (_, row) in enumerate(rows.iterrows()):
+            if self._frame_banks is not None:
+                r, split = int(row["bank_idx"]), row["split"]
+                if self._frame_banks[split].has_frames(r):
+                    bin_path, idx_path = self._frame_bank_paths[split]
+                    specs.append({"kind": "bank", "i": i, "bin_path": bin_path, "idx_path": idx_path, "row": r,
+                                  "resize_hw": resize_hw, "backend": self.frame_backend, "threads": threads})
+                    continue
+                if not bool(row.get("video_exists", True)):
+                    specs.append({"kind": "black", "i": i})
+                    continue
+            specs.append({
+                "kind": "video", "i": i, "path": str(base / str(row["video_path"])),
+                "start_frame": int(row.get("start_frame", 0)), "num_frames": T,
+                "window_seconds": self.window_seconds, "fallback_fps": float(d.video_fps), "resize_hw": resize_hw,
+            })
+        self._decode_pool.decode_batch(specs, video)
+
+    def close(self) -> None:
+        """End the decode pool's processes, if any were started."""
+        if self._decode_pool is not None:
+            self._decode_pool.close()
+            self._decode_pool = None
 
     def _batch_indices(self):
         order = self._order()
@@ -359,14 +408,18 @@ def create_dataloaders(config, train_df, val_df, test_df, mode: str = "cross_mod
                        *, device=None) -> Dict[str, BatchLoader]:
     """The train (shuffled, last partial batch dropped, ``training.seed``), val and test
     loaders of a stage; ``device`` as ``BatchLoader``'s. ``data.loader_backend="grain"``
-    is not ported."""
+    gives ``grain_loader.GrainBatchLoader``s (``data.grain_workers`` processes) with the
+    same batches."""
     if mode not in ("cross_modal", "classification", "fusion"):
         raise ValueError(f"Unknown mode: {mode}")
+    cls = BatchLoader
     if getattr(config.data, "loader_backend", "default") == "grain":
-        raise NotImplementedError(f"the Grain loader (data.loader_backend='grain') {_NOT_PORTED}")
+        from .grain_loader import GrainBatchLoader
+
+        cls = GrainBatchLoader
     seed = config.training.seed
     return {
-        "train": BatchLoader(train_df, config, mode=mode, shuffle=shuffle_train, drop_last=True, seed=seed, device=device),
-        "val": BatchLoader(val_df, config, mode=mode, device=device),
-        "test": BatchLoader(test_df, config, mode=mode, device=device),
+        "train": cls(train_df, config, mode=mode, shuffle=shuffle_train, drop_last=True, seed=seed, device=device),
+        "val": cls(val_df, config, mode=mode, device=device),
+        "test": cls(test_df, config, mode=mode, device=device),
     }

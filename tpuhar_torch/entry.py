@@ -86,15 +86,18 @@ def _params(cfg, params: Optional[Dict], seed: int, model_cls) -> Dict:
     return init_params(cfg, torch.Generator().manual_seed(seed), model_cls) if params is None else params
 
 
-def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int):
+def build_pretrain_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int,
+                        mesh=None):
     """The pretraining task of ``cfg`` on ``device`` (``train/factory.Task``: the model
     with f32 master weights, its ``TrainState`` and ``train_step``/``eval_step``).
 
     ``params`` is a flax-layout variable tree of ``CrossModalModel`` (``None`` draws one
     with ``init_params`` from ``torch.Generator().manual_seed(seed)``);
     ``steps_per_epoch`` sets the schedule. Batches are ``{"imu": (B, C, T) featurized f32,
-    "video": (B, T, H, W, 3) uint8}`` on ``device``."""
-    return factory.build_crossmodal_task(cfg, steps_per_epoch, _params(cfg, params, seed, CrossModalModel), device=device)
+    "video": (B, T, H, W, 3) uint8}`` on ``device``. ``mesh`` (``parallel.mesh``) makes
+    the steps data parallel over it."""
+    return factory.build_crossmodal_task(cfg, steps_per_epoch, _params(cfg, params, seed, CrossModalModel),
+                                         device=device, mesh=mesh)
 
 
 def classify_config():
@@ -119,6 +122,7 @@ def build_classification_task(
     steps_per_epoch: int,
     encoder_params: Optional[Dict] = None,
     encoder_batch_stats: Optional[Dict] = None,
+    mesh=None,
 ):
     """The IMU classifier's task in ``mode`` ("linear_probe" or "finetune") on ``device``.
 
@@ -129,15 +133,17 @@ def build_classification_task(
     ``"n_valid"`` for ``predict_step``)."""
     return factory.build_classification_task(
         cfg, mode, steps_per_epoch, _params(cfg, params, seed, IMUClassifier),
-        encoder_params=encoder_params, encoder_batch_stats=encoder_batch_stats, device=device,
+        encoder_params=encoder_params, encoder_batch_stats=encoder_batch_stats, device=device, mesh=mesh,
     )
 
 
-def build_video_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int):
+def build_video_task(cfg, *, device, seed: int = 0, params: Optional[Dict] = None, steps_per_epoch: int,
+                     mesh=None):
     """The video-only classifier's task on ``device`` (``params`` a ``VideoClassifier``
     tree, ``None`` draws one from ``seed``). Batches are ``{"video": (B, T, H, W, 3)
     uint8, "label"}``."""
-    return factory.build_video_task(cfg, steps_per_epoch, _params(cfg, params, seed, VideoClassifier), device=device)
+    return factory.build_video_task(cfg, steps_per_epoch, _params(cfg, params, seed, VideoClassifier), device=device,
+                                    mesh=mesh)
 
 
 def build_fusion_task(
@@ -148,13 +154,14 @@ def build_fusion_task(
     params: Optional[Dict] = None,
     steps_per_epoch: int,
     encoder_params: Optional[Dict] = None,
+    mesh=None,
 ):
     """The fusion classifier's task on ``device`` (``params`` a ``FusionClassifier``
     tree, ``None`` draws one from ``seed``; ``encoder_params`` replaces its
     ``imu_encoder``). Batches are ``{"imu", "video" (B, T, H, W, 3) uint8, "label"}``."""
     return factory.build_fusion_task(
         cfg, steps_per_epoch, _params(cfg, params, seed, FusionClassifier),
-        encoder_params=encoder_params, device=device,
+        encoder_params=encoder_params, device=device, mesh=mesh,
     )
 
 

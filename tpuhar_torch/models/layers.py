@@ -6,7 +6,9 @@ construction, as flax modules do; LayerNorm eps is flax's 1e-6, BatchNorm's 1e-5
 
 Training (``train=True``) follows flax's train mode: BatchNorm normalizes with the
 batch's statistics and updates its running ones, and dropout draws its masks from an
-explicit ``torch.Generator`` (``dropout``). For training, parameters are kept as f32
+explicit ``torch.Generator`` (``dropout``). Inside a data-parallel scope
+(``parallel.scope``) both are global: BatchNorm's moments are those of the global batch,
+and a dropout mask over the batch is this rank's rows of the global batch's mask. For training, parameters are kept as f32
 leaves and cast to the dtype each module was built in at use
 (``models.crossmodal.CrossModalModel.forward_cast``), as flax casts its f32 parameters
 to ``dtype``; the serving forwards build the modules in the compute dtype and cast
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import FlashSelfAttention, head_projections
+from ..parallel import scope
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
 BN_EPS = 1e-5
@@ -32,11 +35,17 @@ BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): ra = 0.9·ra + 0.1·batch
 
 def dropout(x: torch.Tensor, rate: float, generator=None, shape=None) -> torch.Tensor:
     """flax's dropout: keep each element with probability ``1 − rate`` and scale the
-    kept ones by ``1/(1 − rate)``; the mask is drawn from ``generator`` in ``shape``
-    (default ``x.shape``) and broadcast over ``x``."""
+    kept ones by ``1/(1 − rate)``; the mask is drawn from ``generator`` in ``shape`` and
+    broadcast over ``x``. Without ``shape`` the mask is ``x``'s, batch first: in a
+    data-parallel scope, this rank's rows of the global batch's mask. A ``shape`` given is
+    a mask shared over the batch, drawn the same on every rank."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
+
+    def draw(size):
+        return torch.rand(size, generator=generator, device=x.device)
+
+    keep = (draw(shape) if shape is not None else scope.draw_rows(draw, x.shape)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -48,7 +57,8 @@ class BatchNorm(nn.Module):
     ``train=True`` is flax's train mode: the batch's mean and biased variance over every
     axis but the last, in f32 as E[x²] − E[x]² (clipped at 0), normalize ``x``, and the
     running stats move to ``0.9·ra + 0.1·batch`` (the biased variance; torch's
-    ``BatchNorm1d`` keeps the unbiased one)."""
+    ``BatchNorm1d`` keeps the unbiased one). In a data-parallel scope E[x] and E[x²] are
+    the global batch's: the mean over the ranks of theirs (each holds an equal share)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -61,8 +71,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = tuple(range(xf.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+            mean, sq = xf.mean(dim=axes), xf.square().mean(dim=axes)
+            shard = scope.current()
+            if shard is not None:
+                mean, sq = scope.mean_over(torch.stack([mean, sq]), shard).unbind(0)
+            var = torch.clamp(sq - mean.square(), min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)

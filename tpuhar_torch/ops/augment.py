@@ -3,7 +3,9 @@
 Both act on featurized ``(B, C, T)`` windows inside the train step, with fresh draws
 every step from an explicit ``torch.Generator`` on the windows' device. Each splits into
 its draw and a deterministic core that takes the draw (``jitter_from_noise``,
-``time_warp_from_offsets``), so the same draws can be fed to both packages.
+``time_warp_from_offsets``), so the same draws can be fed to both packages. In a
+data-parallel scope (``parallel.scope``) each draw is this rank's rows of the global
+batch's draw.
 
 - **jitter**: additive Gaussian noise scaled by ``jitter_strength`` (the windows are
   z-scored, so the strength is in units of a channel's std).
@@ -16,6 +18,8 @@ import math
 from typing import Optional
 
 import torch
+
+from ..parallel import scope
 
 KNOTS = 4  # the time warp's knot offsets per window
 
@@ -31,7 +35,7 @@ def jitter(x: torch.Tensor, strength: float, generator: Optional[torch.Generator
     """Additive Gaussian noise on ``(B, C, T)`` windows."""
     if strength <= 0:
         return x
-    noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    noise = scope.draw_rows(lambda size: torch.randn(size, generator=generator, dtype=x.dtype, device=x.device), x.shape)
     return jitter_from_noise(x, noise, strength)
 
 
@@ -79,7 +83,8 @@ def time_warp(
     standard normal knot offsets)."""
     if strength <= 0:
         return x
-    offsets = torch.randn((x.shape[0], knots), generator=generator, dtype=x.dtype, device=x.device)
+    offsets = scope.draw_rows(lambda size: torch.randn(size, generator=generator, dtype=x.dtype, device=x.device),
+                              (x.shape[0], knots))
     return time_warp_from_offsets(x, offsets, strength)
 
 

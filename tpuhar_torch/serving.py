@@ -15,6 +15,11 @@ every size's graph in one memory pool. ``predict`` copies a request into the sta
 inputs, replays and reads the outputs back; ``predict_stream`` pipelines the same
 with a copy stream. A capture or launch failure propagates: nothing falls back to
 eager execution or to the CPU. On the CPU the program runs eagerly.
+
+With ``mesh`` (``parallel.mesh``, data parallel) every rank serves the same requests:
+each runs its rows of every padded batch through its own program (its graph holds
+``b / ranks`` rows) and the outputs are gathered across the ranks after the replay,
+outside the graph, so every rank returns the global answer.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from .ops.conv3x3 import conv3x3_bn_act, conv3x3_i8
 from .ops.flash_lean import flash_lean
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
+from .parallel import scope
 from .utils import resolve_device
 from .utils.profiling import StepProfiler
 
@@ -60,7 +66,7 @@ def kernel_launches() -> Dict[str, int]:
 class _Graph:
     """One registered batch size on the card: its graph, the static inputs each request
     is copied into, the static outputs each replay overwrites, and pinned host buffers
-    they are read back into."""
+    the (gathered, under a mesh) outputs are read back into."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: Tuple[torch.Tensor, ...]
@@ -87,7 +93,8 @@ class InferenceEngine:
     ``tpuhar/serving.py``) and ``device``. An int8 engine serves every tower the JAX
     package quantizes (``serving_quant``): ``tpu_cnn`` on the patch-major wire, ResNet-18
     and the ViTs on NHWC clips; ``quantized_forward`` is its ``build_quantized_forward``
-    program. Not ported: ``mesh`` (ROADMAP queue 1 item 8) and the centered int8 wire.
+    program. ``mesh`` serves data parallel (each registered batch size must divide over
+    its data axis). Not ported: the centered int8 wire.
     """
 
     def __init__(
@@ -111,10 +118,6 @@ class InferenceEngine:
         fast_attention: bool = False,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded engine is not ported: ROADMAP queue 1 item 8 (parallel/mesh.py)"
-            )
         if quantize_calib_clips is not None and imu_only:
             raise ValueError(
                 "quantize_calib_clips requests the int8 video tower, which does not "
@@ -135,7 +138,7 @@ class InferenceEngine:
         self.device = resolve_device(device, "InferenceEngine")
         # the constructor's inputs, for fit_embedding_scorers' rebuild
         self._ctor = dict(
-            config=config, variables=variables, imu_only=imu_only, batch_sizes=batch_sizes,
+            config=config, variables=variables, imu_only=imu_only, batch_sizes=batch_sizes, mesh=mesh,
             temperature=temperature, fold_normalize=fold_normalize,
             quantize_calib_clips=quantize_calib_clips, quantize_calib_imu=quantize_calib_imu,
             quantize_resident=quantize_resident, verify_byte_map=verify_byte_map,
@@ -156,6 +159,15 @@ class InferenceEngine:
         self.config = config
         self.imu_only = imu_only
         self.batch_sizes = sorted(batch_sizes or [256])
+        self.mesh = mesh
+        self._shard = None
+        if mesh is not None:
+            from .parallel.mesh import data_shard
+
+            self._shard = data_shard(mesh)
+            uneven = [b for b in self.batch_sizes if b % self._shard.size]
+            if uneven:
+                raise ValueError(f"batch sizes {uneven} do not divide over the mesh's {self._shard.size} data ranks")
         self.mahalanobis = None if mahalanobis is None else mahalanobis.to(self.device)
         self.extra_scorers = {name: s.to(self.device) for name, s in (extra_scorers or {}).items()}
         self.temperature = float(temperature)
@@ -275,6 +287,23 @@ class InferenceEngine:
             return (np.ascontiguousarray(imu_raw),)
         return np.ascontiguousarray(imu_raw), np.ascontiguousarray(video_u8)
 
+    def _local(self, b: int) -> int:
+        """The rows this rank computes of a padded batch of ``b``."""
+        return b if self._shard is None else b // self._shard.size
+
+    def _rows(self, b: int, args) -> Tuple[np.ndarray, ...]:
+        """This rank's rows of the padded host arrays ``args`` (all of them without a mesh)."""
+        if self._shard is None:
+            return args
+        rows = self._shard.rows(self._local(b))
+        return tuple(np.ascontiguousarray(a[rows]) for a in args)
+
+    def _gather(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Every rank's rows of each output, in rank order (``out`` without a mesh)."""
+        if self._shard is None:
+            return out
+        return {k: scope.gather_rows(v, self._shard) for k, v in out.items()}
+
     def _input_specs(self, b: int) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
         """Shape and dtype of each of the program's inputs at batch ``b``."""
         d = self.config.data
@@ -292,14 +321,14 @@ class InferenceEngine:
         eagerly. Capture errors propagate."""
         for b in self.batch_sizes:
             if self.device.type == "cpu":
-                self._forward(*(torch.zeros(shape, dtype=dtype) for shape, dtype in self._input_specs(b)))
+                self._forward(*(torch.zeros(shape, dtype=dtype) for shape, dtype in self._input_specs(self._local(b))))
             elif b not in self._graphs:
                 self._graphs[b] = self._capture(b)
 
     def _capture(self, b: int) -> _Graph:
         with torch.inference_mode(), torch.cuda.device(self.device):
             inputs = tuple(
-                torch.zeros(shape, dtype=dtype, device=self.device) for shape, dtype in self._input_specs(b)
+                torch.zeros(shape, dtype=dtype, device=self.device) for shape, dtype in self._input_specs(self._local(b))
             )
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -313,7 +342,7 @@ class InferenceEngine:
             with torch.cuda.graph(graph, pool=self._pool):
                 outputs = self._forward(*inputs)
             self.graph_launches[b] = {k: n - before[k] for k, n in kernel_launches().items()}
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in outputs.items()}
+            host = {k: torch.empty((b, *v.shape[1:]), dtype=v.dtype, pin_memory=True) for k, v in outputs.items()}
         return _Graph(graph, inputs, outputs, host)
 
     def _graph(self, b: int) -> _Graph:
@@ -322,8 +351,8 @@ class InferenceEngine:
         return self._graphs[b]
 
     def _upload(self, b: int, args) -> None:
-        """Copy a padded request (``_pad_to``) into size ``b``'s static inputs, from
-        pageable host memory."""
+        """Copy this rank's rows of a padded request (``_rows(b, _pad_to(...))``) into
+        size ``b``'s static inputs, from pageable host memory."""
         g = self._graph(b)
         with torch.inference_mode():
             for dst, src in zip(g.inputs, args):
@@ -333,18 +362,20 @@ class InferenceEngine:
         self._graphs[b].graph.replay()
 
     def _readback(self, b: int) -> Dict[str, np.ndarray]:
-        """Size ``b``'s outputs on the host, after the replay ends."""
+        """Size ``b``'s outputs (gathered over the ranks) on the host, after the replay
+        ends."""
         g = self._graphs[b]
         with torch.inference_mode():
-            for k, v in g.outputs.items():
+            for k, v in self._gather(g.outputs).items():
                 g.host[k].copy_(v, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return {k: v.numpy().copy() for k, v in g.host.items()}
 
     def _run(self, b: int, args) -> Dict[str, np.ndarray]:
         """The padded request ``args`` through size ``b``'s program, on the host."""
+        args = self._rows(b, args)
         if self.device.type == "cpu":
-            return {k: v.numpy() for k, v in self._forward(*(torch.from_numpy(a) for a in args)).items()}
+            return {k: v.numpy() for k, v in self._gather(self._forward(*(torch.from_numpy(a) for a in args))).items()}
         self._upload(b, args)
         self._replay(b)
         return self._readback(b)
@@ -400,7 +431,7 @@ class InferenceEngine:
             extras["rmd"] = RelativeMahalanobisScorer.fit(emb, np.asarray(labels), num_classes)
         c = self._ctor
         return InferenceEngine(
-            c["config"], c["variables"], imu_only=c["imu_only"], batch_sizes=c["batch_sizes"],
+            c["config"], c["variables"], imu_only=c["imu_only"], batch_sizes=c["batch_sizes"], mesh=c["mesh"],
             mahalanobis=maha, extra_scorers=extras, temperature=c["temperature"],
             fold_normalize=c["fold_normalize"], quantize_calib_clips=c["quantize_calib_clips"],
             quantize_calib_imu=c["quantize_calib_imu"], device=c["device"],
@@ -475,14 +506,14 @@ class InferenceEngine:
                     "batch size (predict() chunks, predict_stream keeps 1:1 batch correspondence)"
                 )
             b = self._padded_size(n)
-            args = self._pad_to(imu, video, b)
+            args = self._rows(b, self._pad_to(imu, video, b))
             if staging is None:
                 return b, n, tuple(torch.from_numpy(a) for a in args)
             return b, n, staging.upload(b, args)
 
         def launch(b, staged):
             if staging is None:
-                return {k: v.numpy() for k, v in self._forward(*staged).items()}
+                return {k: v.numpy() for k, v in self._gather(self._forward(*staged)).items()}
             return staging.launch(b, staged)
 
         try:
@@ -525,7 +556,7 @@ class _Slot:
     def __init__(self, g: _Graph):
         self.host_in = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in g.inputs]
         self.dev_in = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in g.inputs]
-        self.host_out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in g.outputs.items()}
+        self.host_out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in g.host.items()}
         self.uploaded = torch.cuda.Event()
         self.done = torch.cuda.Event()
 
@@ -539,8 +570,8 @@ class _StreamStaging:
       buffers, then to its device buffers on the copy stream; ``uploaded`` recorded.
     - ``launch`` (the calling thread): the compute stream waits for ``uploaded``,
       copies the slot into the graph's static inputs, replays, and copies the static
-      outputs into the slot's pinned outputs before a later replay can overwrite them;
-      ``done`` recorded.
+      outputs (gathered over the ranks, under a mesh) into the slot's pinned outputs
+      before a later replay can overwrite them; ``done`` recorded.
     - ``collect``: waits for ``done`` and copies the outputs out of the slot.
     """
 
@@ -574,7 +605,7 @@ class _StreamStaging:
             for dst, src in zip(g.inputs, slot.dev_in):
                 dst.copy_(src)
             g.graph.replay()
-            for k, v in g.outputs.items():
+            for k, v in self.engine._gather(g.outputs).items():
                 slot.host_out[k].copy_(v, non_blocking=True)
         slot.done.record(stream)
         return slot

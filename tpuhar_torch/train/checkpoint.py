@@ -3,7 +3,9 @@
 moments and count, which is also the schedule's position, and the step) and
 ``<name>.json`` (epoch, history and best metric, human-readable). The trainer keeps
 ``last``, ``best_model`` and ``checkpoint_epoch_N`` pairs; ``save_params`` writes the
-pipeline's bare ``final_model_params.pt``.
+pipeline's bare ``final_model_params.pt``. The files hold no mesh: every rank of a
+data-parallel run holds the whole state, so under a ``mesh`` rank 0 writes and the
+others wait at a barrier, and any rank (or a run without a mesh) reads them.
 """
 from __future__ import annotations
 
@@ -13,9 +15,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import barrier, is_main
 
-def save_checkpoint(path, state, extra: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``state`` to ``<path>.pt`` and ``extra`` to ``<path>.json``."""
+
+def save_checkpoint(path, state, extra: Optional[Dict[str, Any]] = None, *, mesh=None) -> None:
+    """Write ``state`` to ``<path>.pt`` and ``extra`` to ``<path>.json`` (rank 0 of
+    ``mesh`` writes, every rank returns once the files are there)."""
+    if not is_main(mesh):
+        barrier(mesh)
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {
@@ -25,6 +33,7 @@ def save_checkpoint(path, state, extra: Optional[Dict[str, Any]] = None) -> None
     }
     torch.save(payload, path.with_suffix(".pt"))
     path.with_suffix(".json").write_text(json.dumps(dict(extra or {}), indent=2, default=str))
+    barrier(mesh)
 
 
 def restore_checkpoint(path, state, *, model_only: bool = False) -> Tuple[Any, Dict[str, Any]]:
@@ -47,9 +56,11 @@ def checkpoint_exists(path) -> bool:
     return Path(path).with_suffix(".pt").exists()
 
 
-def save_params(path, model) -> None:
+def save_params(path, model, *, mesh=None) -> None:
     """The model's parameters alone, ``{name: tensor}`` in ``<path>.pt`` (the JAX
-    package's ``final_model_params.msgpack``)."""
-    path = Path(path).with_suffix(".pt")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({name: p.detach() for name, p in model.named_parameters()}, path)
+    package's ``final_model_params.msgpack``); rank 0 of ``mesh`` writes."""
+    if is_main(mesh):
+        path = Path(path).with_suffix(".pt")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({name: p.detach() for name, p in model.named_parameters()}, path)
+    barrier(mesh)

@@ -8,6 +8,9 @@ receive gradients, and loaded from a flax-layout variable tree (``bridge``) on
 ``imu_encoder`` subtree (``_graft``); a pretrained video backbone on disk
 (``model.video_weights_path``) is converted and grafted into its ``video_encoder``
 subtree before the load (``_maybe_graft_video``).
+
+Each factory takes ``mesh`` (``parallel.mesh``): the state is then broadcast from rank
+0 (``_maybe_shard``, so every rank starts equal) and the steps are the mesh's.
 """
 from __future__ import annotations
 
@@ -93,6 +96,14 @@ def _maybe_graft_video(variables: Mapping, config) -> Mapping:
     return {"params": params, "batch_stats": stats}
 
 
+def _maybe_shard(state: TrainState, mesh) -> TrainState:
+    if mesh is None:
+        return state
+    from ..parallel.mesh import shard_state
+
+    return shard_state(state, mesh)
+
+
 def _masters(model: torch.nn.Module, variables: Mapping, device) -> torch.nn.Module:
     """``model`` with f32 master parameters that receive gradients, loaded from
     ``variables`` on ``device`` (``.float()`` before the load, so that the masters hold
@@ -100,14 +111,14 @@ def _masters(model: torch.nn.Module, variables: Mapping, device) -> torch.nn.Mod
     return load_variables(model.float(), variables).requires_grad_(True).to(device)
 
 
-def build_crossmodal_task(config, steps_per_epoch: int, params: Mapping, *, device) -> Task:
+def build_crossmodal_task(config, steps_per_epoch: int, params: Mapping, *, device, mesh=None) -> Task:
     """``CrossModalModel(config)`` with f32 masters loaded from the flax-layout tree
     ``params`` on ``device``; the pretraining optimizer and the steps."""
     model = CrossModalModel(config, train_loss_scalars=bool(config.training.train_loss_scalars))
     model = _masters(model, _maybe_graft_video(params, config), device)
     optimizer = make_pretrain_optimizer(config, steps_per_epoch, model.parameters())
-    train_step, eval_step = make_crossmodal_steps(config)
-    return Task(model, TrainState(model, optimizer), train_step, eval_step)
+    train_step, eval_step = make_crossmodal_steps(config, mesh)
+    return Task(model, _maybe_shard(TrainState(model, optimizer), mesh), train_step, eval_step)
 
 
 def build_classification_task(
@@ -119,6 +130,7 @@ def build_classification_task(
     encoder_params: Optional[Mapping] = None,
     encoder_batch_stats: Optional[Mapping] = None,
     device,
+    mesh=None,
 ) -> Task:
     """The IMU classifier in ``mode`` ("linear_probe": the encoder frozen; "finetune"),
     loaded from ``params`` (an ``IMUClassifier`` tree) with the ``imu_encoder`` subtree
@@ -129,21 +141,21 @@ def build_classification_task(
     variables = _graft_encoder(params, encoder_params, encoder_batch_stats)
     model = _masters(IMUClassifier(config, freeze_encoder=mode == "linear_probe"), variables, device)
     optimizer = make_classification_optimizer(config, steps_per_epoch, mode, model)
-    train_step, predict_step = make_classification_steps(config)
-    return Task(model, TrainState(model, optimizer), train_step, predict_step)
+    train_step, predict_step = make_classification_steps(config, mesh)
+    return Task(model, _maybe_shard(TrainState(model, optimizer), mesh), train_step, predict_step)
 
 
-def build_video_task(config, steps_per_epoch: int, params: Mapping, *, device) -> Task:
+def build_video_task(config, steps_per_epoch: int, params: Mapping, *, device, mesh=None) -> Task:
     """The video-only clip classifier (a ``VideoClassifier`` tree ``params``), trained
     with the finetune recipe (its parameters are all "head")."""
     model = _masters(VideoClassifier(config), _maybe_graft_video(params, config), device)
     optimizer = make_classification_optimizer(config, steps_per_epoch, "finetune", model)
-    train_step, predict_step = make_video_steps(config)
-    return Task(model, TrainState(model, optimizer), train_step, predict_step)
+    train_step, predict_step = make_video_steps(config, mesh)
+    return Task(model, _maybe_shard(TrainState(model, optimizer), mesh), train_step, predict_step)
 
 
 def build_fusion_task(
-    config, steps_per_epoch: int, params: Mapping, *, encoder_params: Optional[Mapping] = None, device
+    config, steps_per_epoch: int, params: Mapping, *, encoder_params: Optional[Mapping] = None, device, mesh=None
 ) -> Task:
     """The fusion classifier (a ``FusionClassifier`` tree ``params``, its ``imu_encoder``
     subtree replaced by ``encoder_params`` when given), trained with the finetune recipe:
@@ -151,5 +163,5 @@ def build_fusion_task(
     variables = _maybe_graft_video(_graft_encoder(params, encoder_params), config)
     model = _masters(FusionClassifier(config), variables, device)
     optimizer = make_classification_optimizer(config, steps_per_epoch, "finetune", model)
-    train_step, predict_step = make_fusion_steps(config)
-    return Task(model, TrainState(model, optimizer), train_step, predict_step)
+    train_step, predict_step = make_fusion_steps(config, mesh)
+    return Task(model, _maybe_shard(TrainState(model, optimizer), mesh), train_step, predict_step)

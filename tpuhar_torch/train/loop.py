@@ -14,6 +14,13 @@ improvement ``best_model``. Validation accumulates a confusion matrix on the dev
 ``fit(resume=True)`` restores ``last`` and continues from the epoch after it. Losses
 stay on the device through an epoch and are read once at its end. Each epoch's metrics
 go to ``MetricsLogger`` rows in ``paths.logs_dir``, one stream per save directory.
+
+With ``mesh`` (``parallel.mesh``) every rank runs the loop over the same global batches:
+each batch is placed on the mesh (``shard_batch``: this rank's rows) before the step, a
+resumed state is broadcast from rank 0 (``shard_state``), the validation metric that
+decides improvement and early stopping is rank 0's on every rank, and rank 0 alone
+writes checkpoints, history, metric rows and log lines (the others wait for its
+checkpoints at a barrier).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from ..eval.metrics import confusion_update, init_confusion, metrics_from_confusion
+from ..parallel.mesh import agree, is_main
 from ..utils.profiling import MetricsLogger
 from . import checkpoint as ckpt
 from .steps import TrainState
@@ -63,32 +71,46 @@ class EarlyStopper:
 
 class BaseTrainer:
     """Checkpoint, history and metric-stream plumbing. ``generator`` (a
-    ``torch.Generator`` on the model's device) feeds every train step's dropout and
-    augmentation. ``metrics_logger`` writes to ``<paths.logs_dir>/<save_dir name>.jsonl``
-    and ``.csv`` (None where that directory cannot be made)."""
+    ``torch.Generator`` on the model's device, seeded alike on every rank) feeds every
+    train step's dropout and augmentation. ``metrics_logger`` writes to
+    ``<paths.logs_dir>/<save_dir name>.jsonl`` and ``.csv`` (None where that directory
+    cannot be made, and on every rank but 0 of a ``mesh``)."""
 
-    def __init__(self, config, state: TrainState, save_dir, generator: Optional[torch.Generator] = None):
+    def __init__(self, config, state: TrainState, save_dir, generator: Optional[torch.Generator] = None,
+                 mesh=None):
         self.config = config
         self.state = state
+        self.mesh = mesh
         self.save_dir = Path(save_dir)
         self.generator = generator
         self.current_epoch = 0
         self.history: Dict[str, list] = {"train": [], "val": []}
-        self.verbose = True
-        try:
-            self.metrics_logger = MetricsLogger(Path(config.paths.logs_dir), name=self.save_dir.name)
-        except OSError:
-            self.metrics_logger = None
+        self.verbose = is_main(mesh)
+        self.metrics_logger = None
+        if is_main(mesh):
+            try:
+                self.metrics_logger = MetricsLogger(Path(config.paths.logs_dir), name=self.save_dir.name)
+            except OSError:
+                pass
 
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg, flush=True)
+
+    def _shard(self, batch):
+        """``batch`` placed on the mesh (this rank's rows), or as it is without one."""
+        if self.mesh is None:
+            return batch
+        from ..parallel.mesh import shard_batch
+
+        return shard_batch(batch, self.mesh)
 
     def _save(self, name: str, best_key: str, best_value: float) -> None:
         ckpt.save_checkpoint(
             self.save_dir / name,
             self.state,
             extra={"epoch": self.current_epoch, "history": self.history, best_key: best_value},
+            mesh=self.mesh,
         )
 
     def resume(self, name: str = "last") -> bool:
@@ -97,11 +119,17 @@ class BaseTrainer:
         if not ckpt.checkpoint_exists(path):
             return False
         self.state, extra = ckpt.restore_checkpoint(path, self.state)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_state
+
+            self.state = shard_state(self.state, self.mesh)
         self.current_epoch = int(extra.get("epoch", 0)) + 1
         self.history = extra.get("history", {"train": [], "val": []})
         return True
 
     def _dump_history(self) -> None:
+        if not is_main(self.mesh):
+            return
         self.save_dir.mkdir(parents=True, exist_ok=True)
         with open(self.save_dir / "training_history.json", "w") as f:
             json.dump(self.history, f, indent=2)
@@ -110,8 +138,8 @@ class BaseTrainer:
 class CrossModalTrainer(BaseTrainer):
     """The contrastive pretraining loop."""
 
-    def __init__(self, config, state, train_step, eval_step, save_dir, generator=None):
-        super().__init__(config, state, save_dir, generator)
+    def __init__(self, config, state, train_step, eval_step, save_dir, generator=None, mesh=None):
+        super().__init__(config, state, save_dir, generator, mesh)
         self.train_step = train_step
         self.eval_step = eval_step
         self.best_val_loss = float("inf")
@@ -123,7 +151,7 @@ class CrossModalTrainer(BaseTrainer):
     def train_epoch(self, loader) -> float:
         losses = []
         for batch in loader:
-            self.state, metrics = self.train_step(self.state, batch, self.generator)
+            self.state, metrics = self.train_step(self.state, self._shard(batch), self.generator)
             losses.append(metrics["loss"])
         return float(np.mean(torch.stack(losses).float().cpu().numpy())) if losses else 0.0
 
@@ -132,7 +160,7 @@ class CrossModalTrainer(BaseTrainer):
         inside ``eval_step``, so a short final batch does not count as a full one)."""
         losses, weights = [], []
         for batch in loader:
-            out = self.eval_step(self.state, batch)
+            out = self.eval_step(self.state, self._shard(batch))
             losses.append(out["loss"])
             weights.append(float(out["n_valid"]))
         if not losses:
@@ -154,7 +182,7 @@ class CrossModalTrainer(BaseTrainer):
                 train_loader.set_epoch(epoch)
             t0 = time.perf_counter()
             train_loss = self.train_epoch(train_loader)
-            val_loss = self.validate(val_loader)
+            val_loss = agree(self.validate(val_loader), self.mesh)
             dt = time.perf_counter() - t0
             self.history["train"].append(train_loss)
             self.history["val"].append(val_loss)
@@ -185,8 +213,8 @@ class ClassificationTrainer(BaseTrainer):
     """The classification loop of the IMU, video or fusion classifier; ``mode``
     ("linear_probe" or "finetune") names its log lines and metric rows."""
 
-    def __init__(self, config, state, train_step, predict_step, save_dir, generator, mode: str):
-        super().__init__(config, state, save_dir, generator)
+    def __init__(self, config, state, train_step, predict_step, save_dir, generator, mode: str, mesh=None):
+        super().__init__(config, state, save_dir, generator, mesh)
         if mode not in ("linear_probe", "finetune"):
             raise ValueError(f"Unknown classification mode: {mode}")
         self.mode = mode
@@ -202,7 +230,7 @@ class ClassificationTrainer(BaseTrainer):
     def train_epoch(self, loader) -> Dict[str, float]:
         losses, accs = [], []
         for batch in loader:
-            self.state, m = self.train_step(self.state, batch, self.generator)
+            self.state, m = self.train_step(self.state, self._shard(batch), self.generator)
             losses.append(m["loss"])
             accs.append(m["accuracy"])
         if not losses:
@@ -220,7 +248,7 @@ class ClassificationTrainer(BaseTrainer):
         loss_sum = torch.zeros((), dtype=torch.float64, device=device)
         n = 0
         for batch in loader:
-            out = self.predict_step(self.state, batch)
+            out = self.predict_step(self.state, self._shard(batch))  # global outputs
             cm = confusion_update(cm, batch["label"], out["preds"], out["valid"])
             loss_sum = loss_sum + out["loss_sum"].double()
             n += int(batch["n_valid"])
@@ -259,9 +287,10 @@ class ClassificationTrainer(BaseTrainer):
                 f"val_f1={val_metrics['f1_macro']:.2f}%"
             )
 
-            improved = stopper.update(val_metrics["balanced_accuracy"])
+            bal_acc = float(agree(val_metrics["balanced_accuracy"], self.mesh))
+            improved = stopper.update(bal_acc)
             if improved:
-                self.best_bal_acc = float(val_metrics["balanced_accuracy"])
+                self.best_bal_acc = bal_acc
             self._save("last", "best_balanced_accuracy", self.best_bal_acc)
             if improved:
                 self._save("best_model", "best_balanced_accuracy", self.best_bal_acc)

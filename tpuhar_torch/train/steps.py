@@ -20,6 +20,16 @@ With ``data.use_augmentation`` the IMU windows of a train step go through
 dropout's. Each step runs inside ``precision_scope(training.pretrain_matmul_precision)``,
 which sets PyTorch's f32 matmul and cuDNN precision for the step and restores them
 after.
+
+With ``mesh`` (``parallel.mesh``) a step takes the global batch or one already placed by
+``shard_batch``, computes on this rank's rows inside the data-parallel scope
+(``parallel.scope``: global BatchNorm moments, dropout and augmentation draws) and gives
+what the one-device step gives on the global batch: the contrastive loss over every
+rank's embeddings (gathered), the cross-entropy as each rank's share of the global mean,
+the gradients summed over the ranks before the optimizer clips them, and global metrics
+(the eval loss and counts summed, logits, embeddings and predictions gathered, the
+``n_valid`` mask over global row indices). A batch whose rows do not divide over the
+data axis runs whole on every rank, as without a mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import torch
 from .. import losses as L
 from ..ops.augment import augment_imu
 from ..ops.video import normalize_clip
+from ..parallel import scope
 from .optim import AdamW
 
 # pretrain_matmul_precision (JAX's default_matmul_precision names) -> torch's f32 matmul
@@ -99,17 +110,39 @@ def _augmented(config, imu: torch.Tensor, generator) -> torch.Tensor:
     return augment_imu(imu, config, generator) if bool(config.data.use_augmentation) else imu
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
-    """The loss's gradients, then one optimizer step, in place."""
+def _placed(batch: Dict, mesh):
+    """``(batch, shard)``: the batch as this rank holds it and its data-parallel shard
+    (None without a mesh, or for a batch that stays whole)."""
+    if mesh is None:
+        return batch, None
+    from ..parallel.mesh import shard_batch
+
+    batch = shard_batch(batch, mesh)
+    return batch, batch.shard
+
+
+def _update(state: TrainState, loss: torch.Tensor, shard=None) -> None:
+    """The loss's gradients (summed over the ranks in a data-parallel shard, where
+    ``loss`` is this rank's share of the global loss), then one optimizer step, in
+    place."""
     for p in state.optimizer.params:
         p.grad = None
     loss.backward()
+    if shard is not None:
+        scope.all_reduce_grads(state.optimizer.params, shard)
     state.optimizer.step()
     state.step += 1
 
 
-def make_crossmodal_steps(config) -> Tuple[Callable, Callable]:
-    """``(train_step, eval_step)`` of contrastive pretraining."""
+def _gathered(out: Dict, shard) -> Dict:
+    """``out`` with the contrastive embeddings of every rank (the global batch's)."""
+    if shard is None:
+        return out
+    return {**out, **{k: scope.gather_rows(out[k], shard) for k in ("imu_proj", "video_proj")}}
+
+
+def make_crossmodal_steps(config, mesh=None) -> Tuple[Callable, Callable]:
+    """``(train_step, eval_step)`` of contrastive pretraining, over ``mesh`` if given."""
     contrastive_loss = contrastive_loss_fn(config)
     precision = _precision(config)
 
@@ -118,28 +151,30 @@ def make_crossmodal_steps(config) -> Tuple[Callable, Callable]:
         ``torch.Generator`` on the model's device; BatchNorm in train mode), its
         gradients, then the optimizer. Returns the state and ``{"loss"}`` (a 0-d tensor
         on the device: nothing waits for the device)."""
-        with precision_scope(precision):
+        batch, shard = _placed(batch, mesh)
+        with precision_scope(precision), scope.active(shard):
             imu = _augmented(config, batch["imu"], generator)
             out = state.model.forward_cast(imu, normalize_clip(batch["video"]), train=True, generator=generator)
-            loss = contrastive_loss(out)
-            _update(state, loss)
+            loss = contrastive_loss(_gathered(out, shard))  # every rank's: the global loss
+            _update(state, loss if shard is None else loss / shard.size, shard)
         return state, {"loss": loss.detach()}
 
     def eval_step(state: TrainState, batch: Dict) -> Dict:
         """The loss at eval (running BatchNorm stats, no dropout), over the first
         ``n_valid`` rows where the batch is zero-padded."""
+        batch, shard = _placed(batch, mesh)
         n_valid = batch.get("n_valid")
         with precision_scope(precision), torch.no_grad():
-            out = state.model.forward_cast(batch["imu"], normalize_clip(batch["video"]), train=False)
+            out = _gathered(state.model.forward_cast(batch["imu"], normalize_clip(batch["video"]), train=False), shard)
             loss = contrastive_loss(out, n_valid=n_valid)
-        return {"loss": loss, "n_valid": batch["imu"].shape[0] if n_valid is None else n_valid}
+        return {"loss": loss, "n_valid": out["imu_proj"].shape[0] if n_valid is None else n_valid}
 
     return train_step, eval_step
 
 
-def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple]) -> Tuple[Callable, Callable]:
+def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple], mesh=None) -> Tuple[Callable, Callable]:
     """``(train_step, predict_step)`` of a classifier whose model takes ``inputs(batch,
-    train, generator)``."""
+    train, generator)``, over ``mesh`` if given."""
     precision = _precision(config)
 
     def train_step(state: TrainState, batch: Dict, generator=None) -> Tuple[TrainState, Dict]:
@@ -147,17 +182,22 @@ def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple]) -> 
         augmentation from ``generator``, a ``torch.Generator`` on the model's device;
         BatchNorm in train mode), its gradients, then the optimizer. Returns the state
         and ``{"loss", "accuracy"}``, 0-d tensors on the device."""
-        with precision_scope(precision):
+        batch, shard = _placed(batch, mesh)
+        with precision_scope(precision), scope.active(shard):
             logits, _ = state.model.forward_cast(*inputs(batch, True, generator), train=True, generator=generator)
             loss = L.cross_entropy_loss(logits, batch["label"])
-            _update(state, loss)
-        hits = (torch.argmax(logits.detach(), dim=-1) == batch["label"]).float()
-        return state, {"loss": loss.detach(), "accuracy": hits.mean() * 100.0}
+            _update(state, loss if shard is None else loss / shard.size, shard)  # a share of the global mean
+        loss, accuracy = loss.detach(), (torch.argmax(logits.detach(), dim=-1) == batch["label"]).float().mean()
+        if shard is not None:
+            with torch.no_grad():
+                loss, accuracy = scope.mean_over(torch.stack([loss, accuracy]), shard).unbind(0)
+        return state, {"loss": loss, "accuracy": accuracy * 100.0}
 
     def predict_step(state: TrainState, batch: Dict) -> Dict:
         """The eval forward (running BatchNorm statistics, no dropout) on a batch whose
         rows past ``n_valid`` are padding; without ``"label"`` the loss is that of
         class 0."""
+        batch, shard = _placed(batch, mesh)
         with precision_scope(precision), torch.no_grad():
             logits, emb = state.model.forward_cast(*inputs(batch, False, None), train=False)
             B = logits.shape[0]
@@ -165,39 +205,44 @@ def _classifier_steps(config, inputs: Callable[[Dict, bool, object], tuple]) -> 
             if labels is None:
                 labels = torch.zeros(B, dtype=torch.long, device=logits.device)
             loss_per = L.cross_entropy_rows(logits, labels)
-            valid = torch.arange(B, device=logits.device) < torch.as_tensor(batch.get("n_valid", B), device=logits.device)
+            first = 0 if shard is None else shard.rank * B  # the rows' global index
+            n_valid = torch.as_tensor(batch.get("n_valid", B if shard is None else shard.size * B), device=logits.device)
+            loss_sum = (loss_per * (torch.arange(first, first + B, device=logits.device) < n_valid)).sum()
+            if shard is not None:
+                logits, emb = scope.gather_rows(logits, shard), scope.gather_rows(emb, shard)
+                loss_sum = scope.sum_over(loss_sum, shard)
             return {
                 "logits": logits,
                 "embeddings": emb,
                 "preds": torch.argmax(logits, dim=-1),
-                "loss_sum": (loss_per * valid).sum(),
-                "valid": valid,
+                "loss_sum": loss_sum,
+                "valid": torch.arange(logits.shape[0], device=logits.device) < n_valid,
             }
 
     return train_step, predict_step
 
 
-def classification_step_fns(config) -> Tuple[Callable, Callable]:
+def classification_step_fns(config, mesh=None) -> Tuple[Callable, Callable]:
     """``(train_step, predict_step)`` of the IMU classifier: batches ``{"imu": (B, C, T)
     featurized f32, "label"}``."""
 
     def inputs(batch, train, generator):
         return (_augmented(config, batch["imu"], generator) if train else batch["imu"],)
 
-    return _classifier_steps(config, inputs)
+    return _classifier_steps(config, inputs, mesh)
 
 
 # the JAX package jits classification_step_fns' steps under this name; here both are one
 make_classification_steps = classification_step_fns
 
 
-def make_video_steps(config) -> Tuple[Callable, Callable]:
+def make_video_steps(config, mesh=None) -> Tuple[Callable, Callable]:
     """``(train_step, predict_step)`` of the video-only classifier: batches ``{"video":
     (B, T, H, W, 3) uint8, "label"}``, the clip normalized inside the step."""
-    return _classifier_steps(config, lambda batch, train, generator: (normalize_clip(batch["video"]),))
+    return _classifier_steps(config, lambda batch, train, generator: (normalize_clip(batch["video"]),), mesh)
 
 
-def make_fusion_steps(config) -> Tuple[Callable, Callable]:
+def make_fusion_steps(config, mesh=None) -> Tuple[Callable, Callable]:
     """``(train_step, predict_step)`` of the fusion classifier: batches ``{"imu", "video",
     "label"}``."""
 
@@ -205,4 +250,4 @@ def make_fusion_steps(config) -> Tuple[Callable, Callable]:
         imu = _augmented(config, batch["imu"], generator) if train else batch["imu"]
         return imu, normalize_clip(batch["video"])
 
-    return _classifier_steps(config, inputs)
+    return _classifier_steps(config, inputs, mesh)

@@ -122,7 +122,18 @@ Phases; any failed check raises and the exit code is non-zero:
     forwards, 24 of each backward kernel), the trained parameters bit for bit those of
     the same two steps without a mesh from the default loader's; the flagship bf16
     ``InferenceEngine(mesh=)`` at batch 8 (one featurizer and 4 fused convs a graph), its
-    ``predict`` and ``predict_stream`` bit for bit the engine's without a mesh.
+    ``predict`` and ``predict_stream`` bit for bit the engine's without a mesh;
+23. tensor parallel on the card: two spawned processes on cuda:0 over a gloo group (NCCL
+    refuses two ranks on one device), mesh ``(1, 2)``: phase 22's two ``videomae_base``
+    pretraining steps at batch 16 through ``CrossModalTrainer(mesh=)`` with the ViT's 12
+    heads split 6 + 6 and the flagship IMU encoder's 8 split 4 + 4 (24 flash forwards and
+    24 of each backward kernel a rank, at ``(16, 6, 1568, 64)``), each step's time and
+    the time in gloo's all-reduces; the losses and the ``last`` checkpoint (whole
+    tensors) against phase 22's steps without a mesh; the flagship IMU classifier's TP
+    checkpoint served by ``InferenceEngine.from_checkpoint`` against an engine of the same
+    steps without a mesh; the bf16 flagship ``InferenceEngine(mesh=)`` bit for bit the
+    engine's without one (one featurizer and 4 fused convs a graph); the flash kernels
+    against their plain versions at a rank's shape.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -390,6 +401,26 @@ PIPELINE_PLOTS = ("results/pretraining_curves.png", "results/confusion_linear_pr
 # split of 48 windows gives three batches of 16), the clips a decoder is timed on, the
 # engine's size and the requests it answers
 MESH_STEPS, MESH_DECODE_CLIPS, MESH_ENGINE_BATCH, MESH_REQUESTS = 2, 16, 8, (8, 5)
+# phase 23, tensor parallel on the card: two processes on cuda:0 over a gloo group (NCCL
+# refuses two ranks on one device), mesh (1, 2): phase 22's two pretraining steps of 16 on
+# its batches and parameters (videomae_base's 12 heads split 6 + 6 a rank, the flagship IMU
+# encoder's 8 split 4 + 4, both MLPs halved), the flagship IMU classifier's finetune, two
+# steps of 64, whose checkpoint the engine serves, and the bf16 flagship engine at 8. The
+# flash kernels against their plain versions at a rank's shape
+TP_SIZE, TP_IMU_STEPS, TP_IMU_BATCH, TP_FLASH_SHAPE = 2, 2, 64, (16, 6, 1568)
+# the TP steps against phase 22's two steps without a mesh (both bf16 on the card, the same
+# batches and dropout masks; the row-parallel products are summed in f32 and rounded once,
+# the one-device GEMM accumulates in f32 and rounds once, in another order):
+# - each step's loss within PRETRAIN_LOSS_RTOL, relative;
+# - each parameter after the two AdamW steps: AdamW's first steps move an element by about
+#   ±lr whatever its gradient's size, so an element whose gradient the other sum order
+#   rounds to the other sign moves the other way. Every element within Adam's bound on two
+#   moves apart (2.01·Σlr, plus 4 ulps of its value), and at least TP_TIGHT_SHARE of all
+#   elements within TP_TIGHT·Σlr;
+# - the BatchNorm running statistics within TP_STATS_RTOL of each leaf's largest;
+# - the IMU classifier's checkpoint served by InferenceEngine.from_checkpoint against an
+#   engine of the same two steps without a mesh: logits and embeddings by cosine, COSINE_MIN
+TP_TIGHT, TP_TIGHT_SHARE, TP_STATS_RTOL = 0.25, 0.9, 2e-2
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -2341,7 +2372,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> None:
+def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> dict:
     """Phase 22: data parallel over a mesh and the loader backends, on the dataset and
     frame banks phase 21 wrote under ``cfg.paths`` (``pretrain_config()``'s 224², 16
     frames). The probes; the decode times (host clock); three loaders, equal batch for
@@ -2349,7 +2380,9 @@ def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> None:
     ``CrossModalTrainer(mesh=)`` bit for bit against the same steps without a mesh, and
     the flagship engine over the mesh bit for bit against the engine without one. At a
     world of one every all-reduce and all-gather is an identity: the comparisons hold
-    the mesh paths to the one-device paths exactly."""
+    the mesh paths to the one-device paths exactly. Returns the two steps without a
+    mesh (losses, the model's state after them, the batches, the learning rates), which
+    phase 23 holds its tensor-parallel steps to."""
     import pandas as pd
     import torch.distributed as dist
 
@@ -2443,9 +2476,13 @@ def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> None:
         params = init_params(cfg_pt, torch.Generator().manual_seed(0), CrossModalModel)
         plain = build_pretrain_task(cfg_pt, device="cuda", params=params, steps_per_epoch=MESH_STEPS)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for batch in epochs["default"][:MESH_STEPS]:
-            plain.train_step(plain.state, to_device(batch, "cuda"), gen)
+        plain_losses = [plain.train_step(plain.state, to_device(batch, "cuda"), gen)[1]["loss"].item()
+                        for batch in epochs["default"][:MESH_STEPS]]
         want = {n: p.detach().clone() for n, p in plain.model.named_parameters()}
+        # phase 23 holds the tensor-parallel steps to these two steps without a mesh
+        reference = {"losses": plain_losses, "state": {n: t.detach().cpu() for n, t in plain.model.state_dict().items()},
+                     "batches": epochs["default"][:MESH_STEPS], "lrs": [plain.state.optimizer.groups[0][1](i)
+                                                                        for i in range(MESH_STEPS)]}
         del plain
         torch.cuda.empty_cache()
         task = build_pretrain_task(cfg_pt, device="cuda", params=params, steps_per_epoch=MESH_STEPS, mesh=mesh)
@@ -2486,6 +2523,246 @@ def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> None:
     finally:
         dist.destroy_process_group()
     print(f"[mesh] phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return reference
+
+
+def launch_counters() -> dict:
+    """Each hand kernel's wrapper by name: each counts its launches in ``.launches``."""
+    return {
+        "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
+        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
+        "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
+    }
+
+
+def check_flash_at(shape) -> dict:
+    """The flash forward (with and without the stats) and both backward kernels against
+    their plain versions at ``(B, H, N, 64)``, bf16, as phase 12 holds them."""
+    B, H, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, dout = (torch.randn((B, N, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                     for _ in range(4))
+    errs = {}
+    want = flash_lean_reference(q, k, v).float()
+    errs["flash_lean"] = (flash_lean(q, k, v).float() - want).abs().max().item() / want.abs().max().item()
+    out, lse, out_f32 = flash_lean_with_stats(q, k, v, SM_SCALE)
+    errs["flash_lean (stats)"] = (out.float() - want).abs().max().item() / want.abs().max().item()
+    lse_err = (lse - torch.logsumexp((q.float() @ k.float().mT) * SM_SCALE, dim=-1)).abs().max().item()
+    got = flash_lean_backward(q, k, v, out_f32, dout, lse, SM_SCALE)
+    ref = flash_lean_backward_reference(q, k, v, dout, SM_SCALE)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        errs[f"flash backward {name}"] = (g.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+    print(f"[tp] flash kernels at a rank's shape {shape + (64,)} bf16: lse max abs diff {lse_err:.3e}; relative "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    limits = {n: FLASH_BWD_RTOL if "backward" in n else FLASH_RTOL for n in errs}
+    bad = {n: e for n, e in errs.items() if not e <= limits[n]}
+    if bad or not lse_err <= LSE_ATOL:
+        raise AssertionError(f"flash kernels at {shape}: {bad}, lse {lse_err}")
+    return errs
+
+
+def tp_rank(rank: int, port: int, cfg_pt, cfg_cls, out_dir: str) -> None:
+    """Rank ``rank`` of phase 23 on cuda:0, over a gloo group of two: phase 22's two
+    pretraining steps through ``CrossModalTrainer(mesh=)`` on the ``(1, 2)`` mesh with the
+    launches counted (each rank's flash kernels at 6 of the 12 heads), every call to
+    ``torch.distributed.all_reduce`` timed (the card synchronized before and after), the
+    ``last`` checkpoint; the IMU classifier's two finetune steps and its checkpoint; the
+    bf16 flagship engine over the mesh, bit for bit the engine's without one. Writes
+    ``rank{rank}.pt`` to ``out_dir``."""
+    import torch.distributed as dist
+
+    from tpuhar_torch.data.loader import to_device
+    from tpuhar_torch.models.crossmodal import IMUClassifier
+    from tpuhar_torch.ops.attention import FlashSelfAttention
+    from tpuhar_torch.parallel.mesh import create_mesh
+    from tpuhar_torch.train import checkpoint as ckpt
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, counters = Path(out_dir), launch_counters()
+    kernels = {name: {} for name in counters}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=TP_SIZE)
+    try:
+        mesh = create_mesh(model_axis_size=TP_SIZE)
+        task = build_pretrain_task(cfg_pt, device="cuda", params=init_params(cfg_pt, torch.Generator().manual_seed(0),
+                                                                             CrossModalModel),
+                                   steps_per_epoch=MESH_STEPS, mesh=mesh)
+        heads = sorted({m.num_heads for m in task.model.video_encoder.modules() if isinstance(m, FlashSelfAttention)})
+        save_dir = Path(cfg_pt.paths.checkpoints_dir) / "tp_pretrain"
+        trainer = CrossModalTrainer(cfg_pt, task.state, task.train_step, task.eval_step, save_dir,
+                                    generator=torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+        batches = [to_device(b, "cuda") for b in torch.load(out / "batches.pt", weights_only=False)]
+        steps, all_reduce, collective = [], dist.all_reduce, {"s": 0.0, "calls": 0, "bytes": 0}
+
+        def timed_step(state, batch, generator, step=trainer.train_step):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, metrics["loss"].item()))
+            return state, metrics
+
+        def timed_all_reduce(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = all_reduce(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            collective["s"] += time.perf_counter() - t0
+            collective["calls"] += 1
+            collective["bytes"] += tensor.numel() * tensor.element_size()
+            return done
+
+        trainer.train_step = timed_step
+        depth = VIT_CONFIGS[cfg_pt.model.video_backbone][0]
+        expected = {**dict.fromkeys(counters, 0), "flash_lean": depth * MESH_STEPS,
+                    "flash_bwd_dkv": depth * MESH_STEPS, "flash_bwd_dq": depth * MESH_STEPS}
+        dist.all_reduce = timed_all_reduce
+        try:
+            drive_counted(counters, kernels, "tp_pretrain", lambda: trainer.train_epoch(batches), expected)
+        finally:
+            dist.all_reduce = all_reduce
+        memory = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(save_dir / "last", task.state, extra={"epoch": 0}, mesh=mesh)
+        save_s = time.perf_counter() - t0
+        print(f"[tp rank {rank}] heads a flash call {heads}; steps (s, loss) {steps}; all_reduce {collective}; "
+              f"peak memory {memory:.2f} GiB; checkpoint gathered and written in {save_s:.2f} s", flush=True)
+        del task, trainer, batches
+        torch.cuda.empty_cache()
+
+        cls_task = build_classification_task(cfg_cls, "finetune", device="cuda", steps_per_epoch=TP_IMU_STEPS,
+                                             params=init_params(cfg_cls, torch.Generator().manual_seed(0),
+                                                                IMUClassifier), mesh=mesh)
+        cls_heads = sorted({m.num_heads for m in cls_task.model.modules() if hasattr(m, "head_dim")})
+        ClassificationTrainer(cfg_cls, cls_task.state, cls_task.train_step, cls_task.eval_step,
+                              Path(cfg_cls.paths.checkpoints_dir) / "tp_classifier",
+                              torch.Generator(device="cuda").manual_seed(0), "finetune", mesh=mesh).train_epoch(
+            classify_batches(cfg_cls, TP_IMU_STEPS, TP_IMU_BATCH, seed=700, video=False))
+        ckpt.save_checkpoint(Path(cfg_cls.paths.checkpoints_dir) / "tp_classifier" / "last", cls_task.state,
+                             extra={"epoch": 0}, mesh=mesh)
+        del cls_task
+
+        cfg_f = flagship_config()
+        params_f = init_params(cfg_f, torch.Generator().manual_seed(0))
+        engine = InferenceEngine(cfg_f, params_f, batch_sizes=[MESH_ENGINE_BATCH], mesh=mesh, device="cuda")
+        requests = [engine_request(400 + i, n, cfg_f) for i, n in enumerate(MESH_REQUESTS)]
+        check_graph_replay("tp_engine_bf16", engine, requests, counters, kernels,
+                           {"fused_window": 1, "conv3x3_bn_act": 4})
+        single = InferenceEngine(cfg_f, params_f, batch_sizes=[MESH_ENGINE_BATCH], device="cuda")
+        for args in requests:
+            bitwise_equal(engine.predict(*args), single.predict(*args), f"tp rank {rank} engine at {args[0].shape[0]}")
+        torch.save({"steps": steps, "collective": collective, "memory_gib": memory, "save_s": save_s, "heads": heads,
+                    "imu_heads": cls_heads, "launches": {n: k["launches_by_path"] for n, k in kernels.items()}},
+                   out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp_stage(counters: dict, kernels: dict, smi: str, cfg, reference: dict) -> None:
+    """Phase 23: tensor parallel on the card. Two spawned processes on cuda:0 over gloo
+    (``tp_rank``) on a ``(1, 2)`` mesh at full width: phase 22's two pretraining steps,
+    their launches (each rank's flash kernels at ``TP_FLASH_SHAPE``), each step's time and
+    the time spent in gloo's all-reduces; the loss and the gathered parameters of the
+    ``last`` checkpoint against phase 22's steps without a mesh; the IMU classifier's TP
+    checkpoint served by ``InferenceEngine.from_checkpoint`` against an engine of the
+    same steps without a mesh; the mesh engine bit for bit (in each rank); the flash
+    kernels at a rank's shape against their plain versions. A failure in either process
+    fails the phase."""
+    from tpuhar_torch.data.loader import to_device
+    from tpuhar_torch.models.crossmodal import IMUClassifier
+
+    t_phase = time.perf_counter()
+    out = Path(cfg.paths.base_output) / "tp"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(reference["batches"], out / "batches.pt")
+    cfg_pt, cfg_cls = pretrain_config(), classify_config()
+    cfg_pt.paths, cfg_cls.paths = copy.deepcopy(cfg.paths), copy.deepcopy(cfg.paths)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(tp_rank, args=(free_port(), cfg_pt, cfg_cls, str(out)), nprocs=TP_SIZE,
+                                          start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(TP_SIZE)]
+    for name in kernels:
+        for path in ("tp_pretrain", "tp_engine_bf16"):
+            kernels[name].setdefault("launches_by_path", {})[path] = sum(r["launches"][name][path] for r in ranks)
+    print(f"[tp] {TP_SIZE} processes on cuda:0 over gloo, mesh (1, 2), in {spawn_s:.1f} s (start, build, steps, "
+          f"checkpoints, engines); launches a rank {ranks[0]['launches']}; videomae_base heads a flash call "
+          f"{[r['heads'] for r in ranks]}, the IMU encoders' {[r['imu_heads'] for r in ranks]}")
+    if any(r["heads"] != [TP_FLASH_SHAPE[1]] for r in ranks):
+        raise AssertionError(f"tp: the flash calls' heads {[r['heads'] for r in ranks]}, expected {TP_FLASH_SHAPE[1]}")
+    for rank, r in enumerate(ranks):
+        c = r["collective"]
+        print(f"[tp_pretrain rank {rank}] steps of {PRETRAIN_BATCH}: "
+              + ", ".join(f"{s:.3f} s" for s, _ in r["steps"])
+              + f" (the first includes the first use); gloo all_reduce {c['s']:.3f} s in {c['calls']} calls, "
+              f"{c['bytes'] / 1e9:.3f} GB; peak memory {r['memory_gib']:.2f} GiB; the checkpoint gathered and written "
+              f"in {r['save_s']:.2f} s ({smi})")
+    losses = [loss for _, loss in ranks[0]["steps"]]
+    if any([loss for _, loss in r["steps"]] != losses for r in ranks):
+        raise AssertionError(f"tp: the ranks' losses differ: {[r['steps'] for r in ranks]}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, reference["losses"])]
+    print(f"[tp_pretrain] losses {losses} against phase 22's without a mesh {reference['losses']}: relative "
+          + ", ".join(f"{r:.3e}" for r in rel))
+    if not max(rel) <= PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"tp_pretrain: loss relative diffs {rel} > {PRETRAIN_LOSS_RTOL}")
+
+    # the checkpoint: whole tensors, the names and shapes of the state without a mesh
+    payload = torch.load(Path(cfg_pt.paths.checkpoints_dir) / "tp_pretrain" / "last.pt", map_location="cpu",
+                         weights_only=True)
+    got, want = payload["model"], reference["state"]
+    if {n: t.shape for n, t in got.items()} != {n: t.shape for n, t in want.items()}:
+        raise AssertionError("tp_pretrain: the checkpoint's names or shapes differ from the state without a mesh")
+    sum_lr = sum(reference["lrs"])
+    tight, worst, stats = {}, 0.0, {}
+    for name, w in want.items():
+        diff = (got[name].double() - w.double()).abs()
+        if name.endswith((".mean", ".var")):  # BatchNorm running statistics
+            stats[name] = diff.max().item() / max(w.abs().max().item(), 1e-30)
+            continue
+        ulps = 4 * torch.finfo(torch.float32).eps * w.abs().double()
+        if not bool((diff <= 2.01 * sum_lr + ulps).all()):
+            raise AssertionError(f"tp_pretrain: {name} moved beyond Adam's bound: {diff.max().item()}")
+        tight[name] = (int((diff <= TP_TIGHT * sum_lr).sum()), diff.numel())
+        worst = max(worst, diff.max().item())
+    total = sum(n for _, n in tight.values())
+    share = sum(t for t, _ in tight.values()) / total
+    lowest = sorted((t / n, name) for name, (t, n) in tight.items())[:5]
+    print(f"[tp_pretrain] the checkpoint's {len(got)} tensors are whole; after {MESH_STEPS} steps (Σlr {sum_lr:.3e}) "
+          f"{share:.4%} of {total} parameter elements within {TP_TIGHT}·Σlr of the steps without a mesh (the lowest "
+          f"leaves: {', '.join(f'{name} {r:.2%}' for r, name in lowest)}), the largest difference {worst:.3e}; "
+          f"BatchNorm statistics, relative to each leaf's largest: " + ", ".join(f"{n} {e:.3e}" for n, e in stats.items()))
+    if share < TP_TIGHT_SHARE or not all(e <= TP_STATS_RTOL for e in stats.values()):
+        raise AssertionError(f"tp_pretrain: {share} of the elements within {TP_TIGHT}·Σlr, statistics {stats}")
+
+    # the IMU classifier: its TP checkpoint served, against the same steps without a mesh
+    task = build_classification_task(cfg_cls, "finetune", device="cuda", steps_per_epoch=TP_IMU_STEPS,
+                                     params=init_params(cfg_cls, torch.Generator().manual_seed(0), IMUClassifier))
+    ClassificationTrainer(cfg_cls, task.state, task.train_step, task.eval_step, out / "one_classifier",
+                          torch.Generator(device="cuda").manual_seed(0), "finetune").train_epoch(
+        classify_batches(cfg_cls, TP_IMU_STEPS, TP_IMU_BATCH, seed=700, video=False))
+    plain = InferenceEngine(cfg_cls, variables_to_numpy(task.model), imu_only=True, batch_sizes=[MESH_ENGINE_BATCH],
+                            device="cuda")
+    served = InferenceEngine.from_checkpoint(cfg_cls, Path(cfg_cls.paths.checkpoints_dir) / "tp_classifier" / "last",
+                                             imu_only=True, batch_sizes=[MESH_ENGINE_BATCH], device="cuda")
+    agree = []
+    for i, n in enumerate(MESH_REQUESTS):
+        imu = engine_request(500 + i, n, cfg_cls)[0]
+        a, b = served.predict(imu), plain.predict(imu)
+        for key in ("logits", "embeddings"):
+            c = cosine(torch.from_numpy(a[key]), torch.from_numpy(b[key]))
+            agree.append(c)
+            if not c >= COSINE_MIN:
+                raise AssertionError(f"tp_classifier: {key} cosine {c} < {COSINE_MIN}")
+    print(f"[tp_classifier] the TP checkpoint (IMU heads {ranks[0]['imu_heads']} a rank) served by "
+          f"InferenceEngine.from_checkpoint against an engine of the steps without a mesh: logits and embeddings "
+          f"cosines {', '.join(f'{c:.6f}' for c in agree)}")
+    del task, plain, served
+    torch.cuda.empty_cache()
+    print(f"[tp_engine_bf16] in each rank: one featurizer and 4 fused convs a graph; predict on {list(MESH_REQUESTS)} "
+          f"rows equals the engine without a mesh bit for bit")
+    check_flash_at(TP_FLASH_SHAPE)
+    print(f"[tp] phase 23: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2563,11 +2840,7 @@ def main() -> None:
                     "through tpuhar/ops/attention.py:72",
         **bwd["dq"],
     }
-    counters = {
-        "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
-        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
-        "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
-    }
+    counters = launch_counters()
 
     def drive(path: str, fn, requests, expected: dict, cfg) -> list:
         """Serve ``requests`` with every launch count set to 0 just before and read
@@ -2787,7 +3060,8 @@ def main() -> None:
     run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
     cfg_pipeline = run_pipeline_stage(counters, kernels, smi)
     try:
-        run_mesh_stage(counters, kernels, smi, cfg_pipeline)
+        reference = run_mesh_stage(counters, kernels, smi, cfg_pipeline)
+        run_tp_stage(counters, kernels, smi, cfg_pipeline, reference)
     finally:
         shutil.rmtree(Path(cfg_pipeline.paths.base_output).parent, ignore_errors=True)
     for name, k in kernels.items():

@@ -195,6 +195,6 @@ def test_cli_overrides_and_config_roundtrip(tmp_path, monkeypatch):
         main(["--mode", "report", "--config", str(tmp_path / "port.json")])  # --device cuda is the default
     assert build_parser().parse_args([]).device == "cuda"
     assert "torchrun" in build_parser().format_help() and "8e" not in build_parser().format_help()  # the mesh is ported
-    with pytest.raises(NotImplementedError, match="item 8f"):  # tensor parallelism is not
+    with pytest.raises(ValueError, match="needs at least that many devices"):  # TP over 2 ranks in a world of 1
         main(["--mode", "report", "--config", str(tmp_path / "port.json"), "--set", "training.model_axis_size=2",
               "--device", "cpu"])

@@ -2,8 +2,9 @@
 JAX package's rules (``tpuhar/parallel/mesh.py``, ``distributed.py``).
 
 - ``maybe_mesh``: None in one process, with ``data_parallel`` off, and in a world of
-  one; ``model_axis_size > 1`` raises naming ROADMAP item 8f (tensor parallelism is not
-  ported); a mesh ``(world, 1)`` in a world of two.
+  one; ``model_axis_size=2`` in a world of one raises the ``ValueError`` that JAX's
+  raises on one device; a mesh ``(world, 1)`` in a world of two, and ``(1, 2)`` there
+  with ``model_axis_size=2`` (rank ``k`` at model index ``k``).
 - ``create_mesh``: dims ``("data", "model")``, shape ``(world // tp, tp)``; a world
   that does not divide raises, as JAX's does.
 - ``shard_batch``: the rows of each rank are the JAX shard on the matching device of a
@@ -55,8 +56,10 @@ def test_maybe_mesh_follows_jax(monkeypatch):
     cfg.training.data_parallel = False
     assert M.maybe_mesh(cfg) is None and jax_maybe_mesh(cfg) is None
     cfg.training.data_parallel, cfg.training.model_axis_size = True, 2
-    with pytest.raises(NotImplementedError, match="item 8f"):
+    with pytest.raises(ValueError, match="model_axis_size=2 needs at least that many devices; have 1"):
         M.maybe_mesh(cfg)
+    with pytest.raises(ValueError, match="model_axis_size=2 needs at least that many devices; have 1"):
+        jax_maybe_mesh(cfg, jax.devices()[:1])
     assert D.initialize_distributed(device="cpu") is False  # no torchrun environment: one process
     for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(key, raising=False)
@@ -151,10 +154,8 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
         result.update(shape=tuple(mesh.shape), dims=tuple(mesh.mesh_dim_names), slice=D.local_batch_slice(8),
                       shard=(shard.rank, shard.size))
         cfg.training.model_axis_size = 2
-        try:
-            M.maybe_mesh(cfg)
-        except NotImplementedError as e:
-            result["tp"] = str(e)
+        tp = M.maybe_mesh(cfg)
+        result["tp"] = (tuple(tp.shape), tuple(tp.mesh_dim_names), M.model_shard(tp).rank, M.data_shard(tp).size)
         params = init_params(cfg, torch.Generator().manual_seed(rank), IMUClassifier)  # unequal on purpose
         task = build_classification_task(cfg, "finetune", 1, params, device="cpu")
         opt = task.state.optimizer
@@ -181,7 +182,7 @@ def test_world2_group_mesh_state_and_checkpoint(tmp_path):
     for rank, r in enumerate((r0, r1)):
         assert r["initialized"] is True and r["shape"] == (2, 1) and r["dims"] == ("data", "model")
         assert r["slice"] == slice(4 * rank, 4 * rank + 4) and r["shard"] == (rank, 2)
-        assert "item 8f" in r["tp"] and r["written"]
+        assert r["tp"] == ((1, 2), ("data", "model"), rank, 1) and r["written"]
     assert r1["counts"] == r0["counts"] == (3, 5)
     for name, value in r0["state"].items():
         assert torch.equal(r1["state"][name], value), name

@@ -263,6 +263,72 @@ def test_loader_workers_import_no_jax(synthetic_dataset, tmp_path):
     assert proc.stdout.split()[0] == "ok"
 
 
+_TENSOR_PARALLEL = """
+import socket, sys
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpuhar_torch.bridge import init_params
+from tpuhar_torch.config import Config
+from tpuhar_torch.models.crossmodal import IMUClassifier
+from tpuhar_torch.parallel.mesh import maybe_mesh, whole_state
+from tpuhar_torch.train import checkpoint as ckpt
+from tpuhar_torch.train.factory import build_classification_task
+
+
+def rank(r, port, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=r, world_size=2)
+    try:
+        cfg = Config()
+        cfg.model.imu_d_model, cfg.model.imu_nhead, cfg.model.imu_num_layers, cfg.model.num_classes = 32, 4, 1, 4
+        cfg.training.model_axis_size = 2
+        mesh = maybe_mesh(cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(0), IMUClassifier)
+        task = build_classification_task(cfg, "finetune", 1, params, device="cpu", mesh=mesh)
+        rng = np.random.default_rng(0)
+        batch = {"imu": torch.from_numpy(rng.standard_normal((4, 6, 250)).astype(np.float32)),
+                 "label": torch.tensor([0, 1, 2, 3])}
+        _, metrics = task.train_step(task.state, batch, torch.Generator().manual_seed(1))
+        ckpt.save_checkpoint(Path(out) / "last", task.state, mesh=mesh)
+        ckpt.restore_checkpoint(Path(out) / "last", task.state)
+        assert np.isfinite(metrics["loss"].item()) and len(task.model.tp_dims) > 0
+        assert whole_state(task.state)[0].keys() == task.model.state_dict().keys()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuhar"))
+        assert not bad, bad
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.start_processes(rank, args=(port, sys.argv[1]), nprocs=2, start_method="spawn")
+    print("ok")
+"""
+
+
+def test_tensor_parallel_runs_without_jax(tmp_path):
+    """A tensor-parallel finetune step over a ``(1, 2)`` mesh (``maybe_mesh`` with
+    ``model_axis_size=2``: the split blocks, the clip over the model group), its
+    checkpoint gathered, written and restored into the split state, in two spawned gloo
+    ranks with JAX and the JAX package shadowed by packages that fail to import (on the
+    path of the spawned ranks too): no rank loads any of them."""
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "jaxlib", "flax", "optax", "tpuhar"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(f"raise ImportError('{name} is shadowed')\n")
+    script = tmp_path / "tensor_parallel.py"
+    script.write_text(_TENSOR_PARALLEL)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(shadow), str(ROOT)])}
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok" and (tmp_path / "last.pt").exists()
+
+
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     sys.path.insert(0, str(ROOT))
     import chip_smoke

@@ -52,6 +52,25 @@ def _tensors(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], nn.Module, str
             yield prefix + (_flax_name(mod, name),), mod, name, t, is_param
 
 
+def flax_shape(mod: nn.Module, name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of the flax leaf that the port's tensor ``name`` of ``mod`` holds: a
+    Dense kernel ``(in, out)`` or a ``DenseGeneral``'s ``flax_shapes`` entry, a Dense
+    bias ``(out,)`` or its ``flax_shapes`` entry, else the tensor's own shape."""
+    if isinstance(mod, nn.Linear) and name in ("weight", "bias"):
+        leaf = _flax_name(mod, name)
+        default = (mod.in_features, mod.out_features) if name == "weight" else (mod.out_features,)
+        return tuple(getattr(mod, "flax_shapes", {}).get(leaf, default))
+    return tuple(t.shape)
+
+
+def flax_parameters(model: nn.Module) -> Iterator[Tuple[str, str, nn.Module, str, torch.Tensor]]:
+    """``(flax path "a/b/kernel", torch name "a.b.weight", module, the module's own name of
+    it, tensor)`` for every parameter of ``model``."""
+    for key, mod, name, t, is_param in _tensors(model):
+        if is_param:
+            yield "/".join(key), ".".join((*key[:-1], name)), mod, name, t
+
+
 def _flatten(tree: Mapping, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
     for k, v in tree.items():
         if isinstance(v, Mapping):

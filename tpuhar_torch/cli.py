@@ -27,12 +27,17 @@ machine has none) it prints ``[Report] matplotlib is not installed: <path> not w
 and the stage goes on; the JAX package's CLI does not start without matplotlib.
 
 Several processes (torchrun): ``Pipeline`` joins the process group
-(``parallel.distributed.initialize_distributed``) and builds the data-parallel mesh
-(``parallel.mesh.maybe_mesh``), which every pretraining and classification task, trainer
-and serving engine takes; every rank runs those stages over the same global batches and
-holds its rows of each. Rank 0 alone preprocesses, writes checkpoints, reports and
-results, and runs the stages that take no mesh (zero-shot, few-shot, leave-one-out,
-ablations, the final report); the other ranks wait for it at a barrier after each.
+(``parallel.distributed.initialize_distributed``) and builds the mesh
+(``parallel.mesh.maybe_mesh``: data parallel, and with ``training.model_axis_size=tp``
+tensor parallel over a ``(N // tp, tp)`` mesh), which every pretraining and
+classification task, trainer and serving engine takes; every rank runs those stages over
+the same global batches and holds its rows of each, and its shard of the split blocks.
+Rank 0 alone preprocesses, writes checkpoints, reports and results, and runs the stages
+that take no mesh (zero-shot, few-shot, leave-one-out, ablations, the final report); the
+other ranks wait for it at a barrier after each. Those stages build whole models from
+the checkpoints, which hold whole tensors: every rank gathers its model group's shards
+when a checkpoint is written, so no collective waits on rank 0 alone. The pretrained
+encoder handed to the classification factories is whole, and they split it again.
 """
 from __future__ import annotations
 
@@ -80,7 +85,7 @@ def _main_only(stage):
 
 class Pipeline:
     """The stages over the port (``tpuhar/cli.py: Pipeline``) on ``device``, over the
-    data-parallel ``mesh`` of a multi-process run (None in one process)."""
+    ``mesh`` of a multi-process run (None in one process)."""
 
     def __init__(self, config: Optional[Config] = None, *, device="cuda"):
         self.config = config or CONFIG
@@ -458,7 +463,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpuhar_torch",
         description="Cross-modal IMU-video HAR pipeline on PyTorch: one CUDA device, the CPU with --device cpu, "
         "or data parallel over N processes under `torchrun --nproc_per_node=N -m tpuhar_torch` (one card each, "
-        "or gloo on the CPU).",
+        "or gloo on the CPU), tensor parallel too with --set training.model_axis_size=TP.",
     )
     parser.add_argument(
         "--mode",

@@ -8,8 +8,13 @@ Training (``train=True``) follows flax's train mode: BatchNorm normalizes with t
 batch's statistics and updates its running ones, and dropout draws its masks from an
 explicit ``torch.Generator`` (``dropout``). Inside a data-parallel scope
 (``parallel.scope``) both are global: BatchNorm's moments are those of the global batch,
-and a dropout mask over the batch is this rank's rows of the global batch's mask. For training, parameters are kept as f32
-leaves and cast to the dtype each module was built in at use
+and a dropout mask over the batch is this rank's rows of the global batch's mask. Split
+over the mesh's model axis (``parallel.mesh.shard_params``), the attention holds its
+rank's heads and the blocks' MLPs their rank's hidden units (``split_over_model``):
+column-parallel in, row-parallel out (``scope.copy_to_model``, ``scope.row_parallel``),
+a dropout mask on the split hidden units this rank's columns of the whole width's. A
+module whose heads or hidden width do not divide stays whole. For training, parameters
+are kept as f32 leaves and cast to the dtype each module was built in at use
 (``models.crossmodal.CrossModalModel.forward_cast``), as flax casts its f32 parameters
 to ``dtype``; the serving forwards build the modules in the compute dtype and cast
 nothing.
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import FlashSelfAttention, head_projections
+from ..ops.attention import FlashSelfAttention, SplitHeads, head_projections
 from ..parallel import scope
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
@@ -33,19 +38,21 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): ra = 0.9·ra + 0.1·batch
 
 
-def dropout(x: torch.Tensor, rate: float, generator=None, shape=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator=None, shape=None, cols=None) -> torch.Tensor:
     """flax's dropout: keep each element with probability ``1 − rate`` and scale the
     kept ones by ``1/(1 − rate)``; the mask is drawn from ``generator`` in ``shape`` and
     broadcast over ``x``. Without ``shape`` the mask is ``x``'s, batch first: in a
-    data-parallel scope, this rank's rows of the global batch's mask. A ``shape`` given is
-    a mask shared over the batch, drawn the same on every rank."""
+    data-parallel scope, this rank's rows of the global batch's mask, and with ``cols``
+    (a ``ModelShard``: ``x``'s last dimension is split over the model axis) this rank's
+    columns of the whole width's. A ``shape`` given is a mask shared over the batch,
+    drawn the same on every rank."""
     if rate <= 0.0:
         return x
 
     def draw(size):
         return torch.rand(size, generator=generator, device=x.device)
 
-    keep = (draw(shape) if shape is not None else scope.draw_rows(draw, x.shape)) >= rate
+    keep = (draw(shape) if shape is not None else scope.draw_rows(draw, x.shape, cols)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -94,7 +101,7 @@ def norm_layer(kind: str, features: int, *, dtype=torch.float32) -> nn.Module:
     raise ValueError(f"Unknown norm kind: {kind}")
 
 
-class MultiHeadDotProductAttention(nn.Module):
+class MultiHeadDotProductAttention(SplitHeads):
     """``flax.linen.MultiHeadDotProductAttention``: q/k/v ``DenseGeneral`` to
     ``(H, Dh)`` with per-head bias, the query scaled by ``1/sqrt(Dh)`` before the dot, a
     softmax over keys (in f32), and an ``out`` ``DenseGeneral`` back to D. With
@@ -103,14 +110,16 @@ class MultiHeadDotProductAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, *, dropout_rate: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, d_model // num_heads
         self.dropout_rate = dropout_rate
         self.query, self.key, self.value, self.out = head_projections(d_model, num_heads, dtype=dtype)
 
     def forward(self, inputs_q, inputs_kv, *, train: bool = False, generator=None):
-        B, Nq, D = inputs_q.shape
-        H = self.num_heads
-        Dh = D // H
+        B, Nq, _ = inputs_q.shape
+        H, Dh = self.num_heads, self.head_dim
+        same = inputs_kv is inputs_q
+        inputs_q = scope.copy_to_model(inputs_q, self.tp)
+        inputs_kv = inputs_q if same else scope.copy_to_model(inputs_kv, self.tp)
 
         def heads(t):  # (B, N, H·Dh) → (B, H, N, Dh)
             return t.view(B, t.shape[1], H, Dh).transpose(1, 2)
@@ -119,19 +128,32 @@ class MultiHeadDotProductAttention(nn.Module):
         k = heads(self.key(inputs_kv))
         v = heads(self.value(inputs_kv))
         w = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1).to(v.dtype)
-        if train:
+        if train:  # shared over the heads: every model rank draws the same mask
             w = dropout(w, self.dropout_rate, generator, shape=(1, 1, *w.shape[-2:]))
-        return self.out((w @ v).transpose(1, 2).reshape(B, Nq, D))
+        return scope.row_parallel(self.out, (w @ v).transpose(1, 2).reshape(B, Nq, H * Dh), self.tp)
 
 
-class TransformerEncoderBlock(nn.Module):
+class _SplitMLP(nn.Module):
+    """A block whose MLP of ``d_ff`` hidden units (``linear1``/``mlp_in`` →
+    ``linear2``/``mlp_out``) may be split over the model axis: ``mlp_tp`` is its
+    ``ModelShard`` once ``split_over_model`` sees its first dense hold a block of them."""
+
+    mlp_tp = None
+
+    def split_over_model(self, shard) -> None:
+        first = self.linear1 if hasattr(self, "linear1") else self.mlp_in
+        if first.out_features < self.d_ff:
+            self.mlp_tp = shard
+
+
+class TransformerEncoderBlock(_SplitMLP):
     """Post-norm encoder layer with ReLU:
     ``x = LN(x + Drop(SelfAttn(x))); x = LN(x + Drop(W2 Drop(relu(W1 x))))``; the
     dropouts (and the attention weights' one) act only with ``train=True``."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.dropout_rate = dropout
+        self.dropout_rate, self.d_ff = dropout, d_ff
         self.self_attn = MultiHeadDotProductAttention(d_model, num_heads, dropout_rate=dropout, dtype=dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.linear1 = nn.Linear(d_model, d_ff, dtype=dtype)
@@ -142,11 +164,11 @@ class TransformerEncoderBlock(nn.Module):
         rate = self.dropout_rate if train else 0.0
         attn = dropout(self.self_attn(x, x, train=train, generator=generator), rate, generator)
         x = self.norm1(x + attn)
-        h = dropout(torch.relu(self.linear1(x)), rate, generator)
-        return self.norm2(x + dropout(self.linear2(h), rate, generator))
+        h = dropout(torch.relu(self.linear1(scope.copy_to_model(x, self.mlp_tp))), rate, generator, cols=self.mlp_tp)
+        return self.norm2(x + dropout(scope.row_parallel(self.linear2, h, self.mlp_tp), rate, generator))
 
 
-class PreNormBlock(nn.Module):
+class PreNormBlock(_SplitMLP):
     """Pre-norm ViT block: ``x += SelfAttn(LN(x)); x += W2 gelu(W1 LN(x))``.
 
     ``use_flash`` picks ``FlashSelfAttention`` over ``MultiHeadDotProductAttention``
@@ -165,7 +187,7 @@ class PreNormBlock(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
-        self.use_flash = use_flash
+        self.use_flash, self.d_ff = use_flash, d_ff
         self.gelu = "tanh" if gelu_approximate else "none"
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         if use_flash:
@@ -181,11 +203,11 @@ class PreNormBlock(nn.Module):
         ``VideoViT`` builds them with rate 0) and no BatchNorm."""
         h = self.norm1(x)
         x = x + (self.self_attn(h) if self.use_flash else self.self_attn(h, h))
-        h = F.gelu(self.mlp_in(self.norm2(x)), approximate=self.gelu)
-        return x + self.mlp_out(h)
+        h = F.gelu(self.mlp_in(scope.copy_to_model(self.norm2(x), self.mlp_tp)), approximate=self.gelu)
+        return x + scope.row_parallel(self.mlp_out, h, self.mlp_tp)
 
 
-class CrossAttentionBlock(nn.Module):
+class CrossAttentionBlock(_SplitMLP):
     """Pre-norm cross-attention + MLP block; the MLP's GELU is flax's default tanh
     approximation. With ``train=True`` and a ``dropout`` rate, dropout acts on the
     attention weights (``MultiHeadDotProductAttention``'s) and on both branches before
@@ -193,7 +215,7 @@ class CrossAttentionBlock(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.dropout_rate = dropout
+        self.dropout_rate, self.d_ff = dropout, d_ff
         self.norm_q = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.norm_kv = nn.LayerNorm(d_model, eps=LN_EPS, dtype=dtype)
         self.cross_attn = MultiHeadDotProductAttention(d_model, num_heads, dropout_rate=dropout, dtype=dtype)
@@ -205,8 +227,8 @@ class CrossAttentionBlock(nn.Module):
         rate = self.dropout_rate if train else 0.0
         h = self.cross_attn(self.norm_q(q), self.norm_kv(kv), train=train, generator=generator)
         q = q + dropout(h, rate, generator)
-        h = F.gelu(self.mlp_in(self.norm_mlp(q)), approximate="tanh")
-        return q + dropout(self.mlp_out(h), rate, generator)
+        h = F.gelu(self.mlp_in(scope.copy_to_model(self.norm_mlp(q), self.mlp_tp)), approximate="tanh")
+        return q + dropout(scope.row_parallel(self.mlp_out, h, self.mlp_tp), rate, generator)
 
 
 class ProjectionHead(nn.Module):

@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..parallel import scope
 from .flash_lean import FlashLean, flash_lean
 
 
@@ -33,7 +34,21 @@ def head_projections(d_model: int, num_heads: int, *, dtype=torch.float32) -> Tu
     return (*qkv, out)
 
 
-class FlashSelfAttention(nn.Module):
+class SplitHeads(nn.Module):
+    """An attention with flax's ``query``/``key``/``value``/``out`` projections over
+    ``num_heads`` heads of ``head_dim``, which ``parallel.mesh.shard_params`` may split
+    over the model axis: ``split_over_model`` then makes it compute this rank's heads
+    (``query`` holds ``H/tp`` of them, ``out`` their input columns) and issue the
+    collectives over ``tp``, its ``ModelShard``."""
+
+    tp = None
+
+    def split_over_model(self, shard) -> None:
+        if self.query.out_features < self.num_heads * self.head_dim:
+            self.num_heads, self.tp = self.query.out_features // self.head_dim, shard
+
+
+class FlashSelfAttention(SplitHeads):
     """Self-attention through ``flash_lean`` (the flash kernel); the parameters are those of
     flax's ``MultiHeadDotProductAttention`` (``query``/``key``/``value``/``out``).
 
@@ -43,23 +58,28 @@ class FlashSelfAttention(nn.Module):
     ``FlashLean`` (the forward also stores each row's log-sum-exp, and the backward runs
     the dK/dV and dQ kernels); under ``no_grad`` or ``inference_mode`` through
     ``flash_lean``, which stores nothing more.
+
+    Split over the mesh's model axis it computes this rank's ``H/tp`` heads: the kernels
+    read them as strided views of the local ``(B, N, H/tp·Dh)`` projections, and the
+    output projection is row-parallel (``parallel.scope``).
     """
 
     def __init__(self, d_model: int, num_heads: int, *, dtype=torch.float32):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, d_model // num_heads
         self.query, self.key, self.value, self.out = head_projections(d_model, num_heads, dtype=dtype)
 
     def forward(self, x):
-        B, N, D = x.shape
-        H = self.num_heads
+        B, N, _ = x.shape
+        H, Dh = self.num_heads, self.head_dim
+        x = scope.copy_to_model(x, self.tp)
 
         def heads(t):  # (B, N, H·Dh) → a (B, H, N, Dh) view
-            return t.view(B, N, H, D // H).transpose(1, 2)
+            return t.view(B, N, H, Dh).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         if torch.is_grad_enabled():
-            ctx = FlashLean.apply(q, k, v, 1.0 / (D // H) ** 0.5)
+            ctx = FlashLean.apply(q, k, v, 1.0 / Dh ** 0.5)
         else:
             ctx = flash_lean(q, k, v)
-        return self.out(ctx.transpose(1, 2).reshape(B, N, D))
+        return scope.row_parallel(self.out, ctx.transpose(1, 2).reshape(B, N, H * Dh), self.tp)

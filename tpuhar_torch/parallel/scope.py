@@ -1,4 +1,4 @@
-"""The data-parallel scope of a step: the global view that JAX's sharded steps have.
+"""The scopes of a step over the mesh: the global view that JAX's sharded steps have.
 
 Under a JAX mesh the sharded step computes the one-device step on the global batch
 (GSPMD). A rank that holds only its rows computes that function only where every
@@ -14,7 +14,19 @@ quantity that spans rows is made global. Inside ``active(shard)``:
 The collectives carry autograd, with the sum of the ranks' losses as the objective: the
 backward of a sum over ranks all-reduces the gradient, the backward of a gather
 all-reduces it and keeps this rank's rows. At a world of one process each is an identity.
-Outside a scope (``current()`` is None) nothing changes.
+Outside a scope (``current()`` is None) nothing changes. A data axis of one rank needs
+no scope: the steps and the engine run such a batch whole, as without a mesh.
+
+Over the mesh's model axis (``ModelShard``; tensor parallelism, Megatron-style) a module
+whose parameters ``parallel.mesh.shard_params`` split holds the shard itself: the
+attention's heads and the MLP's hidden units are column-parallel going in
+(``copy_to_model``: the identity, its gradient all-reduced over the model group), the
+attention's output projection and the MLP's second dense row-parallel going out
+(``row_parallel``: the partial products all-reduced in f32, the bias added once after
+the sum). A dropout mask over a split activation is this rank's rows and hidden columns
+of the global tensor's mask (``draw_rows(..., cols=)``). The model shard rides on the
+modules, so a remat recompute replays the same collectives in the same order on every
+rank.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
@@ -37,6 +50,20 @@ class DataShard:
 
     def rows(self, n_local: int) -> slice:
         """This rank's rows of a global batch of ``size · n_local`` rows."""
+        return slice(self.rank * n_local, (self.rank + 1) * n_local)
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """This process's place on the mesh's model axis: ``rank`` of ``size``, over
+    ``group``."""
+
+    rank: int
+    size: int
+    group: object = None
+
+    def block(self, n_local: int) -> slice:
+        """This rank's block of a dimension of ``size · n_local`` split over the axis."""
         return slice(self.rank * n_local, (self.rank + 1) * n_local)
 
 
@@ -108,14 +135,71 @@ def gather_rows(x: torch.Tensor, shard: DataShard) -> torch.Tensor:
     return _GatherRows.apply(x, shard)
 
 
-def draw_rows(draw: Callable[[Sequence[int]], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+def draw_rows(draw: Callable[[Sequence[int]], torch.Tensor], shape: Sequence[int],
+              cols: Optional[ModelShard] = None) -> torch.Tensor:
     """``draw(shape)``, or in a scope this rank's rows of ``draw`` for the global batch
-    (``shape[0]`` is the batch, or a batch-major flattening of it)."""
+    (``shape[0]`` is the batch, or a batch-major flattening of it); with ``cols`` (the
+    last dimension split over the model axis) this rank's block of the last dimension
+    of the draw for the whole width. Every rank draws the same global tensor, so the
+    generators advance alike."""
     shard = current()
+    full = list(shape)
+    if shard is not None:
+        full[0] *= shard.size
+    if cols is not None:
+        full[-1] *= cols.size
+    mask = draw(tuple(full))
+    if shard is not None:
+        mask = mask[shard.rows(shape[0])]
+    if cols is not None:
+        mask = mask[..., cols.block(shape[-1])]
+    return mask
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """The input of a column-parallel product: ``x`` itself, whose gradient (each rank's
+    from its columns) is summed over the model group in the backward."""
+    return x if shard is None else _CopyToModel.apply(x, shard.group)
+
+
+def row_parallel(linear: torch.nn.Module, x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """``linear(x)`` where ``linear`` holds this rank's block of input columns and ``x``
+    the matching block of features: the partial products in f32, summed over the model
+    group, the bias added once after the sum, then one rounding to ``x``'s dtype (the
+    one-device GEMM accumulates in f32 and rounds once). ``linear(x)`` without a
+    shard."""
     if shard is None:
-        return draw(tuple(shape))
-    n = shape[0]
-    return draw((shard.size * n, *shape[1:]))[shard.rows(n)]
+        return linear(x)
+    # the partials summed over the group; the gradient passes through to each
+    y = _ReduceFromModel.apply(F.linear(x.float(), linear.weight.float()), shard.group)
+    if linear.bias is not None:
+        y = y + linear.bias.float()
+    return y.to(x.dtype)
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter], shard: DataShard) -> None:

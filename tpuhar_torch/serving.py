@@ -19,7 +19,9 @@ eager execution or to the CPU. On the CPU the program runs eagerly.
 With ``mesh`` (``parallel.mesh``, data parallel) every rank serves the same requests:
 each runs its rows of every padded batch through its own program (its graph holds
 ``b / ranks`` rows) and the outputs are gathered across the ranks after the replay,
-outside the graph, so every rank returns the global answer.
+outside the graph, so every rank returns the global answer. The parameters are whole on
+every rank, a mesh's model axis included (the JAX package's engine replicates them and
+splits the batch over ``"data"`` only); the ranks of one model column serve the same rows.
 """
 from __future__ import annotations
 
@@ -164,10 +166,11 @@ class InferenceEngine:
         if mesh is not None:
             from .parallel.mesh import data_shard
 
-            self._shard = data_shard(mesh)
-            uneven = [b for b in self.batch_sizes if b % self._shard.size]
+            shard = data_shard(mesh)
+            uneven = [b for b in self.batch_sizes if b % shard.size]
             if uneven:
-                raise ValueError(f"batch sizes {uneven} do not divide over the mesh's {self._shard.size} data ranks")
+                raise ValueError(f"batch sizes {uneven} do not divide over the mesh's {shard.size} data ranks")
+            self._shard = shard if shard.size > 1 else None  # one data rank serves every row
         self.mahalanobis = None if mahalanobis is None else mahalanobis.to(self.device)
         self.extra_scorers = {name: s.to(self.device) for name, s in (extra_scorers or {}).items()}
         self.temperature = float(temperature)

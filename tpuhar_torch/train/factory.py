@@ -9,8 +9,11 @@ receive gradients, and loaded from a flax-layout variable tree (``bridge``) on
 (``model.video_weights_path``) is converted and grafted into its ``video_encoder``
 subtree before the load (``_maybe_graft_video``).
 
-Each factory takes ``mesh`` (``parallel.mesh``): the state is then broadcast from rank
-0 (``_maybe_shard``, so every rank starts equal) and the steps are the mesh's.
+Each factory takes ``mesh`` (``parallel.mesh``): every rank builds the whole model from
+the same tree (grafts included: a graft acts on whole weights, before any split), then
+``_maybe_shard`` splits its parameters and moments over the model axis and broadcasts the
+state from the data axis's rank 0 (so every rank starts equal), and the steps are the
+mesh's.
 """
 from __future__ import annotations
 

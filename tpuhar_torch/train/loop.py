@@ -17,7 +17,8 @@ go to ``MetricsLogger`` rows in ``paths.logs_dir``, one stream per save director
 
 With ``mesh`` (``parallel.mesh``) every rank runs the loop over the same global batches:
 each batch is placed on the mesh (``shard_batch``: this rank's rows) before the step, a
-resumed state is broadcast from rank 0 (``shard_state``), the validation metric that
+resumed state takes its shard of the whole checkpoint and is broadcast from rank 0
+(``shard_state``), the validation metric that
 decides improvement and early stopping is rank 0's on every rank, and rank 0 alone
 writes checkpoints, history, metric rows and log lines (the others wait for its
 checkpoints at a barrier).

@@ -23,6 +23,7 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which the JAX package keeps
 
@@ -75,7 +76,13 @@ class AdamW:
     norm only, and it keeps no moments. ``params`` lists every parameter, ``mu`` and
     ``nu`` the moments of the updated ones in group order. The update runs on the
     parameters' device as a few multi-tensor kernels and reads nothing back to the host;
-    each updated group adds one host float, its learning rate."""
+    each updated group adds one host float, its learning rate.
+
+    Over a mesh's model axis (``split_over_model``, set by ``parallel.mesh.shard_state``)
+    a split parameter's gradient is this rank's block: the squares of the split ones are
+    summed over the model group and the replicated ones counted once, so the clip sees
+    the whole model's norm. Weight decay and the moments act element by element, on each
+    rank's block."""
 
     def __init__(self, groups: Sequence[Tuple[Iterable[torch.nn.Parameter], Optional[Callable[[int], float]]]], *,
                  max_norm: float, weight_decay: float):
@@ -86,13 +93,33 @@ class AdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.trained]
         self.nu = [torch.zeros_like(p) for p in self.trained]
+        self.model_split = None  # (ModelShard, a flag per parameter: split over the model axis)
+
+    def split_over_model(self, shard, split) -> None:
+        """Clip by the whole model's norm where the parameters flagged in ``split`` (one
+        flag per entry of ``params``) hold this rank's block over ``shard``'s group."""
+        self.model_split = (shard, list(split))
+
+    def _global_norm(self) -> torch.Tensor:
+        """‖g‖ over every gradient (a parameter without one adds 0)."""
+        if self.model_split is None:
+            present = [p.grad for p in self.params if p.grad is not None]
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        shard, split = self.model_split
+        device = self.params[0].device
+        sums = []
+        for flag in (True, False):
+            grads = [p.grad for p, f in zip(self.params, split) if f == flag and p.grad is not None]
+            norms = torch._foreach_norm(grads) if grads else [torch.zeros((), device=device)]
+            sums.append(torch.stack(norms).float().square().sum())
+        dist.all_reduce(sums[0], group=shard.group)  # every rank of the group calls it
+        return torch.sqrt(sums[0] + sums[1])
 
     @torch.no_grad()
     def step(self) -> None:
         # optax.clip_by_global_norm over every gradient: (g / ‖g‖) · max_norm unless
         # ‖g‖ < max_norm; a parameter without a gradient adds 0 to the norm
-        present = [p.grad for p in self.params if p.grad is not None]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        g_norm = self._global_norm()
         keep = g_norm < self.max_norm
         one = torch.ones_like(g_norm)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.trained]

@@ -29,7 +29,15 @@ rank's embeddings (gathered), the cross-entropy as each rank's share of the glob
 the gradients summed over the ranks before the optimizer clips them, and global metrics
 (the eval loss and counts summed, logits, embeddings and predictions gathered, the
 ``n_valid`` mask over global row indices). A batch whose rows do not divide over the
-data axis runs whole on every rank, as without a mesh.
+data axis, or a data axis of one rank, runs whole on every rank, as without a mesh.
+
+Over the mesh's model axis a step runs inside both scopes: the data scope of its batch
+and the model scope its split blocks carry (``parallel.scope``: their collectives over
+the model group). Every model rank of a data row then holds the same loss, outputs and
+gradients of the replicated parameters, and its block of the split ones' gradients;
+``_update`` sums the gradients over the data group only (a sum over the model group
+would count the replicated ones ``tp`` times), and the optimizer clips by the whole
+model's norm.
 """
 from __future__ import annotations
 
@@ -122,9 +130,9 @@ def _placed(batch: Dict, mesh):
 
 
 def _update(state: TrainState, loss: torch.Tensor, shard=None) -> None:
-    """The loss's gradients (summed over the ranks in a data-parallel shard, where
-    ``loss`` is this rank's share of the global loss), then one optimizer step, in
-    place."""
+    """The loss's gradients (summed over the data group's ranks in a data-parallel
+    shard, where ``loss`` is this rank's share of the global loss), then one optimizer
+    step, in place."""
     for p in state.optimizer.params:
         p.grad = None
     loss.backward()

@@ -133,7 +133,20 @@ Phases; any failed check raises and the exit code is non-zero:
     checkpoint served by ``InferenceEngine.from_checkpoint`` against an engine of the same
     steps without a mesh; the bf16 flagship ``InferenceEngine(mesh=)`` bit for bit the
     engine's without one (one featurizer and 4 fused convs a graph); the flash kernels
-    against their plain versions at a rank's shape.
+    against their plain versions at a rank's shape;
+24. the centered int8 wire and the validation workflows: the stem on ``center_u8`` codes
+    (through the int8 GEMM kernel) against the uint8 wire of the same pixels and the plain
+    version, bit for bit over every byte value at ``(4096·196, 768) -> 256`` int8 out,
+    both forms timed in turns; the int8-resident flagship ``InferenceEngine(int8_wire=
+    "centered")`` at 8 and 256 against the uint8 engine, bit for bit on a replay and
+    eagerly, with the launches a replay holds and both engines' replay and ``predict``
+    times in turns; then ``bench_accuracy`` (``tpu_cnn`` and ResNet-18 at 224², 16
+    frames, 3 classes, one epoch, held-out classes 0 and 1), ``validate_int8_ood`` on
+    each tower's checkpoints (per class the f32 and int8 AUROCs, their gaps and the
+    largest logit gap between the paths), ``rescore_ood_hard`` on the same checkpoints and
+    ``article_workflow --quick`` (in a second process started with the phase), each JSON
+    under ``outputs/torch/`` parsed and held to the JAX script's keys and finite numbers,
+    with each workflow's kernel launches.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -206,6 +219,7 @@ from tpuhar_torch.ops import quant_vit as quant_vit_module
 from tpuhar_torch.ops.quant import quant_tpucnn_forward_resident, tree_to
 from tpuhar_torch.ops.quant_vit import quant_vit_forward, vit_forward_f32
 from tpuhar_torch.ops.stem import (
+    center_u8,
     int8_gemm,
     int8_gemm_reference,
     stem_gemm_u8,
@@ -421,6 +435,17 @@ TP_SIZE, TP_IMU_STEPS, TP_IMU_BATCH, TP_FLASH_SHAPE = 2, 2, 64, (16, 6, 1568)
 # - the IMU classifier's checkpoint served by InferenceEngine.from_checkpoint against an
 #   engine of the same two steps without a mesh: logits and embeddings by cosine, COSINE_MIN
 TP_TIGHT, TP_TIGHT_SHARE, TP_STATS_RTOL = 0.25, 0.9, 2e-2
+# phase 24, the centered int8 wire: the stem at the int8-resident engine's batch 256
+# ((4096·196, 768) -> 256, int8 out) on center_u8 codes and on the uint8 wire of the same
+# pixels, bit for bit, each timed CENTERED_TURNS times in turns; the int8-resident engine
+# on each wire at CENTERED_ENGINE_SIZES, bit for bit
+CENTERED_FRAMES, CENTERED_TURNS, CENTERED_ENGINE_SIZES = 4096, 2, [8, 256]
+# and the validation workflows at full width (224², 16 frames) on a small fixture: the
+# hard fixture's 3 classes, 2 sequences a class and split, one epoch, held-out classes 0
+# and 1; article_workflow --quick in a second process from the phase's start
+WORKFLOW_TOWERS, WORKFLOW_LOO = ("tpu_cnn", "resnet18"), "0,1"
+WORKFLOW_ARGS = ["--classes", "3", "--samples", "2", "--epochs", "1", "--loo-classes", WORKFLOW_LOO]
+ARTICLE_TIMEOUT_S = 420
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -2764,6 +2789,259 @@ def run_tp_stage(counters: dict, kernels: dict, smi: str, cfg, reference: dict) 
     check_flash_at(TP_FLASH_SHAPE)
     print(f"[tp] phase 23: {time.perf_counter() - t_phase:.1f} s")
 
+def check_centered_stem(smi: str) -> dict:
+    """Phase 24 (a): the stem on the centered wire's int8 codes (``center_u8`` on the
+    host, then ``stem_gemm_u8``'s int8 branch, the int8 GEMM kernel) against the uint8
+    wire of the same pixels (the stem kernel's byte map) and against the plain version,
+    bit for bit, at the int8-resident engine's batch 256 with int8 out and on every byte
+    value; both forms timed ``CENTERED_TURNS`` times in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    col = torch.randint(0, 256, (CENTERED_FRAMES, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
+    col.view(-1, 768)[0] = torch.arange(256, device="cuda", dtype=torch.uint8).repeat(3)  # every byte value
+    host = col.cpu().numpy()
+    t0 = time.perf_counter()
+    codes_host = center_u8(host)
+    center_ms = (time.perf_counter() - t0) * 1e3
+    codes = torch.from_numpy(codes_host).cuda()
+    del host, codes_host
+    if not torch.equal(codes, torch.clamp(col.to(torch.int16) - 128, -127, 127).to(torch.int8)):
+        raise AssertionError("center_u8 is not clip(u8 - 128, -127, 127)")
+    w = torch.randint(-127, 128, (256, 768), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(256, generator=gen, device="cuda") * 1e-5
+    bias = torch.randn(256, generator=gen, device="cuda") * 0.5
+    checks = {}
+    for what, rows, kw in (("int8 out", CENTERED_FRAMES, {"out_scale": 0.05}), ("f32 out", 128, {})):
+        before = stem_gemm_u8.launches, int8_gemm.launches
+        got = stem_gemm_u8(codes[:rows], w, scale, bias, **kw)
+        if (stem_gemm_u8.launches, int8_gemm.launches) != (before[0], before[1] + 1):
+            raise AssertionError("stem_gemm_u8 on int8 codes did not launch the int8 GEMM kernel once")
+        u8 = stem_gemm_u8(col[:rows], w, scale, bias, **kw)
+        plain = stem_gemm_u8_reference(codes[:rows], w, scale, bias, **kw)
+        checks[what] = {"vs_u8_wire": int((got != u8).sum().item()), "vs_plain": int((got != plain).sum().item()),
+                        "max_abs_err": float((got.float() - plain.float()).abs().max().item())}
+        print(f"[centered] stem ({rows}·196, 768)->256 {what} on center_u8 codes: {checks[what]['vs_u8_wire']} "
+              f"mismatches against the uint8 wire of the same pixels, {checks[what]['vs_plain']} against the "
+              f"plain version (every byte value in the first row)")
+        if checks[what]["vs_u8_wire"] or checks[what]["vs_plain"]:
+            raise AssertionError(f"centered stem {what}: {checks[what]}")
+        del got, u8, plain
+    kw = {"out_scale": 0.05}
+    turns = {"u8": [], "centered": []}
+    for _ in range(CENTERED_TURNS):
+        turns["u8"].append(cuda_ms(lambda: stem_gemm_u8(col, w, scale, bias, **kw), 20))
+        turns["centered"].append(cuda_ms(lambda: stem_gemm_u8(codes, w, scale, bias, **kw), 20))
+    plain_ms = _plain_ms(lambda: stem_gemm_u8_reference(codes, w, scale, bias, **kw), CENTERED_FRAMES)
+    library_ms, note = int_mm_ms(codes.reshape(-1, 768), w.T.contiguous(), "the centered codes")
+    b = bound(codes.numel() + w.numel() + codes.numel() // 768 * 256 + 8 * 256, {"int8": 2 * codes.numel() * 256})
+    ms, u8_ms = float(np.mean(turns["centered"])), float(np.mean(turns["u8"]))
+    print(f"[centered] stem (4096·196, 768)->256 int8 out, in turns {turns} ms: centered wire (int8 GEMM kernel) "
+          f"{ms:.4f} ms, uint8 wire (stem kernel, byte map) {u8_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); " + (note if library_ms is None else f"{note}: {library_ms:.4f} ms")
+          + f"; center_u8 on the host {center_ms:.1f} ms for {codes.numel() / 2**20:.0f} MiB ({smi})")
+    del col, codes
+    torch.cuda.empty_cache()
+    return {"shape": "(4096·196, 768) int8 -> 256 int8", "ms": ms, "u8_wire_ms": u8_ms, "turns_ms": turns,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_note": note, "host_center_ms": center_ms,
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()), **b}
+
+
+def check_centered_engines(counters: dict, kernels: dict, smi: str, cfg, params) -> dict:
+    """Phase 24 (a): the int8-resident flagship engine on each wire at
+    ``CENTERED_ENGINE_SIZES``, one CUDA graph a size: the launches each graph holds (the
+    centered wire's stem through the int8 GEMM kernel), then at each size ``predict`` (a
+    replay) and each engine's eager program on its own padded wire, the centered engine's
+    against the uint8 engine's bit for bit; both engines' replay and ``predict`` timed in
+    turns at 256."""
+    H, W = cfg.data.video_resize
+    calib = (np.random.default_rng(0).random((2, cfg.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+    expected = {"u8": {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5},
+                "centered": {"fused_window": 1, "int8_gemm": 1, "conv3x3_i8": 5}}
+    engines = {}
+    for wire in ("u8", "centered"):
+        t0 = time.perf_counter()
+        engines[wire] = InferenceEngine(
+            cfg, params, batch_sizes=CENTERED_ENGINE_SIZES, quantize_calib_clips=calib, quantize_resident=True,
+            verify_byte_map=True, int8_wire=wire, device="cuda",
+        )
+        path = f"engine_int8_{wire}_wire"
+        _, counts, warm_s = drive_counted(counters, kernels, path, engines[wire].warmup, {
+            name: 2 * len(CENTERED_ENGINE_SIZES) * expected[wire].get(name, 0) for name in counters})
+        for b, launches in engines[wire].graph_launches.items():
+            if {k: v for k, v in launches.items() if v} != expected[wire]:
+                raise AssertionError(f"{path} batch {b}: the graph holds {launches}, expected {expected[wire]}")
+        for name in counters:  # a replay calls no wrapper: a path's count is what one replay holds
+            kernels[name]["launches_by_path"][path] = engines[wire].graph_launches[8].get(name, 0)
+        print(f"[centered] {path}: built in {time.perf_counter() - t0 - warm_s:.1f} s, graphs captured in "
+              f"{warm_s:.1f} s; launches a replay {engines[wire].graph_launches[8]}")
+    for b in CENTERED_ENGINE_SIZES:
+        imu, clip = engine_request(500 + b, b, cfg)
+        replay = {wire: e.predict(imu, clip) for wire, e in engines.items()}
+        eager = {}
+        for wire, e in engines.items():
+            args = [torch.from_numpy(a).cuda() for a in e._pad_to(imu, clip, b)]
+            if args[1].dtype != (torch.int8 if wire == "centered" else torch.uint8):
+                raise AssertionError(f"{wire} engine ships {args[1].dtype}")
+            eager[wire] = {k: v.cpu().numpy() for k, v in e._forward(*args).items()}
+        bitwise_equal(replay["centered"], replay["u8"], f"centered vs uint8 engine, predict (replay) at {b}")
+        bitwise_equal(eager["centered"], eager["u8"], f"centered vs uint8 engine, eager program at {b}")
+        bitwise_equal(replay["centered"], eager["centered"], f"centered engine, replay vs eager at {b}")
+        print(f"[centered] batch {b}: the centered engine equals the uint8 engine bit for bit on a replay and "
+              f"eagerly ({', '.join(replay['u8'])})")
+    b = CENTERED_ENGINE_SIZES[-1]
+    imu, clip = engine_request(520, b, cfg)
+    turns = {wire: {"replay_ms": [], "predict_ms": []} for wire in engines}
+    for _ in range(CENTERED_TURNS):
+        for wire, e in engines.items():
+            turns[wire]["replay_ms"].append(cuda_ms(lambda: e._replay(b), ENGINE_TIMING_ITERS[b]))
+            t0 = time.perf_counter()
+            for _ in range(ENGINE_TIMING_ITERS[b]):
+                e.predict(imu, clip)
+            turns[wire]["predict_ms"].append((time.perf_counter() - t0) / ENGINE_TIMING_ITERS[b] * 1e3)
+    print(f"[centered] batch {b} in turns (ms): {json.dumps(turns)}; predict includes the host's patch shuffle "
+          f"(and the centering on the centered wire) and the upload ({smi})")
+    out = {"engine_launches_per_replay": engines["centered"].graph_launches[8], "engine_turns_ms_at_256": turns}
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+_ARTICLE_CHILD = """
+import json, sys
+import tpuhar_torch.serving as serving
+from tpuhar_torch.ops.flash_lean import flash_lean_bwd_dkv, flash_lean_bwd_dq
+from tpuhar_torch.scripts import article_workflow
+article_workflow.main(["--quick", "--out", sys.argv[1], "--workdir", sys.argv[2]])
+counts = {**serving.kernel_launches(), "flash_bwd_dkv": flash_lean_bwd_dkv.launches, "flash_bwd_dq": flash_lean_bwd_dq.launches}
+print(json.dumps({"launches": counts}))
+"""
+
+
+def finite_numbers(obj, what: str) -> int:
+    """Fail unless every number in a JSON value is finite; returns how many there are."""
+    if isinstance(obj, dict):
+        return sum(finite_numbers(v, f"{what}.{k}") for k, v in obj.items())
+    if isinstance(obj, list):
+        return sum(finite_numbers(v, f"{what}[{i}]") for i, v in enumerate(obj))
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        if not np.isfinite(obj):
+            raise AssertionError(f"{what} is {obj}")
+        return 1
+    return 0
+
+
+def run_workflows_stage(counters: dict, kernels: dict, smi: str) -> None:
+    """Phase 24 (b): the validation workflows of ``tpuhar_torch.scripts`` at full width
+    on a small fixture: ``bench_accuracy`` → ``validate_int8_ood`` per tower →
+    ``rescore_ood_hard``, in process with each one's kernel launches, and
+    ``article_workflow --quick`` in a second process; every JSON under
+    ``outputs/torch/`` parsed and held to the JAX script's keys and finite numbers, and
+    ``docs/`` left as it was."""
+    from tpuhar_torch.scripts import bench_accuracy, rescore_ood_hard, validate_int8_ood
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "outputs" / "torch" / "chip_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    docs = sorted((str(p), p.stat().st_mtime_ns) for p in (repo / "docs").rglob("*")) if (repo / "docs").exists() else []
+    t_phase = time.perf_counter()
+    article = subprocess.Popen(
+        [sys.executable, "-c", _ARTICLE_CHILD, str(root / "article_quick"), str(root / "article_quick_work")],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        ba = root / "bench_accuracy"
+        results, counts, seconds = drive_counted(counters, kernels, "workflow_bench_accuracy", lambda: bench_accuracy.main(
+            ["--backbones", ",".join(WORKFLOW_TOWERS), *WORKFLOW_ARGS, "--out", str(ba)]), {})
+        base = {"backbone", "params_m", "train_wall_s", "curve", "test_balanced_accuracy", "test_accuracy",
+                "test_f1_macro", "ood_wall_s", "ood_id_accuracy"}
+        base |= {f"{m}_{s}" for m in ("auroc", "fpr95") for s in ("msp", "energy", "mahalanobis")}
+        saved = json.loads((ba / "results.json").read_text())
+        if [r["backbone"] for r in saved] != list(WORKFLOW_TOWERS) or any(set(r) != base for r in saved):
+            raise AssertionError(f"bench_accuracy results.json: {[sorted(r) for r in saved]}")
+        n = finite_numbers(saved, "bench_accuracy")
+        print(f"[workflows] bench_accuracy {WORKFLOW_TOWERS} at 224², 16 frames in {seconds:.1f} s: {n} finite "
+              f"numbers; launches {counts}")
+        for r in saved:
+            print(f"[workflows] bench_accuracy {r['backbone']}: test bal_acc {r['test_balanced_accuracy']}, OOD AUROC "
+                  f"msp {r['auroc_msp']} energy {r['auroc_energy']} mahalanobis {r['auroc_mahalanobis']}, train "
+                  f"{r['train_wall_s']} s, leave-one-out {r['ood_wall_s']} s")
+        if not counts["conv3x3_bn_act"]:
+            raise AssertionError("bench_accuracy: the tpu_cnn eval forwards launched no fused conv")
+
+        for tower in WORKFLOW_TOWERS:
+            out = root / f"int8_ood_parity_{tower}.json"
+            args = validate_int8_ood.parse_args(["--classes", WORKFLOW_LOO, "--tower", tower, "--root", str(ba),
+                                                 "--out", str(out)])
+            (rows, scores), counts, seconds = drive_counted(
+                counters, kernels, f"workflow_validate_int8_ood_{tower}", lambda: validate_int8_ood.run(args), {})
+            saved = json.loads(out.read_text())
+            paths = ("f32", "int8", "int8res") + (("int8pm",) if tower == "tpu_cnn" else ())
+            keys = {"held_out_class"} | {f"thrx_{s}" for s in ("msp", "energy", "mahalanobis")}
+            keys |= {"pm_logit_maxdelta"} if tower == "tpu_cnn" else set()
+            for p in paths + tuple(f"{q}r" for q in paths[1:]):
+                keys |= {f"{p}_{m}_{s}" for m in ("auroc", "fpr95") for s in ("msp", "energy", "mahalanobis")}
+                keys.add(f"{p}_id_acc")
+            if saved != rows or [r["held_out_class"] for r in rows] != [0, 1] or any(set(r) != keys for r in rows):
+                raise AssertionError(f"validate_int8_ood {tower}: {[sorted(set(r) ^ keys) for r in rows]}")
+            finite_numbers(saved, f"validate_int8_ood {tower}")
+            for r in rows:
+                c = r["held_out_class"]
+                tr_f, _, id_f, _, ood_f, _ = scores[c]["f32"]
+                gaps = {p: max(float(np.abs(a - b).max()) for a, b in zip((tr_f, id_f, ood_f), scores[c][p][::2]))
+                        for p in scores[c] if p != "f32"}
+                auroc = {s: (r[f"f32_auroc_{s}"], r[f"int8r_auroc_{s}"], round(r[f"int8r_auroc_{s}"] - r[f"f32_auroc_{s}"], 4))
+                         for s in ("msp", "energy", "mahalanobis")}
+                print(f"[workflows] validate_int8_ood {tower} class {c}: AUROC (f32, int8r, gap) {auroc}; int8 raw "
+                      f"{ {s: r[f'int8_auroc_{s}'] for s in ('msp', 'energy', 'mahalanobis')} }; id acc f32 "
+                      f"{r['f32_id_acc']} int8r {r['int8r_id_acc']}; largest logit gap to f32 "
+                      f"{ {p: round(g, 5) for p, g in gaps.items()} }"
+                      + (f"; patch-major vs device shuffle {r['pm_logit_maxdelta']}" if tower == "tpu_cnn" else ""))
+            if tower == "tpu_cnn" and any(r["pm_logit_maxdelta"] != 0.0 for r in rows):
+                raise AssertionError("validate_int8_ood: the patch-major wire's logits differ from the device shuffle's")
+            wanted = ("stem_gemm_u8", "conv3x3_i8", "conv3x3_bn_act") if tower == "tpu_cnn" else ("int8_gemm", "conv3x3_i8")
+            if not all(counts[k] for k in wanted):
+                raise AssertionError(f"validate_int8_ood {tower}: launches {counts}, expected {wanted} to move")
+            print(f"[workflows] validate_int8_ood {tower} in {seconds:.1f} s; launches {counts}")
+
+        out = root / "ood_rescore_hard.json"
+        saved, counts, seconds = drive_counted(counters, kernels, "workflow_rescore_ood_hard", lambda: rescore_ood_hard.main(
+            ["--root", str(ba), "--towers", ",".join(WORKFLOW_TOWERS), "--classes", WORKFLOW_LOO, "--out", str(out)]), {})
+        names = rescore_ood_hard.SCORE_NAMES + rescore_ood_hard.CAL_NAMES
+        keys = {"tower", "held_out_class", "temperature", "ece_id", "ece_id_cal", "wall_s"}
+        keys |= {f"{m}_{s}" for m in ("auroc", "fpr95") for s in names}
+        if (json.loads(out.read_text()) != saved or set(saved) != {"rows", "knn_k", "mean_by_tower"}
+                or len(saved["rows"]) != 2 * len(WORKFLOW_TOWERS) or any(set(r) != keys for r in saved["rows"])):
+            raise AssertionError(f"rescore_ood_hard: {sorted(saved)}")
+        finite_numbers(saved, "rescore_ood_hard")
+        print(f"[workflows] rescore_ood_hard in {seconds:.1f} s: mean AUROC by tower {json.dumps(saved['mean_by_tower'])}; "
+              f"launches {counts}")
+
+        stdout, _ = article.communicate(timeout=ARTICLE_TIMEOUT_S)
+        if article.returncode != 0:
+            raise AssertionError(f"article_workflow --quick exited {article.returncode}:\n{stdout[-4000:]}")
+        child = json.loads(stdout.strip().splitlines()[-1])["launches"]
+        for name, n in child.items():
+            kernels[name].setdefault("launches_by_path", {})["workflow_article_quick"] = n
+        saved = json.loads((root / "article_quick" / "article_workflow.json").read_text())
+        keys = {"resolved_args", "resolved_training", "fixture", "pretrain", "budget", "full_data", "few_shot_cells",
+                "few_shot_mean_delta", "platform"}
+        if set(saved) != keys or saved["platform"] != "cuda" or len(saved["few_shot_cells"]) != 4:
+            raise AssertionError(f"article_workflow: {sorted(saved)}, platform {saved.get('platform')}")
+        finite_numbers({k: v for k, v in saved.items() if k != "resolved_args"}, "article_workflow")
+        print(f"[workflows] article_workflow --quick (second process, started with the phase): pretrain "
+              f"{saved['pretrain']['epochs_ran']} epochs, val retrieval {json.dumps(saved['pretrain']['val_retrieval'])}; "
+              f"full data {json.dumps(saved['full_data'])}; few-shot mean delta {saved['few_shot_mean_delta']}; "
+              f"launches {child}")
+    finally:
+        if article.poll() is None:
+            article.kill()
+            article.wait()
+    after = sorted((str(p), p.stat().st_mtime_ns) for p in (repo / "docs").rglob("*")) if (repo / "docs").exists() else []
+    if after != docs:
+        raise AssertionError("the workflows wrote under docs/")
+    print(f"[workflows] phase 24 (b): {time.perf_counter() - t_phase:.1f} s; every JSON under {root.relative_to(repo)}, "
+          f"nothing under docs/ ({smi})")
+    shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> None:
     require_cuda()
@@ -3064,6 +3342,12 @@ def main() -> None:
         run_tp_stage(counters, kernels, smi, cfg_pipeline, reference)
     finally:
         shutil.rmtree(Path(cfg_pipeline.paths.base_output).parent, ignore_errors=True)
+    t_phase = time.perf_counter()
+    kernels["int8_gemm"]["centered_stem"] = {**check_centered_stem(smi),
+                                             **check_centered_engines(counters, kernels, smi, cfg, params)}
+    print(f"[centered] phase 24 (a): {time.perf_counter() - t_phase:.1f} s")
+    run_workflows_stage(counters, kernels, smi)
+    print(f"[workflows] phase 24: {time.perf_counter() - t_phase:.1f} s")
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

@@ -311,8 +311,14 @@ def test_stem_u8_byte_map_preflight(cuda):
 
 def test_stem_u8_refuses(cuda):
     col, w, scale, bias = _stem_case(2, 64, cuda)
-    with pytest.raises(TypeError, match="centered int8 wire"):
-        stem_gemm_u8(col.view(torch.int8), w, scale, bias)
+    # int8 input is the centered wire: the codes go through the int8 GEMM kernel as they are
+    codes = col.view(torch.int8)
+    before = stem_gemm_u8.launches, int8_gemm.launches
+    got = stem_gemm_u8(codes, w, scale, bias, out_scale=0.05)
+    assert (stem_gemm_u8.launches, int8_gemm.launches) == (before[0], before[1] + 1)
+    assert torch.equal(got, stem_gemm_u8_reference(codes, w, scale, bias, out_scale=0.05))
+    with pytest.raises(TypeError, match="uint8 patch-major pixels"):
+        stem_gemm_u8(col.float(), w, scale, bias)
     with pytest.raises(ValueError, match="contiguous"):
         stem_gemm_u8(col.transpose(1, 2), w, scale, bias)
     with pytest.raises(ValueError, match="int8"):

@@ -23,6 +23,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
+SCRIPTS = [f"tpuhar_torch.scripts.{n}" for n in ("validate_int8_ood", "rescore_ood_hard", "bench_accuracy",
+                                                 "article_workflow", "validate_pretraining", "graft_weights")]
 # JAX, and the host libraries a machine with the card need not have: the port's modules
 # and chip_smoke import none of them (pandas, OpenCV and sklearn only inside the
 # functions that read a DataFrame, decode a clip or write a report)
@@ -41,10 +43,20 @@ for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.tr
              "tpuhar_torch.data.raw_stream", "tpuhar_torch.report.tables", "tpuhar_torch.report.plots",
              "tpuhar_torch.utils", "tpuhar_torch.cli", "tpuhar_torch.__main__", "tpuhar_torch.native",
              "tpuhar_torch.data.parallel_decode", "tpuhar_torch.data.grain_loader", "tpuhar_torch.parallel.mesh",
-             "tpuhar_torch.parallel.distributed", "tpuhar_torch.parallel.scope", "tpuhar_torch.ops.video"):
+             "tpuhar_torch.parallel.distributed", "tpuhar_torch.parallel.scope", "tpuhar_torch.ops.video",
+             "tpuhar_torch.scripts", "tpuhar_torch.scripts._common", *SCRIPTS):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
+# each workflow's --help (python -m tpuhar_torch.scripts.<name> --help)
+import contextlib, io
+for name in SCRIPTS:
+    with contextlib.redirect_stdout(io.StringIO()) as help_text:
+        try:
+            importlib.import_module(name).parse_args(["--help"])
+        except SystemExit as e:
+            assert e.code == 0, name
+    assert "usage:" in help_text.getvalue(), name
 import chip_smoke
 jax_package = sorted(m for m in sys.modules if m == "tpuhar" or m.startswith("tpuhar."))
 assert not jax_package, jax_package
@@ -60,8 +72,9 @@ def test_port_imports_without_jax():
     # every module of the package was imported, the training ones (losses, train/*,
     # ops/augment, eval/metrics, utils/profiling), the evaluate stage's and the
     # pipeline's (data preparation, reports, the command line) and the mesh and loader
-    # backends' (parallel/*, native, data/{parallel_decode,grain_loader}) included
-    assert int(proc.stdout.split()[-1]) >= 55
+    # backends' (parallel/*, native, data/{parallel_decode,grain_loader}) and the
+    # validation workflows' (scripts/*, each one's --help) included
+    assert int(proc.stdout.split()[-1]) >= 63
 
 
 def _spy(monkeypatch, module, name: str) -> list:

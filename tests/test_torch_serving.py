@@ -332,8 +332,8 @@ def test_refusals_match_the_reference(fusion, kw, error, match):
 
 def test_what_is_not_ported_raises(fusion, monkeypatch):
     """A mesh whose data axis does not divide a registered batch size (the mesh itself is
-    ported: ``tests/test_torch_engine_mesh.py``), the centered int8 wire ("Not ported"),
-    and the card asked for where there is none; an unknown wire
+    ported: ``tests/test_torch_engine_mesh.py``) and the card asked for where there is
+    none; an unknown wire
     raises as the reference's ``serving.py:202-203`` does (which calibrates first: its
     test would cost seconds). ``from_checkpoint`` is ported: a path holding no checkpoint
     raises."""
@@ -355,8 +355,6 @@ def test_what_is_not_ported_raises(fusion, monkeypatch):
 
     with pytest.raises(ValueError, match=r"batch sizes \[3\] do not divide"):
         InferenceEngine(cfg, variables, batch_sizes=[3, 4], mesh=TwoRanks(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Not ported"):
-        InferenceEngine(cfg, variables, quantize_calib_clips=clips, int8_wire="centered", device="cpu")
     with pytest.raises(FileNotFoundError):
         InferenceEngine.from_checkpoint(cfg, "no/such/checkpoint", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -120,12 +120,17 @@ def test_verify_byte_map_passes_and_catches_a_broken_route(monkeypatch):
 
 
 def test_int8_wire_and_bad_clip_raise(fixture):
-    """The centered int8 wire and any other non-uint8 pixels raise."""
+    """int8 input is the centered wire: its codes go into the GEMM as they are, as the
+    JAX package's ``pre_centered`` branch takes them (``tests/test_torch_stem_wire.py``
+    holds the wire end to end); any other non-uint8 pixels raise."""
     f = fixture
     col = torch.from_numpy(f["col"])
     args = (torch.from_numpy(f["w_packed"]), torch.from_numpy(f["w_scale"]), torch.from_numpy(f["bias"]))
-    with pytest.raises(TypeError, match="centered int8 wire is not ported"):
-        stem_gemm_u8(col.view(torch.int8), *args)
+    want = np.asarray(jax_stem_gemm_u8(
+        jnp.asarray(f["col"].view(np.int8)), jnp.asarray(f["w_kc"]), jnp.asarray(f["w_scale"]),
+        jnp.asarray(f["bias"]), out_scale=0.07, out_dtype=jnp.int8,
+    ))
+    np.testing.assert_array_equal(stem_gemm_u8(col.view(torch.int8), *args, out_scale=0.07).numpy(), want)
     with pytest.raises(TypeError, match="uint8 patch-major pixels"):
         stem_gemm_u8(col.float(), *args)
 

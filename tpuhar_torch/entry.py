@@ -267,8 +267,9 @@ def build_int8_forward(
     ``params`` is a flax-layout variable tree before any folding (``None`` draws one
     with ``init_params`` from ``seed``); ``calib_clips`` defaults to 2 clips of
     uint8 noise from ``np.random.default_rng(seed)``. The clip is consumed raw:
-    patch-major ``(B, T, H/16, W/16, 768)`` for a ``tpu_cnn`` tower, NHWC ``(B, T, H, W,
-    3)`` otherwise. ``resident`` picks a CNN tower's int8-resident form (``None``: the
+    patch-major ``(B, T, H/16, W/16, 768)`` for a ``tpu_cnn`` tower (the example is the
+    uint8 wire; the returned ``fn`` takes the centered int8 wire as well, as the JAX
+    package's program does), NHWC ``(B, T, H, W, 3)`` otherwise. ``resident`` picks a CNN tower's int8-resident form (``None``: the
     resident form of a CNN tower, the baseline of a ViT, which has no other; ``True``
     with a ViT raises).
     """

@@ -26,7 +26,8 @@ The forwards take the tree of ``quantize_tpucnn``/``quantize_resnet18`` or of
 ``bridge.quantized_tree_from_numpy``), which holds each conv's packed int8 weights, its
 input site's scale and its per-channel ``x_scale · w_scale`` next to
 ``w_q``/``w_scale``/``bias``. On a CUDA device the ``tpu_cnn`` stem runs through
-``ops/stem.stem_gemm_u8`` (frames must then arrive as the uint8 patch-major wire),
+``ops/stem.stem_gemm_u8`` (frames must then arrive patch-major: the uint8 wire or
+the centered int8 wire),
 ResNet-18's 7×7 stem (on its im2col rows) and 1×1 downsample convs through
 ``ops/stem.int8_gemm``, and every 3×3 conv through ``ops/conv3x3.conv3x3_i8``.
 """
@@ -267,14 +268,16 @@ def tree_to(q: Dict, device) -> Dict:
 
 
 def _is_patch_major(q: Dict, frames: torch.Tensor) -> bool:
-    """True for the serving wire ``(N, H/p, W/p, p²·3)``, False for NHWC."""
+    """True for the serving wire ``(N, H/p, W/p, p²·3)`` (uint8 or centered int8),
+    False for NHWC."""
     p = q["patch"]
     return frames.dim() == 4 and frames.shape[-1] == p * p * 3
 
 
 def _stem_patch_major(q: Dict, col_u8: torch.Tensor, *, out_scale: Optional[float] = None):
-    """The uint8 patch-major stem: byte map, K = p²·3 int8 GEMM, ×scale + bias, ReLU,
-    and with ``out_scale`` the requant to int8 (bit-exact vs ``quantize_activations``)."""
+    """The patch-major stem: byte map (uint8 wire) or none (the centered wire's int8
+    codes), K = p²·3 int8 GEMM, ×scale + bias, ReLU, and with ``out_scale`` the requant
+    to int8 (bit-exact vs ``quantize_activations``)."""
     if not q["input_fold"]:
         raise ValueError(
             "patch-major frames need a tree built with input_fold (the stem must "
@@ -319,8 +322,8 @@ def quant_tpucnn_forward(q: Dict, frames: torch.Tensor) -> torch.Tensor:
     """int8 TPUVideoCNN features ``(N, widths[-1])`` f32, quantizing at each conv's
     input (the consumer side); the activations between convs are f32.
 
-    ``frames`` is the patch-major uint8 wire ``(N, H/p, W/p, p²·3)`` (needs
-    ``input_fold``), or on the CPU NHWC ``(N, H, W, 3)``: raw uint8 with
+    ``frames`` is the patch-major wire ``(N, H/p, W/p, p²·3)``, uint8 or centered int8
+    (needs ``input_fold``), or on the CPU NHWC ``(N, H, W, 3)``: raw uint8 with
     ``input_fold``, normalized f32 without."""
     stages, blocks = q["layout"]
 

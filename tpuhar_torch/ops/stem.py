@@ -11,7 +11,11 @@ its B operand K-major only), ``acc · scale + bias``, ReLU and an optional requa
 int8. A CPU tensor takes the plain path (``stem_gemm_u8_reference``); a CUDA tensor
 launches the kernel of ``csrc/stem_u8.cu``, the port of ``stem_gemm_u8_pallas`` and of
 its XLA twin ``stem_gemm_u8``, or raises. ``stem_gemm_u8.launches`` counts the kernel's
-launches. Only the uint8 wire is ported: the centered int8 wire is not.
+launches.
+
+The centered int8 wire ships the same codes made on the host, in the numpy pass of the
+patch shuffle (``to_patch_major(..., centered=True)``, ``center_u8``): int8 pixels go
+into the GEMM as they are, through the kernel's signed form (``int8_gemm``).
 
 ``int8_gemm`` is the same kernel without the byte map, on int8 codes: the fused
 ``epilogue(x_q @ w_packed.T)`` that stands for the XLA int8 products of the JAX
@@ -46,24 +50,51 @@ def pack_stem_u8(kernel_hwio: torch.Tensor) -> torch.Tensor:
     return pack_stem_weights(kernel_hwio).T.contiguous()
 
 
-def to_patch_major(frames: np.ndarray, patch: int = 16) -> np.ndarray:
-    """HOST-side layout shuffle: ``(..., H, W, C)`` uint8 → ``(..., H/p, W/p, p²·C)``."""
-    *lead, H, W, C = frames.shape
+def center_u8(col: np.ndarray) -> np.ndarray:
+    """HOST-side int8 wire encoding: ``clip(u8 − 128, −127, 127)`` as int8, one XOR and
+    one max on the same bytes (u8 0 → −127, as the byte map ``max(u8, 1) ^ 0x80``
+    gives)."""
+    return np.maximum(np.bitwise_xor(col.view(np.int8), np.int8(-128)), np.int8(-127))
+
+
+def _patch_shape(shape, patch: int):
+    *lead, H, W, C = shape
     Hp, Wp = H // patch, W // patch
     if Hp * patch != H or Wp * patch != W:
-        raise ValueError(f"frames {frames.shape} do not tile into {patch}x{patch} patches")
+        raise ValueError(f"frames {tuple(shape)} do not tile into {patch}x{patch} patches")
+    return lead, Hp, Wp, C
+
+
+def to_patch_major(frames: np.ndarray, patch: int = 16, *, centered: bool = False) -> np.ndarray:
+    """HOST-side layout shuffle: ``(..., H, W, C)`` uint8 → ``(..., H/p, W/p, p²·C)``.
+
+    ``centered=True`` also ships the int8 wire encoding (``center_u8``) the quantized
+    stem reads as it is."""
+    lead, Hp, Wp, C = _patch_shape(frames.shape, patch)
     x = frames.reshape(*lead, Hp, patch, Wp, patch * C)
     x = np.moveaxis(x, -3, -2)  # (..., Hp, Wp, patch, patch·C)
-    return np.ascontiguousarray(x).reshape(*lead, Hp, Wp, patch * patch * C)
+    col = np.ascontiguousarray(x).reshape(*lead, Hp, Wp, patch * patch * C)
+    return center_u8(col) if centered else col
 
 
-def _check_wire(col_u8: torch.Tensor) -> None:
-    if col_u8.dtype == torch.int8:
+def to_patch_major_tensor(frames: torch.Tensor, patch: int = 16) -> torch.Tensor:
+    """The device-side ``to_patch_major`` of a tensor (one permuting copy on its
+    device), for callers that hold the clip there already."""
+    lead, Hp, Wp, C = _patch_shape(frames.shape, patch)
+    x = frames.reshape(*lead, Hp, patch, Wp, patch * C).transpose(-3, -2)
+    return x.reshape(*lead, Hp, Wp, patch * patch * C)
+
+
+def is_patch_major(x, patch: int, cin: int = 3) -> bool:
+    """Shape test: the trailing dim is ``p²·C_in`` (patch-major), not ``C_in`` (NHWC)."""
+    return x.ndim >= 3 and x.shape[-1] == patch * patch * cin
+
+
+def _check_wire(col: torch.Tensor) -> None:
+    if col.dtype not in (torch.uint8, torch.int8):
         raise TypeError(
-            "stem_gemm_u8 takes the uint8 wire only; the centered int8 wire is not ported"
+            f"stem_gemm_u8 takes uint8 patch-major pixels or their centered int8 codes, got {col.dtype}"
         )
-    if col_u8.dtype != torch.uint8:
-        raise TypeError(f"stem_gemm_u8 takes uint8 patch-major pixels, got {col_u8.dtype}")
 
 
 def _epilogue(acc: torch.Tensor, scale, bias, relu: bool, out_scale: Optional[float]) -> torch.Tensor:
@@ -87,11 +118,15 @@ def stem_gemm_u8_reference(
     relu: bool = True,
     out_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain version: the byte map in uint8, the GEMM against ``w_packed`` ``(C0, K)``
-    in float64 (exact: every 768-term int8 dot is below 2²⁴), then ``acc·scale + bias``,
-    ReLU and, with ``out_scale``, ``clip(round(y / out_scale), −127, 127)`` as int8."""
+    """Plain version: the byte map in uint8 (int8 codes of the centered wire as they
+    are), the GEMM against ``w_packed`` ``(C0, K)`` in float64 (exact: every 768-term
+    int8 dot is below 2²⁴), then ``acc·scale + bias``, ReLU and, with ``out_scale``,
+    ``clip(round(y / out_scale), −127, 127)`` as int8."""
     _check_wire(col_u8)
-    x = torch.bitwise_xor(torch.clamp(col_u8, min=1), 0x80).view(torch.int8)
+    if col_u8.dtype == torch.int8:
+        x = col_u8
+    else:
+        x = torch.bitwise_xor(torch.clamp(col_u8, min=1), 0x80).view(torch.int8)
     return _epilogue((x.double() @ w_packed.double().T).float(), scale, bias, relu, out_scale)
 
 
@@ -139,8 +174,15 @@ def stem_gemm_u8(
 ) -> torch.Tensor:
     """Fused ``epilogue(clip(col_u8 − 128, −127, 127) @ w_packed)``.
 
+    Branches on the wire's dtype, as the JAX package's ``stem_gemm_u8`` does: uint8
+    pixels take the byte map in the stem kernel (counted on ``stem_gemm_u8.launches``);
+    int8 codes of the centered wire (``to_patch_major(..., centered=True)``) go into the
+    GEMM as they are, through ``int8_gemm`` with the same epilogue (counted on
+    ``int8_gemm.launches``).
+
     Args:
-      col_u8: ``(..., K)`` uint8 patch-major pixels (``to_patch_major``).
+      col_u8: ``(..., K)`` uint8 patch-major pixels (``to_patch_major``), or their
+        centered int8 codes.
       w_packed: ``(C0, K)`` int8 (``pack_stem_u8`` of the quantized kernel).
       scale, bias: ``(C0,)`` f32, applied as ``acc · scale + bias``.
       relu: apply ReLU.
@@ -152,6 +194,8 @@ def stem_gemm_u8(
             col_u8, w_packed, scale, bias, relu=relu, out_scale=out_scale
         )
     _check_wire(col_u8)
+    if col_u8.dtype == torch.int8:
+        return int8_gemm(col_u8, w_packed, scale, bias, relu=relu, out_scale=out_scale)
     for name, t, dtype in (("col_u8", col_u8, torch.uint8), ("w_packed", w_packed, torch.int8)):
         if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"stem_u8 kernel: {name} must be a contiguous {dtype} CUDA tensor")

@@ -42,7 +42,7 @@ from .ood import MahalanobisScorer, energy_score, fit_ood_thresholds, msp_score
 from .ops.conv3x3 import conv3x3_bn_act, conv3x3_i8
 from .ops.flash_lean import flash_lean
 from .ops.fused_window import featurize_windows_auto
-from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
+from .ops.stem import center_u8, int8_gemm, stem_gemm_u8, to_patch_major
 from .parallel import scope
 from .utils import resolve_device
 from .utils.profiling import StepProfiler
@@ -95,8 +95,12 @@ class InferenceEngine:
     ``tpuhar/serving.py``) and ``device``. An int8 engine serves every tower the JAX
     package quantizes (``serving_quant``): ``tpu_cnn`` on the patch-major wire, ResNet-18
     and the ViTs on NHWC clips; ``quantized_forward`` is its ``build_quantized_forward``
-    program. ``mesh`` serves data parallel (each registered batch size must divide over
-    its data axis). Not ported: the centered int8 wire.
+    program. ``int8_wire`` picks the ``tpu_cnn`` int8 engine's clip encoding: "u8"
+    ships raw uint8 patches and the stem kernel applies the byte map; "centered" ships
+    the int8 codes made on the host in the pass of the patch shuffle
+    (``ops/stem.to_patch_major(..., centered=True)``), which the stem reads as they are.
+    ``mesh`` serves data parallel (each registered batch size must divide over its data
+    axis).
     """
 
     def __init__(
@@ -133,10 +137,6 @@ class InferenceEngine:
         self.quantized = quantize_calib_clips is not None
         if self.quantized and int8_wire not in ("u8", "centered"):
             raise ValueError(f"int8_wire must be 'u8' or 'centered', got {int8_wire!r}")
-        if self.quantized and int8_wire == "centered":
-            raise NotImplementedError(
-                "the centered int8 wire is not ported (ROADMAP.md, 'Not ported'); serve int8_wire='u8'"
-            )
         self.device = resolve_device(device, "InferenceEngine")
         # the constructor's inputs, for fit_embedding_scorers' rebuild
         self._ctor = dict(
@@ -182,6 +182,7 @@ class InferenceEngine:
         # and predict_stream add boolean ``is_ood_{name}`` outputs.
         self.ood_thresholds: Optional[Dict[str, float]] = None
         self.folded = False
+        self._wire_centered = False  # the bf16 stems read raw 0..255 pixels
         self._graphs: Dict[int, _Graph] = {}
         self._pool = None
         # launches of each serving kernel in each size's graph: the count per replay
@@ -198,10 +199,14 @@ class InferenceEngine:
             self._program = qforward.core
             self.quantized_forward = qforward
             # a tpu_cnn int8 tree folds the ImageNet affine into a stem that reads raw
-            # uint8 patch-major pixels, the device fusing the u8 byte map into the stem
-            # GEMM; ResNet-18 and the ViTs take the NHWC clip
+            # patch-major pixels: uint8, the device fusing the byte map into the stem
+            # GEMM, or the centered wire's int8 codes, made on the host; ResNet-18 and
+            # the ViTs take the NHWC clip
             self.patch_major = bb.startswith("tpu_cnn")
-            if verify_byte_map and self.patch_major:
+            self._wire_centered = int8_wire == "centered"
+            # only the u8 wire runs the byte map on the device: the centered wire
+            # maps the same bytes on the host, so there is nothing to preflight
+            if verify_byte_map and self.patch_major and not self._wire_centered:
                 from .ops.stem import verify_byte_map as _verify
 
                 _verify(self.device)
@@ -270,9 +275,17 @@ class InferenceEngine:
         engines whose towers consume NHWC, or if the caller pre-converted)."""
         if video_u8 is None or not self.patch_major:
             return video_u8
-        if video_u8.shape[-1] != 3:  # already patch-major
-            return video_u8
-        return to_patch_major(np.asarray(video_u8))
+        video_u8 = np.asarray(video_u8)
+        if video_u8.shape[-1] == 3:
+            return to_patch_major(video_u8, centered=self._wire_centered)
+        # already patch-major: the JAX package's program takes either wire, a captured
+        # graph's input has one dtype, so bring the clip to this engine's wire (a value
+        # cast would wrap u8 128..255 into negative codes)
+        if self._wire_centered and video_u8.dtype == np.uint8:
+            return center_u8(video_u8)
+        if not self._wire_centered and video_u8.dtype == np.int8:
+            return video_u8.view(np.uint8) ^ np.uint8(0x80)  # the code c as the pixel c + 128
+        return video_u8
 
     def _pad_to(self, imu_raw, video_u8, b: int) -> Tuple[np.ndarray, ...]:
         """The request as the program's contiguous host arrays, padded with zeros to
@@ -315,7 +328,7 @@ class InferenceEngine:
             H, W = d.video_resize
             F = d.video_frames_per_window
             shape = (b, F, H // PATCH, W // PATCH, PATCH * PATCH * 3) if self.patch_major else (b, F, H, W, 3)
-            specs.append((shape, torch.uint8))
+            specs.append((shape, torch.int8 if self.patch_major and self._wire_centered else torch.uint8))
         return specs
 
     def warmup(self) -> None:

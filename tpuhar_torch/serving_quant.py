@@ -7,8 +7,10 @@ video_u8) -> {logits, msp, energy, embeddings}``. The towers and the clip each t
 
 - ``tpu_cnn``/``tpu_cnn_large`` (baseline or int8-resident): the ImageNet normalization
   folded into the stem, the clip as the uint8 patch-major wire ``(B, T, H/p, W/p,
-  p²·3)``; on a CUDA device the stem runs through the stem kernel and every 3×3 conv
-  through the int8 conv kernel;
+  p²·3)`` or its centered int8 codes (``ops/stem.to_patch_major(..., centered=True)``);
+  on a CUDA device the stem runs through the stem kernel (the centered codes through
+  its signed form, the int8 GEMM kernel) and every 3×3 conv through the int8 conv
+  kernel;
 - ``resnet18`` (baseline or int8-resident): no fold, the raw NHWC uint8 clip normalized
   on the device and quantized at the stem; on a CUDA device the 7×7 stem and the 1×1
   downsample convs run through the int8 GEMM kernel, the 3×3 convs through the int8
@@ -121,7 +123,7 @@ def quantized_forward(
     tower's features or tokens. ``fn.recalibration`` is the affine logit map ``(a, b)``
     or None; ``fn.core`` is the same program without the OOD scores, ``(imu_raw,
     video_u8) -> (logits, embeddings)``. ``video_u8`` is the clip the tower takes (module
-    docstring): patch-major for ``tpu_cnn``, NHWC otherwise."""
+    docstring): patch-major for ``tpu_cnn`` (uint8 or centered int8), NHWC otherwise."""
     _check_backbone(cfg, resident)
     d = cfg.data
     kind = _tower_kind(q)
@@ -232,9 +234,9 @@ def build_quantized_forward(
     the JAX package). The activation calibration runs on the CPU
     (``build_quantized_tree``), the logit recalibration on ``device`` with TF32 off.
     ``fn.build_seconds`` holds the two's times. The returned ``fn`` takes the clip as
-    the tower takes it (module docstring): the uint8 patch-major wire ``(B, T, H/p, W/p,
-    p²·3)`` (``ops/stem.to_patch_major``) for ``tpu_cnn``, NHWC ``(B, T, H, W, 3)``
-    uint8 otherwise.
+    the tower takes it (module docstring): the patch-major wire ``(B, T, H/p, W/p,
+    p²·3)`` (``ops/stem.to_patch_major``) for ``tpu_cnn``, uint8 or centered int8 (the
+    stem branches on the dtype), NHWC ``(B, T, H, W, 3)`` uint8 otherwise.
     """
     _check_backbone(cfg, resident)
     d = cfg.data

@@ -146,7 +146,18 @@ Phases; any failed check raises and the exit code is non-zero:
     largest logit gap between the paths), ``rescore_ood_hard`` on the same checkpoints and
     ``article_workflow --quick`` (in a second process started with the phase), each JSON
     under ``outputs/torch/`` parsed and held to the JAX script's keys and finite numbers,
-    with each workflow's kernel launches.
+    with each workflow's kernel launches;
+25. the research probes and debug scripts, each through its module's ``run``: (a)
+    ``measure_resident_drift`` at 3 seeds, the int8 ResNet-18 at 32² (the int8 conv down
+    to 1² maps, 16-row products), each engine's graph (one featurizer, 4 ``int8_gemm``,
+    16 ``conv3x3_i8``), its replay bit for bit with its eager program and that with its
+    plain-kernel program, each seed's correlation and drift against the CPU's; (b)
+    ``debug_ckpt_data_match`` on phase 24's ``tpu_cnn`` checkpoint (4 fused convs a
+    forward), its confusion matrix against the CPU's; (c) on a hard fixture of their own,
+    ``debug_pretrain_parity`` (4 steps; the card's f32 arms against ``cpu_f32``, and the
+    TF32 arm's gap), ``debug_pretrain_loop``, ``probe_pretrain_collapse``,
+    ``probe_imu_hard_lr`` and ``probe_coupling_strength`` at strength 8, none launching a
+    hand kernel; every JSON held to the JAX script's keys and finite numbers.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -446,6 +457,24 @@ CENTERED_FRAMES, CENTERED_TURNS, CENTERED_ENGINE_SIZES = 4096, 2, [8, 256]
 WORKFLOW_TOWERS, WORKFLOW_LOO = ("tpu_cnn", "resnet18"), "0,1"
 WORKFLOW_ARGS = ["--classes", "3", "--samples", "2", "--epochs", "1", "--loo-classes", WORKFLOW_LOO]
 ARTICLE_TIMEOUT_S = 420
+# phase 25, the research probes and debug scripts, on phase 24's outputs and a fixture of
+# their own. measure_resident_drift at DRIFT_SEEDS seeds on the card and on the CPU: per
+# seed the correlation within DRIFT_CORR_ATOL of the CPU's and the relative drift within
+# DRIFT_REL_RTOL of it plus DRIFT_REL_ATOL (both build the same quantized tree on the CPU
+# and the int8 codes agree; the float parts differ by f32 rounding, and a stem code that
+# rounding flips moves the drift a little). debug_ckpt_data_match on phase 24's tpu_cnn
+# checkpoints over CKPT_ROWS test rows on the card and on the CPU, in bf16 both: a row
+# may be predicted otherwise only where the CPU's top two logits lie within
+# CKPT_FLIP_RTOL of the row's largest |logit| (two bf16 roundings). One hard fixture of
+# PROBE_SAMPLES sequences a class and split for the parity probe (PARITY_STEPS steps:
+# cuda_f32ctx and cuda_highest within PARITY_LOSS_ATOL of cpu_f32 at each step and the
+# initial gradient norm within PARITY_GRAD_RTOL; the same f32 function, sums in another
+# order), the loop, the collapse and learning-rate probes; the coupling sweep at strength 8
+# on its own pool of COUPLING_SAMPLES sequences a class (one batch of 64 a split)
+DRIFT_SEEDS, DRIFT_CORR_ATOL, DRIFT_REL_RTOL, DRIFT_REL_ATOL = 3, 1e-3, 0.1, 2e-3
+CKPT_ROWS, CKPT_FLIP_RTOL = 32, 2**-7
+PROBE_SAMPLES, PARITY_STEPS, PARITY_LOSS_ATOL, PARITY_GRAD_RTOL = 2, 4, 1e-3, 1e-3
+COUPLING_SAMPLES = 1
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -2929,7 +2958,7 @@ def finite_numbers(obj, what: str) -> int:
     return 0
 
 
-def run_workflows_stage(counters: dict, kernels: dict, smi: str) -> None:
+def run_workflows_stage(counters: dict, kernels: dict, smi: str) -> Path:
     """Phase 24 (b): the validation workflows of ``tpuhar_torch.scripts`` at full width
     on a small fixture: ``bench_accuracy`` → ``validate_int8_ood`` per tower →
     ``rescore_ood_hard``, in process with each one's kernel launches, and
@@ -3040,7 +3069,213 @@ def run_workflows_stage(counters: dict, kernels: dict, smi: str) -> None:
         raise AssertionError("the workflows wrote under docs/")
     print(f"[workflows] phase 24 (b): {time.perf_counter() - t_phase:.1f} s; every JSON under {root.relative_to(repo)}, "
           f"nothing under docs/ ({smi})")
-    shutil.rmtree(root, ignore_errors=True)
+    return root  # phase 25 reads bench_accuracy's checkpoints; main removes the tree after it
+
+
+def check_resident_drift(counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 25 (a): ``measure_resident_drift.run`` at ``DRIFT_SEEDS`` seeds on the card
+    (the int8 ResNet-18 at 32², 4 frames: ``conv3x3_i8`` down to 1² maps and a stride-2
+    conv from 2² to 1²). Each engine's graph holds one featurizer, 4 ``int8_gemm`` and 16
+    ``conv3x3_i8`` launches; its replay equals its eager program and the eager program its
+    plain-kernel program, bit for bit; per seed the correlation and drift against the same
+    seeds on the CPU."""
+    from tpuhar_torch import serving as serving_module
+    from tpuhar_torch.scripts import measure_resident_drift
+
+    engines = []
+
+    class Recorded(InferenceEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    serving_module.InferenceEngine = Recorded
+    try:
+        card, counts, seconds = drive_counted(counters, kernels, "probe_resident_drift",
+                                              lambda: measure_resident_drift.run(DRIFT_SEEDS, device="cuda"), {})
+    finally:
+        serving_module.InferenceEngine = InferenceEngine
+    if len(engines) != 2 * DRIFT_SEEDS:
+        raise AssertionError(f"measure_resident_drift built {len(engines)} engines, expected {2 * DRIFT_SEEDS}")
+    batch = measure_resident_drift.BATCH
+    graph = {"fused_window": 1, "int8_gemm": 4, "conv3x3_i8": 16}
+    for i, engine in enumerate(engines):
+        seed, what = i // 2, f"drift seed {i // 2} {'resident' if i % 2 else 'baseline'}"
+        held = {k: v for k, v in engine.graph_launches[batch].items() if v}
+        if held != graph:
+            raise AssertionError(f"{what}: the graph holds {held}, expected {graph}")
+        imu, video = measure_resident_drift.seed_inputs(seed)
+        args = [torch.from_numpy(a).cuda() for a in engine._pad_to(imu, video, batch)]
+        bitwise_equal(engine.predict(imu, video), {k: v.cpu().numpy() for k, v in engine._forward(*args).items()},
+                      f"{what}: predict (the replay) vs the eager program")
+        equal_to_plain_kernels(f"{what} eager program", lambda: engine._forward(*args))
+    del engines
+    torch.cuda.empty_cache()
+    for name in ("fused_window", "int8_gemm", "conv3x3_i8"):
+        if not counts[name]:
+            raise AssertionError(f"measure_resident_drift: {name} never launched ({counts})")
+    t0 = time.perf_counter()
+    cpu = measure_resident_drift.run(DRIFT_SEEDS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for got, want in zip(card["rows"], cpu["rows"]):
+        corr_gap, rel_gap = abs(got["corr"] - want["corr"]), abs(got["rel_rms_drift"] - want["rel_rms_drift"])
+        print(f"[probes] resident drift seed {got['seed']}: card corr {got['corr']:.6f} rel {got['rel_rms_drift']:.5f}, "
+              f"CPU corr {want['corr']:.6f} rel {want['rel_rms_drift']:.5f}")
+        if not (corr_gap <= DRIFT_CORR_ATOL and rel_gap <= DRIFT_REL_RTOL * want["rel_rms_drift"] + DRIFT_REL_ATOL):
+            raise AssertionError(f"resident drift seed {got['seed']}: card {got} against the CPU's {want}")
+    print(f"[probes] measure_resident_drift {DRIFT_SEEDS} seeds on the card in {seconds:.1f} s (6 engines built, "
+          f"calibrated and captured), on the CPU in {cpu_s:.1f} s; card distribution corr {json.dumps(card['corr'])}, "
+          f"rel RMS drift {json.dumps(card['rel_rms_drift'])}; launches {counts}; each graph {graph} ({smi})")
+    return card
+
+
+def check_ckpt_rescoring(counters: dict, kernels: dict, smi: str, bench_root: Path) -> None:
+    """Phase 25 (b): ``debug_ckpt_data_match.run`` on phase 24's ``tpu_cnn`` checkpoint
+    (``fusion_full/last``, 3 classes) over ``CKPT_ROWS`` test rows: 4 fused convs an eval
+    forward; the confusion matrix against the CPU's on the same rows."""
+    from tpuhar_torch.scripts import debug_ckpt_data_match
+
+    run = lambda device: debug_ckpt_data_match.run(bench_root, "tpu_cnn", CKPT_ROWS, device=device, num_classes=3)  # noqa: E731
+    card, counts, seconds = drive_counted(counters, kernels, "probe_ckpt_data_match", lambda: run("cuda"), {})
+    forwards = -(-len(card["labels"]) // 16)
+    if counts["conv3x3_bn_act"] != 4 * forwards or any(n for k, n in counts.items() if k != "conv3x3_bn_act"):
+        raise AssertionError(f"debug_ckpt_data_match: launches {counts}, expected 4 fused convs in each of {forwards}")
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(card["labels"], cpu["labels"]) or not np.isfinite(card["logits"]).all():
+        raise AssertionError("debug_ckpt_data_match: the card and the CPU scored other rows")
+    moved = np.flatnonzero(card["logits"].argmax(1) != cpu["logits"].argmax(1))
+    top2 = np.sort(cpu["logits"], 1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= CKPT_FLIP_RTOL * np.abs(cpu["logits"]).max(1)
+    if not np.array_equal(card["confusion"], cpu["confusion"]) and not near[moved].all():
+        raise AssertionError(f"debug_ckpt_data_match: rows {moved.tolist()} predicted otherwise on the card, some "
+                             f"with the CPU's top two logits apart by more than bf16 rounding")
+    diff = float(np.abs(card["logits"] - cpu["logits"]).max())
+    print(f"[probes] debug_ckpt_data_match tpu_cnn (phase 24's fusion_full/last) on {len(card['labels'])} test rows: "
+          f"accuracy {card['accuracy']:.2f}% on the card, {cpu['accuracy']:.2f}% on the CPU; training-time last epoch "
+          f"{json.dumps(card['training_last_epoch'])}; confusion matrix "
+          + ("equal to the CPU's" if np.array_equal(card["confusion"], cpu["confusion"]) else
+             f"differs from the CPU's in rows {moved.tolist()}, each with its top two logits within bf16 rounding")
+          + f" {card['confusion'].tolist()}; largest logit gap card - CPU {diff:.4e}; {seconds:.1f} s on the card, "
+          f"{cpu_s:.1f} s on the CPU; launches {counts} ({smi})")
+
+
+def probe_fixture(root: Path) -> Path:
+    """The hard fixture (6 classes, ``PROBE_SAMPLES`` sequences a class and split,
+    1500 samples, coupled) preprocessed once at the probes' configuration (``tiny_cnn``,
+    4 frames of 32²) under ``root / "article_hard"``; ``root / "article_hard_r5" / "pool"``
+    is the same tree, where the debug scripts look for an article run's pool."""
+    from tpuhar_torch.cli import Pipeline
+    from tpuhar_torch.data.synthetic import generate_synthetic_dataset, make_synthetic_config
+
+    work = root / "article_hard"
+    generate_synthetic_dataset(work / "data", num_classes=6, samples_per_class=PROBE_SAMPLES, seq_len=1500, seed=1000,
+                               difficulty="hard", label_noise=0.0, cross_modal_coupling=True)
+    cfg = make_synthetic_config(work / "data", work / "out", num_classes=6, video_backbone="tiny_cnn",
+                                video_resize=(32, 32))
+    cfg.data.video_frames_per_window = 4
+    Pipeline(cfg, device="cuda").run_preprocessing()
+    (root / "article_hard_r5").mkdir()
+    (root / "article_hard_r5" / "pool").symlink_to(work.resolve(), target_is_directory=True)
+    return work
+
+
+def run_probes_stage(counters: dict, kernels: dict, smi: str, root: Path) -> None:
+    """Phase 25: the research probes and debug scripts of ``tpuhar_torch.scripts`` on the
+    card, under ``root`` (phase 24's tree, its ``bench_accuracy`` checkpoints read by (b)):
+    (a) the resident drift, (b) the checkpoint rescoring, (c) the parity probe, the
+    instrumented loop, the collapse and learning-rate probes and the coupling sweep on a
+    fixture of their own, each JSON held to the JAX script's keys and finite numbers;
+    the paths of (c) launch no hand kernel (``tiny_cnn``, an IMU encoder at Dh = 16)."""
+    from tpuhar_torch.scripts import (
+        debug_pretrain_loop,
+        debug_pretrain_parity,
+        probe_coupling_strength,
+        probe_imu_hard_lr,
+        probe_pretrain_collapse,
+    )
+
+    repo = Path(__file__).resolve().parent
+    docs = sorted((str(p), p.stat().st_mtime_ns) for p in (repo / "docs").rglob("*")) if (repo / "docs").exists() else []
+    t_phase = time.perf_counter()
+    check_resident_drift(counters, kernels, smi)
+    t_a = time.perf_counter() - t_phase
+    check_ckpt_rescoring(counters, kernels, smi, root / "bench_accuracy")
+    t_b = time.perf_counter() - t_phase - t_a
+
+    fx = root / "probes"
+    t0 = time.perf_counter()
+    work = probe_fixture(fx)
+    print(f"[probes] hard fixture (6 classes, {PROBE_SAMPLES} sequences a class and split) written and preprocessed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    none = dict.fromkeys(counters, 0)
+
+    parity, counts, seconds = drive_counted(counters, kernels, "probe_pretrain_parity", lambda: debug_pretrain_parity.run(
+        PARITY_STEPS, fx / "article_hard_r5", device="cuda", out=fx / "docs" / "pretrain_parity.json"), none)
+    arms = parity["arms"]
+    wanted = {"cpu_f32", "cuda_default", "cuda_f32ctx", "cuda_highest", "cuda_pipe_faithful", "cuda_pipe_keys_cpuinit"}
+    if set(parity) != {"bench", "steps", "arms"} or set(arms) != wanted or parity["steps"] != PARITY_STEPS:
+        raise AssertionError(f"debug_pretrain_parity: {sorted(parity)}, arms {sorted(arms)}")
+    for name, arm in arms.items():
+        diag = "init_param_norm" if "pipe" in name else "grad_norm_step0"
+        if set(arm) != {diag, "init_emb_std", "loss_first5", "loss_last5", "loss_final"} or len(arm["loss_first5"]) != PARITY_STEPS:
+            raise AssertionError(f"debug_pretrain_parity {name}: {sorted(arm)}")
+    finite_numbers(parity, "debug_pretrain_parity")
+    ref = arms["cpu_f32"]
+    gaps = {name: [round(a - b, 4) for a, b in zip(arm["loss_first5"], ref["loss_first5"])]
+            for name, arm in arms.items() if name != "cpu_f32"}
+    for name in ("cuda_f32ctx", "cuda_highest"):
+        grad_gap = abs(arms[name]["grad_norm_step0"] - ref["grad_norm_step0"])
+        if max(map(abs, gaps[name])) > PARITY_LOSS_ATOL or grad_gap > PARITY_GRAD_RTOL * ref["grad_norm_step0"]:
+            raise AssertionError(f"debug_pretrain_parity: {name} left cpu_f32: loss gaps {gaps[name]}, gradient norm "
+                                 f"{arms[name]['grad_norm_step0']} against {ref['grad_norm_step0']}")
+    print(f"[probes] debug_pretrain_parity {PARITY_STEPS} steps in {seconds:.1f} s: cpu_f32 losses {ref['loss_first5']}, "
+          f"gradient norm {ref['grad_norm_step0']}; each arm's loss gap to cpu_f32 {json.dumps(gaps)} (cuda_default: "
+          f"TF32 convolutions); gradient norms "
+          f"{ {n: a.get('grad_norm_step0', a.get('init_param_norm')) for n, a in arms.items()} }; launches none ({smi})")
+
+    loop, _, seconds = drive_counted(counters, kernels, "probe_pretrain_loop",
+                                     lambda: debug_pretrain_loop.run(fx / "article_hard_r5", device="cuda", epochs=1), none)
+    if set(loop) != {"bench", "train", "val"} or len(loop["train"]) != 1 or len(loop["val"]) != 1:
+        raise AssertionError(f"debug_pretrain_loop: {loop}")
+    finite_numbers(loop, "debug_pretrain_loop")
+    print(f"[probes] debug_pretrain_loop one epoch in {seconds:.1f} s: {json.dumps(loop)}; launches none")
+
+    collapse, _, seconds = drive_counted(counters, kernels, "probe_pretrain_collapse", lambda: probe_pretrain_collapse.run(
+        1, device="cuda", work=work, lrs=(2e-4,), out_root=fx / "probe_pt"), none)
+    if set(collapse) != {"2e-04"} or set(collapse["2e-04"]) != {"perdim_std", "var_over_norm2", "sk_probe_heldout_bal"}:
+        raise AssertionError(f"probe_pretrain_collapse: {collapse}")
+    finite_numbers(collapse, "probe_pretrain_collapse")
+    print(f"[probes] probe_pretrain_collapse lr 2e-4, one epoch, in {seconds:.1f} s: {json.dumps(collapse)}; launches none")
+
+    lr, _, seconds = drive_counted(counters, kernels, "probe_imu_hard_lr", lambda: probe_imu_hard_lr.run(
+        2, device="cuda", work=work, lrs=(1e-3,), out_root=fx / "probe_lr"), none)
+    if set(lr) != {"finetune/1e-03"} or set(lr["finetune/1e-03"]) != {"train_acc_last5", "val_bal_last5", "test_bal"}:
+        raise AssertionError(f"probe_imu_hard_lr: {lr}")
+    finite_numbers(lr, "probe_imu_hard_lr")
+    print(f"[probes] probe_imu_hard_lr lr 1e-3, two epochs, in {seconds:.1f} s: {json.dumps(lr)}; launches none")
+
+    sweep, _, seconds = drive_counted(counters, kernels, "probe_coupling_strength", lambda: probe_coupling_strength.run(
+        device="cuda", strengths=(8.0,), epochs=1, samples_per_class=COUPLING_SAMPLES, root=fx / "coupling_sweep",
+        out=fx / "docs" / "coupling_strength.json"), none)
+    keys = {"strength", "frames", "loss", "train_loss", "val_loss", "pairs", "retrieval_top1", "retrieval_top5", "chance",
+            "emb_std_imu", "emb_std_video"}
+    if (set(sweep) != {"bench", "epochs", "results"} or [r["loss"] for r in sweep["results"]] != ["siglip", "infonce"]
+            or any(set(r) != keys for r in sweep["results"])):
+        raise AssertionError(f"probe_coupling_strength: {sweep}")
+    finite_numbers(sweep, "probe_coupling_strength")
+    print(f"[probes] probe_coupling_strength strength 8, both losses, one epoch, in {seconds:.1f} s: "
+          f"{json.dumps([{k: r[k] for k in ('loss', 'train_loss', 'val_loss', 'retrieval_top1', 'chance')} for r in sweep['results']])}"
+          f"; launches none")
+    for name in ("pretrain_parity.json", "coupling_strength.json"):
+        if not (fx / "docs" / name).exists():
+            raise AssertionError(f"{name} was not written under {fx / 'docs'}")
+    after = sorted((str(p), p.stat().st_mtime_ns) for p in (repo / "docs").rglob("*")) if (repo / "docs").exists() else []
+    if after != docs:
+        raise AssertionError("the probes wrote under docs/")
+    print(f"[probes] phase 25: {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+          f"{time.perf_counter() - t_phase - t_a - t_b:.1f}); every JSON under {fx.relative_to(repo)} ({smi})")
 
 
 def main() -> None:
@@ -3346,8 +3581,12 @@ def main() -> None:
     kernels["int8_gemm"]["centered_stem"] = {**check_centered_stem(smi),
                                              **check_centered_engines(counters, kernels, smi, cfg, params)}
     print(f"[centered] phase 24 (a): {time.perf_counter() - t_phase:.1f} s")
-    run_workflows_stage(counters, kernels, smi)
+    root = run_workflows_stage(counters, kernels, smi)
     print(f"[workflows] phase 24: {time.perf_counter() - t_phase:.1f} s")
+    try:
+        run_probes_stage(counters, kernels, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

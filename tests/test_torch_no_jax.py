@@ -24,7 +24,10 @@ ROOT = Path(__file__).resolve().parent.parent
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 SCRIPTS = [f"tpuhar_torch.scripts.{n}" for n in ("validate_int8_ood", "rescore_ood_hard", "bench_accuracy",
-                                                 "article_workflow", "validate_pretraining", "graft_weights")]
+                                                 "article_workflow", "validate_pretraining", "graft_weights",
+                                                 "measure_resident_drift", "debug_ckpt_data_match",
+                                                 "debug_pretrain_parity", "debug_pretrain_loop", "probe_pretrain_collapse",
+                                                 "probe_imu_hard_lr", "probe_coupling_strength")]
 # JAX, and the host libraries a machine with the card need not have: the port's modules
 # and chip_smoke import none of them (pandas, OpenCV and sklearn only inside the
 # functions that read a DataFrame, decode a clip or write a report)
@@ -73,8 +76,9 @@ def test_port_imports_without_jax():
     # ops/augment, eval/metrics, utils/profiling), the evaluate stage's and the
     # pipeline's (data preparation, reports, the command line) and the mesh and loader
     # backends' (parallel/*, native, data/{parallel_decode,grain_loader}) and the
-    # validation workflows' (scripts/*, each one's --help) included
-    assert int(proc.stdout.split()[-1]) >= 63
+    # validation workflows', probes' and debug scripts' (scripts/*, each one's --help)
+    # included
+    assert int(proc.stdout.split()[-1]) >= 70
 
 
 def _spy(monkeypatch, module, name: str) -> list:

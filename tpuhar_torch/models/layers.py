@@ -45,12 +45,14 @@ def dropout(x: torch.Tensor, rate: float, generator=None, shape=None, cols=None)
     data-parallel scope, this rank's rows of the global batch's mask, and with ``cols``
     (a ``ModelShard``: ``x``'s last dimension is split over the model axis) this rank's
     columns of the whole width's. A ``shape`` given is a mask shared over the batch,
-    drawn the same on every rank."""
+    drawn the same on every rank. The mask is drawn on the generator's device and moved
+    to ``x``'s: a CPU generator gives a CUDA step the masks it gives a CPU step."""
     if rate <= 0.0:
         return x
 
     def draw(size):
-        return torch.rand(size, generator=generator, device=x.device)
+        on = x.device if generator is None else generator.device
+        return torch.rand(size, generator=generator, device=on).to(x.device)
 
     keep = (draw(shape) if shape is not None else scope.draw_rows(draw, x.shape, cols)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

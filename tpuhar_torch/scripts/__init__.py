@@ -12,9 +12,26 @@ name, arguments and output JSON, run as ``python -m tpuhar_torch.scripts.<name>`
   encoder.
 - ``graft_weights``: a torch/npz checkpoint grafted into the port's model, as a ``.pt``.
 
+The research probes and debug scripts, which take the JAX scripts' positional
+arguments (``python -m tpuhar_torch.scripts.<name> [args] [--cpu]``) and have a
+``run(...)`` whose keywords hold the JAX scripts' constants:
+
+- ``measure_resident_drift [n_seeds]``: the resident-against-baseline int8 ResNet-18
+  logit drift over seeds.
+- ``debug_ckpt_data_match [root] [tower] [n]``: a stored fusion checkpoint scored on
+  the windows now on disk, beside its training-time last epoch.
+- ``debug_pretrain_parity [steps] [workdir]``: the pretraining step on the CPU and on the
+  card at each matmul precision, from one initial state over the same batches.
+- ``debug_pretrain_loop [workdir]``: ``Pipeline.run_pretraining`` with a loss line a batch.
+- ``probe_pretrain_collapse [epochs]``: the IMU embedding's collapse and a linear probe,
+  per pretraining learning rate.
+- ``probe_imu_hard_lr [epochs]``: the IMU finetune per learning rate.
+- ``probe_coupling_strength``: pair retrieval per cross-modal coupling strength and loss.
+
 Each runs on the card unless ``--cpu`` is given (``graft_weights`` moves no tensor to a
-device). Outputs default under ``outputs/torch/``: where a JAX script writes
-``outputs/X`` the port writes ``outputs/torch/X``, and ``docs/X`` becomes
-``outputs/torch/docs/X``. Checkpoints are the port's ``.pt`` (``train/checkpoint``).
-``--quick`` shrinks a run; unlike the JAX scripts' it does not pick the CPU.
+device), and raises without a card. Outputs default under ``outputs/torch/``: where a
+JAX script writes ``outputs/X`` the port writes ``outputs/torch/X``, and ``docs/X``
+becomes ``outputs/torch/docs/X``. Checkpoints are the port's ``.pt``
+(``train/checkpoint``). ``--quick`` shrinks a run; unlike the JAX scripts' it does not
+pick the CPU.
 """

@@ -119,10 +119,10 @@ def build_config(args, work: Path):
     return cfg
 
 
-def _pool_retrieval(cfg, pool: Path, device) -> dict:
-    """Pair-retrieval accuracy of the trained cross-modal model on the pool's val split:
-    the pretraining telemetry that a falling loss cannot fake (a pretrain that learned
-    the coupling retrieves the matching clip far above 1/N)."""
+def _pool_retrieval(cfg, out: Path, device) -> dict:
+    """Pair-retrieval accuracy of the cross-modal model trained under the output root
+    ``out`` on its val split: the pretraining telemetry that a falling loss cannot fake
+    (a pretrain that learned the coupling retrieves the matching clip far above 1/N)."""
     from ..bridge import init_params
     from ..cli import Pipeline
     from ..data.loader import create_dataloaders
@@ -135,7 +135,7 @@ def _pool_retrieval(cfg, pool: Path, device) -> dict:
     val_df = pipe._metadata("val")
     loaders = create_dataloaders(cfg, val_df, val_df, val_df, mode="cross_modal", device=device)
     task = build_crossmodal_task(cfg, 1, init_params(cfg, torch.Generator().manual_seed(0), CrossModalModel), device=device)
-    ckpt.restore_checkpoint(pool / "out" / "checkpoints" / "cross_modal" / "best_model", task.state)
+    ckpt.restore_checkpoint(Path(out) / "checkpoints" / "cross_modal" / "best_model", task.state)
     model = task.model.eval()
 
     ip, vp = [], []
@@ -213,7 +213,7 @@ def pretrain_on_pool(args, work: Path, device):
             f"(ran {epochs_ran}/{args.pretrain_epochs})"
         )
         log(f"pretrain early-stopped: {info['early_stopped']}")
-    info["val_retrieval"] = _pool_retrieval(cfg, pool, device)
+    info["val_retrieval"] = _pool_retrieval(cfg, pool / "out", device)
     log(f"pool val retrieval: {info['val_retrieval']}")
     return enc_params, info
 

@@ -157,7 +157,18 @@ Phases; any failed check raises and the exit code is non-zero:
     ``debug_pretrain_parity`` (4 steps; the card's f32 arms against ``cpu_f32``, and the
     TF32 arm's gap), ``debug_pretrain_loop``, ``probe_pretrain_collapse``,
     ``probe_imu_hard_lr`` and ``probe_coupling_strength`` at strength 8, none launching a
-    hand kernel; every JSON held to the JAX script's keys and finite numbers.
+    hand kernel; every JSON held to the JAX script's keys and finite numbers;
+26. the timing and decomposition scripts, each through its module's ``run`` at full
+    width (cut in batch, iterations, one trial, fixture size and ``--min-windows``, each
+    cut printed): ``bench_train``, ``bench_preprocess``, ``bench_loader``,
+    ``bench_serving_stream`` in bf16 and ``--int8`` on phase 24's fixture (its
+    ``predict_stream`` logits equal its ``predict`` logits), ``perf_decompose``,
+    ``perf_nonvideo``, ``perf_quant``, ``perf_int8_stages`` (its prefix 5 bit for bit
+    with ``quant_tpucnn_forward_resident``, with the kernels and with their plain
+    versions), ``perf_vit_stages``, ``perf_sweep``, ``perf_tpucnn_variants``,
+    ``perf_trace`` and ``generate_tables --demo``; each dict held to its keys, each
+    number finite or null, with each hand kernel's launches per script; the floors of
+    ``utils/roofline`` against phase 3's bounds of the int8 conv and the stem.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -247,6 +258,7 @@ from tpuhar_torch.profile_step import device_profile
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 from tpuhar_torch.utils.profiling import StepProfiler
+from tpuhar_torch.utils.roofline import bound
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
 FEATURIZE_BATCHES = (8, 256, 8192)  # latency, throughput, and 98 MB a call: past the L2
@@ -475,6 +487,19 @@ DRIFT_SEEDS, DRIFT_CORR_ATOL, DRIFT_REL_RTOL, DRIFT_REL_ATOL = 3, 1e-3, 0.1, 2e-
 CKPT_ROWS, CKPT_FLIP_RTOL = 32, 2**-7
 PROBE_SAMPLES, PARITY_STEPS, PARITY_LOSS_ATOL, PARITY_GRAD_RTOL = 2, 4, 1e-3, 1e-3
 COUPLING_SAMPLES = 1
+# phase 26, the timing and decomposition scripts at full width; the cuts are in batch,
+# iterations and trials (one each), the fixtures and --min-windows
+SCRIPT_TRIALS = 1
+BENCH_TRAIN_BATCH, BENCH_TRAIN_STEPS = 16, 3  # of 32 and 10
+LOADER_FIXTURE = dict(num_classes=2, samples_per_class=2, seq_len=600)  # of 8 x 6 x 1500
+STREAM_ARGS = ["--batch", "16", "--min-windows", "64"]  # of 64 and 512
+STREAM_FIXTURE = (2, 2, 600)  # where phase 24's bench_accuracy fixture is gone; of (6, 8, 1500)
+SCRIPT_BATCH = 64  # perf_decompose, perf_nonvideo, perf_quant, perf_tpucnn_variants and perf_trace, of 256
+SCRIPT_ITERS = 5  # of 10-20
+INT8_STAGE_FRAMES, INT8_CHECK_FRAMES = 1024, 64  # of 4096; prefix 5 against the plain kernels at 64
+VIT_STAGE_BATCH, VIT_STAGE_ITERS = 16, 4  # of 64 and 12
+SWEEP_VARIANTS = ("resnet18:64", "videomae_small:32")  # of resnet18:512, videomae_small:256
+FLOOR_RTOL = 1e-5  # phase 3's stem bound also counts the 2 KB of its scale and bias
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -482,19 +507,6 @@ ENGINE_TIMING_ITERS = {8: 20, 64: 3, 256: 3}
 ENGINE_BENCH_ITERS = {8: 10, 64: 2, 256: 2}  # benchmark_engine: predicts after its first
 STREAM_SIZES = (8, 5, 8, 3)  # predict_stream's four batches, held to predict
 STREAM_TIMED_BATCHES = 4  # predict_stream timed at each registered size
-# the card's peaks (H100 SXM data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
-
-
-def bound(bytes_moved: float, ops: dict) -> dict:
-    """The least time the card could take: the larger of the bytes over the memory rate
-    and each type's operations over its peak rate."""
-    times = {"bytes": bytes_moved / HBM_BYTES_PER_S}
-    times.update({kind: n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()})
-    by = max(times, key=times.get)
-    return {"bound_ms": times[by] * 1e3, "bound_by": "bytes" if by == "bytes" else "operations"}
-
 
 def require_cuda() -> None:
     """Fail unless a CUDA device is present: the script never falls back to the CPU."""
@@ -1717,7 +1729,7 @@ def run_towers_stage(counters: dict, kernels: dict, smi: str, params_vit_pt) -> 
 def plain_int8_kernels():
     """The int8 towers' kernel calls go to the kernels' plain versions inside the scope."""
     swaps = [(quant_module, "int8_gemm", int8_gemm_reference), (quant_module, "conv3x3_i8", conv3x3_i8_reference),
-             (quant_vit_module, "int8_gemm", int8_gemm_reference),
+             (quant_module, "stem_gemm_u8", stem_gemm_u8_reference), (quant_vit_module, "int8_gemm", int8_gemm_reference),
              (quant_vit_module, "stem_gemm_u8", stem_gemm_u8_reference)]
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     try:
@@ -3278,6 +3290,175 @@ def run_probes_stage(counters: dict, kernels: dict, smi: str, root: Path) -> Non
           f"{time.perf_counter() - t_phase - t_a - t_b:.1f}); every JSON under {fx.relative_to(repo)} ({smi})")
 
 
+def check_script_result(name: str, result, keys: set) -> int:
+    """Fail unless ``result`` (a dict, or a list of dicts) has exactly ``keys``, every
+    number in it is finite and, since every script here times at least one trial, no
+    time or rate is null: the one null allowed is a ``util`` over a floor of 0 (the
+    pool's). Returns how many numbers it holds."""
+    rows = result if isinstance(result, list) else [result]
+    if not rows or any(set(r) != keys for r in rows):
+        raise AssertionError(f"{name}: keys {[sorted(r) for r in rows]}, expected {sorted(keys)}")
+
+    def nulls(obj, path):
+        if isinstance(obj, dict):
+            return [p for k, v in obj.items() if k != "util" for p in nulls(v, f"{path}.{k}")]
+        if isinstance(obj, list):
+            return [p for i, v in enumerate(obj) for p in nulls(v, f"{path}[{i}]")]
+        return [path] if obj is None else []
+
+    missing = nulls(result, name)
+    if missing:
+        raise AssertionError(f"{name}: null at {missing} although {SCRIPT_TRIALS} trial(s) ran")
+    return finite_numbers(result, name)
+
+
+def check_int8_prefix(smi: str) -> None:
+    """Phase 26: ``perf_int8_stages``' prefix 5 on ``INT8_CHECK_FRAMES`` patch-major
+    frames is ``quant_tpucnn_forward_resident`` bit for bit, with the kernels and with
+    their plain versions, and the kernels' program is the plain one's."""
+    from tpuhar_torch.scripts import perf_int8_stages
+
+    q = perf_int8_stages.build_tree("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randint(0, 256, (INT8_CHECK_FRAMES, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
+    for what, scope in (("kernels", contextlib.nullcontext), ("plain versions", plain_int8_kernels)):
+        with scope():
+            got, want = perf_int8_stages.resident_prefix(q, frames, 5), quant_tpucnn_forward_resident(q, frames)
+        if not torch.equal(got, want):
+            raise AssertionError(f"perf_int8_stages prefix 5 ({what}) differs from quant_tpucnn_forward_resident by "
+                                 f"{(got - want).abs().max().item():.3e}")
+    equal_to_plain_kernels("perf_int8_stages prefix 5", lambda: perf_int8_stages.resident_prefix(q, frames, 5))
+    print(f"[scripts] perf_int8_stages prefix 5 on {INT8_CHECK_FRAMES} frames is quant_tpucnn_forward_resident bit for "
+          f"bit, with the kernels and with their plain versions ({smi})")
+
+
+def check_floors(kernels: dict) -> None:
+    """Phase 26: ``utils/roofline.analyze``'s resident floors at 4096 frames are phase
+    3's bounds of the int8 conv (``s0b0a``) and the stem."""
+    from tpuhar_torch.utils.roofline import analyze
+
+    floors = {r["layer"]: r["floor_resident_ms"] for r in analyze(4096)}
+    for layer, name in (("s0b0a", "conv3x3_i8"), ("stem", "stem_gemm_u8")):
+        got, want = floors[layer], kernels[name]["bound_ms"]
+        print(f"[scripts] roofline floor of {layer} at 4096 frames {got:.6f} ms, phase 3's {name} bound {want:.6f} ms")
+        if round(got, 4) != round(want, 4) or abs(got - want) > FLOOR_RTOL * want:
+            raise AssertionError(f"the roofline floor of {layer} {got} is not phase 3's {name} bound {want}")
+
+
+def run_bench_scripts_stage(counters: dict, kernels: dict, smi: str, bench_root: Path) -> None:
+    """Phase 26: the timing and decomposition scripts of ``tpuhar_torch.scripts``, each
+    through its module's ``run`` on the card at full width (the cuts: batch, iterations,
+    one trial, the fixtures, ``--min-windows``), with each hand kernel's launches per
+    script. ``bench_serving_stream`` reads phase 24's ``bench_accuracy`` fixture under
+    ``bench_root`` where it is there; its ``predict_stream`` logits equal its ``predict``
+    logits. Every dict holds its keys, each number finite or null; the floors of
+    ``utils/roofline`` are phase 3's bounds; prefix 5 of ``perf_int8_stages`` is the
+    served int8 tower bit for bit."""
+    from tpuhar_torch.scripts import (
+        bench_loader,
+        bench_preprocess,
+        bench_serving_stream,
+        bench_train,
+        generate_tables,
+        perf_decompose,
+        perf_int8_stages,
+        perf_nonvideo,
+        perf_quant,
+        perf_sweep,
+        perf_tpucnn_variants,
+        perf_trace,
+        perf_vit_stages,
+    )
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "outputs" / "torch" / "chip_smoke_scripts"
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    print(f"[scripts] phase 26 cuts: one trial each; bench_train batch {BENCH_TRAIN_BATCH} ({BENCH_TRAIN_STEPS} steps); "
+          f"bench_loader fixture {LOADER_FIXTURE}; bench_serving_stream {STREAM_ARGS} (fixture {STREAM_FIXTURE} where "
+          f"phase 24's is gone); batch {SCRIPT_BATCH} and {SCRIPT_ITERS} steps for perf_decompose, perf_nonvideo, "
+          f"perf_quant, perf_tpucnn_variants and perf_trace; perf_int8_stages {INT8_STAGE_FRAMES} frames; "
+          f"perf_vit_stages batch {VIT_STAGE_BATCH} ({VIT_STAGE_ITERS} steps); perf_sweep {SWEEP_VARIANTS}; widths full")
+    check_floors(kernels)
+    check_int8_prefix(smi)
+    trials = dict(trials=SCRIPT_TRIALS)
+    flagship = dict(cpu=False, iters=SCRIPT_ITERS, **trials)
+    stream_keys = {"bench", "tower", "int8", "batch", "depth", "windows", "host_feed_rate", "upload_rate", "upload_mb_s",
+                   "chip_only_rate", "compute_rate_est", "sequential_rate", "stream_rate", "overlap_gain", "bound",
+                   "platform"}
+    streams = {}
+
+    def serving_stream(extra):
+        out = {}
+        args = bench_serving_stream.parse_args([*STREAM_ARGS, "--root", str(root / "bench_serving_stream"),
+                                                "--reuse-fixture", str(bench_root), *extra])
+        result = bench_serving_stream.run(args, fixture_size=STREAM_FIXTURE, outputs=out, **trials)
+        streams[tuple(extra)] = out
+        return result
+
+    plan = [
+        ("bench_train", lambda: bench_train.run(BENCH_TRAIN_BATCH, steps=BENCH_TRAIN_STEPS, **trials),
+         {"bench", "batch", "device", "steps"}, ()),
+        ("bench_preprocess", lambda: bench_preprocess.run(**trials),
+         {"bench", "sequences", "windows", "device", "host", "device_batched"}, ()),
+        ("bench_loader", lambda: bench_loader.run(**LOADER_FIXTURE, **trials),
+         {"bench", "windows", "device", "fixture", "imu_windows_per_s", "clips_per_s"}, ()),
+        ("bench_serving_stream", lambda: serving_stream([]), stream_keys, ("fused_window", "conv3x3_bn_act")),
+        ("bench_serving_stream_int8", lambda: serving_stream(["--int8"]), stream_keys,
+         ("fused_window", "stem_gemm_u8", "conv3x3_i8")),
+        ("perf_decompose", lambda: perf_decompose.run(SCRIPT_BATCH, **flagship), {"bench", "batch", "device", "ms"},
+         ("fused_window", "conv3x3_bn_act")),
+        ("perf_nonvideo", lambda: perf_nonvideo.run(SCRIPT_BATCH, **flagship), {"bench", "batch", "ms"},
+         ("fused_window",)),
+        ("perf_quant", lambda: perf_quant.run(SCRIPT_BATCH, **flagship),
+         {"bench", "batch", "device", "bf16_ms", "int8_ms", "bf16_inf_per_s", "int8_inf_per_s", "speedup"},
+         ("fused_window", "conv3x3_bn_act", "stem_gemm_u8", "conv3x3_i8")),
+        ("perf_int8_stages", lambda: perf_int8_stages.run(INT8_STAGE_FRAMES, iters=SCRIPT_ITERS, **trials),
+         {"bench", "frames_per_step", "cumulative_ms", "stages"}, ("stem_gemm_u8", "conv3x3_i8")),
+        ("perf_vit_stages", lambda: perf_vit_stages.run(VIT_STAGE_BATCH, iters=VIT_STAGE_ITERS, **trials),
+         {"bench", "batch", "device", "null_ms", "units_ms", "floors_ms", "model_est_ms", "model_floor_ms",
+          "full_model_ms"}, ()),
+        ("perf_sweep", lambda: perf_sweep.run(SWEEP_VARIANTS, iters=SCRIPT_ITERS, **trials),
+         {"backbone", "batch", "throughput", "step_ms", "build_s"}, ("fused_window",)),
+        ("perf_tpucnn_variants", lambda: perf_tpucnn_variants.run(batch=SCRIPT_BATCH, iters=SCRIPT_ITERS, **trials),
+         {"widths", "backbone", "step_ms", "inf_per_s"}, ("fused_window", "conv3x3_bn_act")),
+        ("perf_trace", lambda: perf_trace.run(batch=SCRIPT_BATCH, logdir=root / "perf_trace"),
+         {"bench", "backbone", "batch", "steps", "trace", "device", "device_ms", "ops", "busy", "top"},
+         ("fused_window", "conv3x3_bn_act")),
+    ]
+    timings = {}
+    for name, run, keys, launched in plan:
+        result, counts, seconds = drive_counted(counters, kernels, f"script_{name}", run, {})
+        n = check_script_result(name, result, keys)
+        missing = [k for k in launched if not counts[k]]
+        if missing:
+            raise AssertionError(f"{name}: {missing} never launched ({counts})")
+        timings[name] = seconds
+        shown = result
+        if isinstance(result, dict) and "top" in result:  # the trace's five longest ops by name and time
+            shown = {**result, "top": [(r["name"][:60], r["ms"], r["launches"]) for r in result["top"][:5]]}
+        print(f"[scripts] {name} in {seconds:.1f} s, {n} finite numbers: {json.dumps(shown)}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } ({smi})")
+    for extra, out in streams.items():
+        if not out["stream"] or len(out["stream"]) != len(out["sequential"]) or not all(
+                np.array_equal(a, b) for a, b in zip(out["stream"], out["sequential"])):
+            raise AssertionError(f"bench_serving_stream {list(extra)}: predict_stream's logits differ from predict's")
+        print(f"[scripts] bench_serving_stream {list(extra)}: predict_stream's logits equal predict's in each of "
+              f"{len(out['stream'])} batches")
+    trace = root / "perf_trace" / "trace.json"
+    if not trace.exists() or trace.stat().st_size == 0:
+        raise AssertionError(f"perf_trace wrote no trace at {trace}")
+    tables, _, _ = drive_counted(counters, kernels, "script_generate_tables", lambda: generate_tables.main(
+        ["--demo", "--results-dir", str(root / "tables")]), dict.fromkeys(counters, 0))
+    csvs = sorted(p.name for p in (root / "tables").glob("demo_*.csv"))
+    if csvs != sorted(f"demo_{t}.csv" for t in tables):
+        raise AssertionError(f"generate_tables --demo wrote {csvs}")
+    print(f"[scripts] generate_tables --demo: {csvs}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[scripts] phase 26: {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in timings.items())}) ({smi})")
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3585,6 +3766,7 @@ def main() -> None:
     print(f"[workflows] phase 24: {time.perf_counter() - t_phase:.1f} s")
     try:
         run_probes_stage(counters, kernels, smi, root)
+        run_bench_scripts_stage(counters, kernels, smi, root / "bench_accuracy")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name, k in kernels.items():

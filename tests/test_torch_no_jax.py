@@ -27,7 +27,11 @@ SCRIPTS = [f"tpuhar_torch.scripts.{n}" for n in ("validate_int8_ood", "rescore_o
                                                  "article_workflow", "validate_pretraining", "graft_weights",
                                                  "measure_resident_drift", "debug_ckpt_data_match",
                                                  "debug_pretrain_parity", "debug_pretrain_loop", "probe_pretrain_collapse",
-                                                 "probe_imu_hard_lr", "probe_coupling_strength")]
+                                                 "probe_imu_hard_lr", "probe_coupling_strength", "bench_train",
+                                                 "bench_loader", "bench_preprocess", "bench_serving_stream",
+                                                 "perf_decompose", "perf_nonvideo", "perf_quant", "perf_int8_stages",
+                                                 "perf_vit_stages", "perf_sweep", "perf_tpucnn_variants", "perf_trace",
+                                                 "generate_tables")]
 # JAX, and the host libraries a machine with the card need not have: the port's modules
 # and chip_smoke import none of them (pandas, OpenCV and sklearn only inside the
 # functions that read a DataFrame, decode a clip or write a report)
@@ -47,7 +51,7 @@ for name in ("tpuhar_torch.losses", "tpuhar_torch.train.steps", "tpuhar_torch.tr
              "tpuhar_torch.utils", "tpuhar_torch.cli", "tpuhar_torch.__main__", "tpuhar_torch.native",
              "tpuhar_torch.data.parallel_decode", "tpuhar_torch.data.grain_loader", "tpuhar_torch.parallel.mesh",
              "tpuhar_torch.parallel.distributed", "tpuhar_torch.parallel.scope", "tpuhar_torch.ops.video",
-             "tpuhar_torch.scripts", "tpuhar_torch.scripts._common", *SCRIPTS):
+             "tpuhar_torch.scripts", "tpuhar_torch.scripts._common", "tpuhar_torch.utils.roofline", *SCRIPTS):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -76,9 +80,9 @@ def test_port_imports_without_jax():
     # ops/augment, eval/metrics, utils/profiling), the evaluate stage's and the
     # pipeline's (data preparation, reports, the command line) and the mesh and loader
     # backends' (parallel/*, native, data/{parallel_decode,grain_loader}) and the
-    # validation workflows', probes' and debug scripts' (scripts/*, each one's --help)
-    # included
-    assert int(proc.stdout.split()[-1]) >= 70
+    # validation workflows', probes', debug scripts' and timing scripts' (scripts/*, each
+    # one's --help) and the card's peaks (utils/roofline) included
+    assert int(proc.stdout.split()[-1]) >= 84
 
 
 def _spy(monkeypatch, module, name: str) -> list:

@@ -4,8 +4,10 @@ rematerialized ViT step against the plain one.
 The classifier steps run ``check_classification_step`` of
 ``tests/test_torch_classify_steps.py``, with the tolerances, the second-step rule and the
 ``predict_step`` check of that file's docstring: the fusion classifier with the
-``tpu_cnn``, ``resnet18``, ``mobilenet_v2`` and ``tiny_cnn`` towers, and the IMU
-classifier's finetune with the 1-D CNN and the STFT encoder. Sizes: that file's
+``tpu_cnn``, ``resnet18``, ``mobilenet_v2`` and ``tiny_cnn`` towers (in
+``tests/test_torch_tower_steps_f64.py``, so that its two float64 steps run on another
+worker than this file's tests), and the IMU classifier's finetune with the 1-D CNN and
+the STFT encoder. Sizes: that file's
 (IMU d=32 with 2 layers, fusion 4 heads, ``video_d_model`` 64, head 32 → 16 → 5, f32,
 every dropout 0, batch 4), clips of 4 frames at 64² (``tiny_cnn``: 32²). Every
 BatchNorm sees at least 32 rows: the towers' last stages hold 2² positions of 16 frames
@@ -35,7 +37,6 @@ cast at use). The recompute runs the same operations on the same tensors, and th
 blocks draw nothing; each block's forward runs twice in the remat step, once in the
 plain one.
 """
-import jax
 import numpy as np
 import pytest
 import torch
@@ -47,11 +48,6 @@ from tpuhar_torch.models.crossmodal import CrossModalModel
 
 torch.set_num_threads(2)
 
-# backbone -> the side of its frames
-TOWERS = {"tpu_cnn": 64, "resnet18": 64, "mobilenet_v2": 64, "tiny_cnn": 32}
-# the towers whose f32 gradients cannot be held to each other (the docstring): their
-# steps run in float64 in both packages
-FLOAT64_STEPS = ("resnet18", "mobilenet_v2")
 # the least share of the parameters held to the tight bound after each step, below the
 # share measured here (tpu_cnn 0.34, resnet18 0.34, mobilenet_v2 0.11, tiny_cnn 0.53,
 # the 1-D CNN 0.73, the STFT encoder 0.71, each the lower of its two steps)
@@ -73,20 +69,6 @@ def _batches(side: int):
         return batch
 
     return make_batch
-
-
-@pytest.mark.parametrize("backbone", list(TOWERS))
-def test_fusion_step_with_tower_matches_jax(backbone):
-    cfg = _config("layer")
-    cfg.model.video_backbone = backbone
-    cfg.data.video_resize = (TOWERS[backbone],) * 2
-    args = ("fusion", "finetune", cfg, _batches(TOWERS[backbone]), TIGHT_SHARES[backbone], True)
-    if backbone in FLOAT64_STEPS:
-        cfg.model.compute_dtype = "float64"
-        with jax.enable_x64(True):
-            check_classification_step(*args)
-    else:
-        check_classification_step(*args)
 
 
 @pytest.mark.parametrize("encoder", ["cnn", "stft"])

@@ -77,6 +77,11 @@ class CrossModalModel(MasterWeights):
             out["video_proj"] = l2_normalize(self.video_proj(video_feat, train=train).float())
         return out
 
+    def encode_imu(self, imu, *, train: bool = False, generator=None):
+        """The IMU encoder alone (``tpuhar/models/crossmodal.py: CrossModalModel.
+        encode_imu``): ``(feat (B, imu_d_model) f32, tokens)``."""
+        return self.imu_encoder(imu, train=train, generator=generator)
+
 
 def _classifier_head(config, in_features: int, dtype) -> ClassifierHead:
     m = config.model

@@ -33,7 +33,7 @@ ResNet-18's 7×7 stem (on its im2col rows) and 1×1 downsample convs through
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -342,15 +342,11 @@ def quant_tpucnn_forward(q: Dict, frames: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
 
 
-@torch.inference_mode()
-def quant_tpucnn_forward_resident(q: Dict, frames: torch.Tensor) -> torch.Tensor:
-    """int8-resident TPUVideoCNN features: every producer requantizes in its epilogue
-    at the site of its consumers, so only int8 tensors lie between the convs.
-
-    Same tree and the same conv inputs as ``quant_tpucnn_forward`` through the first
-    block; the skip add reads ``x_q · scale[site]`` (``relu(o + deq)``) instead of
-    the f32 activation. The last block's output stays f32 for the pooled mean.
-    ``frames`` as in ``quant_tpucnn_forward``."""
+def tpucnn_resident_units(q: Dict, frames: torch.Tensor) -> Iterator[torch.Tensor]:
+    """The outputs of ``quant_tpucnn_forward_resident``'s units in order, each computed
+    when it is asked for: the stem, each stage's downsample and blocks, the pool. Each
+    unit but the last block ends in int8 codes at its consumer's site, the last block in
+    f32, the pool in the features. Run it under ``torch.inference_mode``."""
     scales = q["act_scales"]
     stages, blocks = q["layout"]
 
@@ -366,10 +362,12 @@ def quant_tpucnn_forward_resident(q: Dict, frames: torch.Tensor) -> torch.Tensor
         x_q = _stem_patch_major(q, frames, out_scale=scales[site])
     else:
         x_q = quantize_activations(_stem_nhwc(q, frames), scales[site])
+    yield x_q
     for si in range(stages):
         if si > 0:
             site = f"s{si}b0.in"
             x_q = _conv(x_q, q[f"down{si}"], stride=2, relu=True, out_scale=scales[site])
+            yield x_q
         for bi in range(blocks):
             name = f"s{si}b{bi}"
             h_q = _conv(x_q, q[name]["a"], relu=True, out_scale=scales[f"{name}.mid"])
@@ -380,7 +378,22 @@ def quant_tpucnn_forward_resident(q: Dict, frames: torch.Tensor) -> torch.Tensor
             )
             if nxt is not None:
                 site, x_q = nxt, y
-    return y.mean(dim=(1, 2))
+            yield y
+    yield y.mean(dim=(1, 2))
+
+
+@torch.inference_mode()
+def quant_tpucnn_forward_resident(q: Dict, frames: torch.Tensor) -> torch.Tensor:
+    """int8-resident TPUVideoCNN features: every producer requantizes in its epilogue
+    at the site of its consumers, so only int8 tensors lie between the convs.
+
+    Same tree and the same conv inputs as ``quant_tpucnn_forward`` through the first
+    block; the skip add reads ``x_q · scale[site]`` (``relu(o + deq)``) instead of
+    the f32 activation. The last block's output stays f32 for the pooled mean.
+    ``frames`` as in ``quant_tpucnn_forward``. The last of ``tpucnn_resident_units``."""
+    for out in tpucnn_resident_units(q, frames):
+        pass
+    return out
 
 
 # ---------------------------------------------------------------------------------

@@ -42,9 +42,11 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from collections import defaultdict
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from .bridge import init_params
@@ -73,10 +75,16 @@ def build(name: str, cfg, params) -> Callable:
     return build_int8_forward(cfg, 8, device="cuda", params=params, resident=name == "int8_resident")[0]
 
 
-def step_ms(fn: Callable, args, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per step on the current stream, after ``warmup`` steps."""
+def step_ms(fn: Callable, args, iters: int = 20, warmup: int = 3, *, device="cuda") -> float:
+    """Mean ms per step after ``warmup`` steps: CUDA events on the current stream, or the
+    host clock where ``device`` is the CPU."""
     for _ in range(warmup):
         fn(*args)
+    if torch.device(device).type == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        return (time.perf_counter() - t0) / iters * 1e3
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -87,21 +95,39 @@ def step_ms(fn: Callable, args, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn: Callable, args, *, trials: int = 3, iters: int = 20, warmup: int = 3,
+              device="cuda") -> Optional[float]:
+    """The median of ``trials`` runs of ``step_ms`` (the first after ``warmup`` steps), or
+    None when no trial ran: a run that timed nothing reports no time."""
+    times = [step_ms(fn, args, iters, warmup if i == 0 else 0, device=device) for i in range(trials)]
+    return float(np.median(times)) if times else None
+
+
 def device_profile(fn: Callable, args, steps: int) -> Dict:
     """Per-name device time of ``steps`` steps under ``torch.profiler``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn(*args)
         torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return summarize_events(prof.events(), steps)
+
+
+def summarize_events(events, steps: int, *, device="cuda") -> Dict:
+    """``device_profile``'s table over a profiler's ``events()``: each name's time a
+    step, share and launches a step, sorted by time; the device time a step, its ops a
+    step and the busy share (device time over the span of the device ops). On the CPU
+    each host op counts its self time."""
+    from torch.autograd import DeviceType
+
+    cpu = torch.device(device).type == "cpu"
+    ops = [e for e in events if e.device_type == (DeviceType.CPU if cpu else DeviceType.CUDA)]
     if not ops:
-        raise RuntimeError("torch.profiler recorded no device ops")
+        raise RuntimeError(f"torch.profiler recorded no {'host' if cpu else 'device'} ops")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in ops:
-        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][0] += e.self_cpu_time_total if cpu else e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     device_us = sum(t for t, _ in by_name.values())
     span_us = max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)

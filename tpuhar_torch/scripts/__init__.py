@@ -28,6 +28,24 @@ arguments (``python -m tpuhar_torch.scripts.<name> [args] [--cpu]``) and have a
 - ``probe_imu_hard_lr [epochs]``: the IMU finetune per learning rate.
 - ``probe_coupling_strength``: pair retrieval per cross-modal coupling strength and loss.
 
+The timing and decomposition scripts, likewise (``run(...)`` returns the dict each
+prints, its keywords the JAX script's constants), each timing with
+``profile_step.median_ms`` and setting times against ``utils/roofline``'s floors:
+
+- ``bench_train [batch]``: the pretraining and fusion finetune train steps.
+- ``bench_preprocess``: the preprocessor's host scipy chain against its device route.
+- ``bench_loader [--workers=N]``: ``BatchLoader``'s IMU and clip rates.
+- ``bench_serving_stream [--int8] [--quick]``: a host-fed stream through
+  ``predict_stream``, and which of the host, the upload and the card bounds it.
+- ``perf_decompose [batch]``, ``perf_nonvideo [batch]``, ``perf_quant [batch]``: the
+  flagship step by part, outside the tower, and bf16 against int8-resident.
+- ``perf_int8_stages [frames]``, ``perf_vit_stages [batch]``: the int8 tower's stages
+  and the ViT's units against their floors.
+- ``perf_sweep [backbone:batch ...]``, ``perf_tpucnn_variants [w0,w1 ...]``: tower and
+  width sweeps of the serving forward.
+- ``perf_trace [backbone]``: a profiler trace of the flagship step and its top ops.
+- ``generate_tables [--results-dir] [--demo]``: the article tables (host only).
+
 Each runs on the card unless ``--cpu`` is given (``graft_weights`` moves no tensor to a
 device), and raises without a card. Outputs default under ``outputs/torch/``: where a
 JAX script writes ``outputs/X`` the port writes ``outputs/torch/X``, and ``docs/X``

@@ -1,7 +1,8 @@
-"""Pieces the validation workflows share: logging, the device, the leave-one-out
-checkpoints and the scoring of a split."""
+"""Pieces the scripts share: logging, the device and the card's line, the inputs of the
+timing scripts, the leave-one-out checkpoints and the scoring of a split."""
 from __future__ import annotations
 
+import subprocess
 import sys
 from pathlib import Path
 from typing import Callable, Optional, Sequence
@@ -20,6 +21,37 @@ def script_device(cpu: bool) -> torch.device:
     """The card, or the CPU where the caller asked for it (``--cpu``); raises without a
     card rather than falling back."""
     return resolve_device("cpu" if cpu else "cuda", "this workflow (pass --cpu for the CPU)")
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them, or "cpu"; every time a timing script prints
+    stands beside it."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def shown(x, spec: str = ".3f") -> str:
+    """``x`` formatted with ``spec``, or "null" where no trial gave it."""
+    return "null" if x is None else format(x, spec)
+
+
+def per_s(n: float, ms):
+    """``n`` a second at ``ms`` a step, or None where no trial gave ``ms``."""
+    return None if ms is None else n / ms * 1e3
+
+
+def serving_inputs(example_args, device, *, seed: int = 0):
+    """Inputs of the shapes and dtypes of a serving forward's ``example_args``, drawn on
+    ``device``: raw IMU counts ~ N(0, 8000²) and uniform uint8 pixels."""
+    imu_ex, video_ex = example_args
+    gen = torch.Generator(device=device).manual_seed(seed)
+    imu = torch.randn(tuple(imu_ex.shape), generator=gen, device=device) * 8000.0
+    video = torch.randint(0, 256, tuple(video_ex.shape), generator=gen, device=device, dtype=torch.uint8)
+    return imu, video
 
 
 def find_checkpoint(ckpt_dir: Path, names: Sequence[str]) -> Optional[Path]:

@@ -42,6 +42,7 @@ import torch
 from . import _ext
 from .ops.featurize import featurize_windows
 from .profile_step import device_profile
+from .utils.roofline import HBM_BYTES_PER_S
 
 BATCHES = (8, 256, 8192)
 T = 250
@@ -155,7 +156,7 @@ def main() -> None:
     for m, measure in measures.items():
         for _ in range(args.rounds):
             for b, raw in raws.items():
-                bound_us = 2 * raw.numel() * 4 / 3.35e12 * 1e6  # f32 in and out at 3.35 TB/s
+                bound_us = 2 * raw.numel() * 4 / HBM_BYTES_PER_S * 1e6  # f32 in and out
                 for name in order + order[::-1]:
                     t = measure(lambda: trees[name].featurize_windows_auto(raw))
                     times[m][b][name].append(t)

@@ -3,7 +3,7 @@
 moments and count, which is also the schedule's position, and the step) and
 ``<name>.json`` (epoch, history and best metric, human-readable). The trainer keeps
 ``last``, ``best_model`` and ``checkpoint_epoch_N`` pairs; ``save_params`` writes the
-pipeline's bare ``final_model_params.pt``. The files hold no mesh: under a ``mesh`` every
+pipeline's bare ``final_model_params.pt`` and ``restore_params`` reads it back. The files hold no mesh: under a ``mesh`` every
 rank gathers its model group's shards of the split parameters and moments
 (``parallel.mesh.whole_state``: a collective every rank enters), rank 0 writes whole
 tensors and the others wait at a barrier. A checkpoint written under tensor parallelism
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -70,3 +70,22 @@ def save_params(path, model, *, mesh=None) -> None:
         path.parent.mkdir(parents=True, exist_ok=True)
         torch.save(params, path)
     barrier(mesh)
+
+
+def restore_params(path, params_template: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The parameters ``save_params`` wrote to ``<path>.pt``, as ``{name: tensor}`` with
+    the keys of ``params_template`` (a model's ``dict(named_parameters())`` or an earlier
+    dump), each on its template tensor's device. Raises, as flax's ``from_bytes`` does
+    against its template, on a key missing from the file or not in the template
+    (``KeyError``) and on a shape that differs from the template's (``ValueError``)."""
+    stored = torch.load(Path(path).with_suffix(".pt"), map_location="cpu", weights_only=True)
+    missing, unexpected = sorted(set(params_template) - set(stored)), sorted(set(stored) - set(params_template))
+    if missing or unexpected:
+        raise KeyError(f"{path}: the parameters do not match the template: missing {missing}, unexpected {unexpected}")
+    out = {}
+    for name, like in params_template.items():
+        value = stored[name]
+        if tuple(value.shape) != tuple(like.shape):
+            raise ValueError(f"{path}: {name} has shape {tuple(value.shape)}, the template {tuple(like.shape)}")
+        out[name] = value.to(like.device)
+    return out

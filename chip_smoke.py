@@ -14,7 +14,8 @@ Phases; any failed check raises and the exit code is non-zero:
    rate of their type): the featurizer (its time a CUDA graph's per launch, the
    wrapper's host time per call apart, at batch 8, 256 and 8192: a few microseconds of
    device work, which events around eager calls would measure as the host's pace),
-   the bf16 conv (beside ``F.conv2d``), the int8
+   the bf16 conv (beside ``F.conv2d``) and its f32 form at the dry run's shapes (against
+   its plain version in float64, beside ``F.conv2d`` in f32), the int8
    stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
    mapped codes) and the int8 conv (both bit for bit; the int8 conv beside
    ``torch._int_mm`` on its im2col matrix and beside the bf16 conv's time, with their
@@ -168,7 +169,14 @@ Phases; any failed check raises and the exit code is non-zero:
     versions), ``perf_vit_stages``, ``perf_sweep``, ``perf_tpucnn_variants``,
     ``perf_trace`` and ``generate_tables --demo``; each dict held to its keys, each
     number finite or null, with each hand kernel's launches per script; the floors of
-    ``utils/roofline`` against phase 3's bounds of the int8 conv and the stem.
+    ``utils/roofline`` against phase 3's bounds of the int8 conv and the stem;
+27. ``entry.dryrun_multichip(4)`` (``__graft_entry__.dryrun_multichip``'s twin): four
+    spawned ranks on cuda:0 over gloo, the ``(2, 2)`` and then the ``(4, 1)`` mesh, each
+    a fully sharded fusion train step at the tiny sizes and the ``tpu_cnn`` bf16 and
+    int8 engines over the mesh (the featurizer, the bf16 conv at 2² and 1² maps, the
+    uint8 stem, the int8 conv and the f32 conv), the int8 logits against an engine's
+    without a mesh within 1e-5, each mesh's loss and gap and the launches summed over the
+    ranks.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -202,7 +210,9 @@ from tpuhar_torch.entry import (
     build_pretrain_task,
     build_video_task,
     classify_config,
+    dryrun_multichip,
     flagship_config,
+    launch_counters,
     pretrain_config,
     vit_config,
 )
@@ -218,6 +228,7 @@ from tpuhar_torch.models import video as video_models
 from tpuhar_torch.models.video import VIT_CONFIGS, VideoEncoder
 from tpuhar_torch.ops.conv3x3 import (
     conv3x3_bn_act,
+    conv3x3_bn_act_f32,
     conv3x3_bn_act_reference,
     conv3x3_i8,
     conv3x3_i8_reference,
@@ -280,6 +291,13 @@ CONV_SHAPES = [
     (3, 7, 512, 512, False, False), (3, 14, 256, 256, False, False),
 ]
 CONV_TIMED_SHAPE = (4096, 14, 256, 256, True, True)  # the s0 second conv at batch 256
+# the f32 form (the dry run's int8 engine recalibrates against its f32 tower): the
+# tower's four convs at the dry run's 8 frames a rank (2² maps at 256 channels, 1² at
+# 512) and a single engine's 16; |kernel - plain in float64| / max |plain|
+CONV_F32_SHAPES = [(8, 2, 256, 256, False, True), (8, 2, 256, 256, True, True),
+                   (8, 1, 512, 512, False, True), (16, 1, 512, 512, True, True)]
+CONV_F32_TIMED_SHAPE = (8, 2, 256, 256, True, True)
+CONV_F32_RTOL = 1e-5
 # the uint8 stem: (frames, int8 out) at batch 8 and 256, and a ragged M = 3·196
 STEM_SHAPES = [(128, False), (128, True), (4096, False), (4096, True), (3, True)]
 STEM_TIMED_SHAPE = (4096, True)  # the int8-resident stem at batch 256
@@ -500,6 +518,7 @@ INT8_STAGE_FRAMES, INT8_CHECK_FRAMES = 1024, 64  # of 4096; prefix 5 against the
 VIT_STAGE_BATCH, VIT_STAGE_ITERS = 16, 4  # of 64 and 12
 SWEEP_VARIANTS = ("resnet18:64", "videomae_small:32")  # of resnet18:512, videomae_small:256
 FLOOR_RTOL = 1e-5  # phase 3's stem bound also counts the 2 KB of its scale and bias
+DRYRUN_RANKS = 4  # phase 27: entry.dryrun_multichip's ranks, all on cuda:0
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -610,6 +629,42 @@ def check_conv3x3() -> dict:
             timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed,
             "shape": "(4096, 14, 14, 256)->256 bf16 + residual"}
+
+
+def check_conv3x3_f32() -> dict:
+    """The f32 form of the fused conv against its plain version in float64 at the dry
+    run's shapes, timed (with ``F.conv2d`` in f32, TF32 off) at one of them."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst_abs = worst_rel = 0.0
+    timed = None
+    for n, s, c, c_out, has_res, relu in CONV_F32_SHAPES:
+        x = torch.relu(torch.randn((n, s, s, c), generator=gen, device="cuda"))
+        kernel = torch.randn((3, 3, c, c_out), generator=gen, device="cuda") * (9 * c) ** -0.5
+        scale = torch.rand(c_out, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c_out, generator=gen, device="cuda") * 0.1
+        res = torch.randn((n, s, s, c_out), generator=gen, device="cuda") if has_res else None
+        got = conv3x3_bn_act_f32(x, kernel, scale, bias, residual=res, relu=relu)
+        want = conv3x3_bn_act_reference(x.double(), kernel.double(), scale, bias,
+                                         None if res is None else res.double(), relu)
+        err = (got.double() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        ms = cuda_ms(lambda: conv3x3_bn_act_f32(x, kernel, scale, bias, residual=res, relu=relu), 50)
+        plain_ms = cuda_ms(lambda: conv3x3_bn_act_reference(x, kernel, scale, bias, res, relu), 50)
+        name = f"({n}, {s}, {s}, {c})->{c_out} residual={has_res} relu={relu}"
+        print(f"[kernel] conv3x3 f32 {name}: max abs diff {err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+        if not rel <= CONV_F32_RTOL:
+            raise AssertionError(f"conv3x3 f32 {name}: relative diff {rel} > {CONV_F32_RTOL}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if (n, s, c, c_out, has_res, relu) == CONV_F32_TIMED_SHAPE:
+            xc, wc = x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 50)
+            b = bound((x.numel() + kernel.numel() + 2 * res.numel()) * 4, {"f32": 2 * n * s * s * 9 * c * c_out})
+            print(f"[kernel] conv3x3 f32 {name}: F.conv2d {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
+            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed,
+            "shape": "(8, 2, 2, 256)->256 f32 + residual"}
 
 
 def _plain_ms(fn, frames: int) -> float:
@@ -2592,15 +2647,6 @@ def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> dict:
     return reference
 
 
-def launch_counters() -> dict:
-    """Each hand kernel's wrapper by name: each counts its launches in ``.launches``."""
-    return {
-        "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
-        "stem_gemm_u8": stem_gemm_u8, "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
-        "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
-    }
-
-
 def check_flash_at(shape) -> dict:
     """The flash forward (with and without the stats) and both backward kernels against
     their plain versions at ``(B, H, N, 64)``, bf16, as phase 12 holds them."""
@@ -3459,6 +3505,50 @@ def run_bench_scripts_stage(counters: dict, kernels: dict, smi: str, bench_root:
           f"({', '.join(f'{k} {v:.1f}' for k, v in timings.items())}) ({smi})")
 
 
+def run_dryrun_stage(kernels: dict, smi: str) -> None:
+    """Phase 27: ``entry.dryrun_multichip(DRYRUN_RANKS)`` on the card. The ranks share
+    cuda:0 over gloo; each runs the ``(2, 2)`` mesh and then the pure-dp ``(4, 1)`` mesh:
+    the fully sharded fusion train step at the tiny sizes in f32 (no hand kernel: the
+    IMU arrives featurized, the ``videomae_tiny`` tower runs without flash), then the
+    ``tpu_cnn`` bf16 engine (one featurizer and 4 fused convs a forward, at 2² and 1²
+    maps) and the int8 engine (the featurizer, the uint8 stem, the int8 conv, and the f32
+    conv in its recalibration's f32 forward), the int8 logits within 1e-5 of an engine's
+    without a mesh. Each rank starts its counts
+    at 0; each part's launches are summed over the ranks and the meshes. Fails if a
+    kernel of the serve pass was not launched, or if the bf16 engine's count is not its
+    eager warm-up's and its capture's."""
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(DRYRUN_RANKS)
+    seconds = time.perf_counter() - t0
+    parts = {"train": "dryrun_train", "bf16": "dryrun_bf16", "int8": "dryrun_int8"}
+    totals = {path: dict.fromkeys(kernels, 0) for path in parts.values()}
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"dryrun rank {r['rank']} ran on {r['device']}")
+        for m in r["meshes"]:
+            for part, path in parts.items():
+                for name, n in m["launches"][part].items():
+                    totals[path][name] += n
+            want = {**dict.fromkeys(kernels, 0), "fused_window": 2, "conv3x3_bn_act": 8}
+            if m["launches"]["bf16"] != want:
+                raise AssertionError(f"dryrun rank {r['rank']} mesh {m['mesh']}: bf16 engine launches "
+                                     f"{m['launches']['bf16']}, expected {want}")
+    for path, counts in totals.items():
+        for name, n in counts.items():
+            kernels[name].setdefault("launches_by_path", {})[path] = n
+    needed = {"dryrun_bf16": ("fused_window", "conv3x3_bn_act"),
+              "dryrun_int8": ("fused_window", "stem_gemm_u8", "conv3x3_i8", "conv3x3_bn_act_f32")}
+    missing = [(path, name) for path, names in needed.items() for name in names if totals[path][name] <= 0]
+    if missing:
+        raise AssertionError(f"dryrun: kernels not launched {missing}")
+    for i, m in enumerate(ranks[0]["meshes"]):
+        gap = max(r["meshes"][i]["int8_gap"] for r in ranks)
+        print(f"[dryrun] mesh {m['mesh']}: train loss {m['loss']:.6f} at batch {m['batch']} (every rank); int8 "
+              f"sharded against one device's logits, largest gap over the ranks {gap:.3e}")
+    print(f"[dryrun] phase 27: dryrun_multichip({DRYRUN_RANKS}) on cuda:0 over gloo in {seconds:.1f} s; launches "
+          f"summed over ranks and meshes {json.dumps(totals)} ({smi})")
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3486,6 +3576,12 @@ def main() -> None:
             "source": "tpuhar_torch/csrc/conv3x3.cu",
             "replaces": "tpuhar/ops/conv3x3.py:142",
             **check_conv3x3(),
+        },
+        "conv3x3_bn_act_f32": {
+            "name": "conv3x3_bn_act_f32", "route": "cuda",
+            "source": "tpuhar_torch/csrc/conv3x3_f32.cu",
+            "replaces": "tpuhar/ops/conv3x3.py:142",
+            **check_conv3x3_f32(),
         },
     }
     verify_byte_map("cuda")
@@ -3769,6 +3865,7 @@ def main() -> None:
         run_bench_scripts_stage(counters, kernels, smi, root / "bench_accuracy")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    run_dryrun_stage(kernels, smi)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

@@ -160,6 +160,20 @@ def test_videomae_conversion_matches_jax(layout):
     np.testing.assert_array_equal(mine["block0"]["self_attn"]["key"]["bias"], 0)
 
 
+@pytest.mark.parametrize("missing", ["layernorm.bias", "layernorm.weight"])
+def test_videomae_partial_final_norm_matches_jax(missing):
+    """A final LayerNorm with one of its two keys is left out of the converted tree,
+    as the JAX converter leaves it out (its weight alone once raised in the port)."""
+    from tpuhar.models.convert import convert_videomae_state_dict
+
+    sd = _hf_videomae().state_dict()
+    sd["layernorm.weight"], sd["layernorm.bias"] = torch.ones(192), torch.zeros(192)
+    del sd[missing]
+    mine = pc.convert_videomae_state_dict(sd, 2, 192, 3, 8)
+    assert_tree_equal(mine, convert_videomae_state_dict(sd, 2, 192, 3, 8))
+    assert "final_norm" not in mine
+
+
 @pytest.mark.parametrize("backbone", ["resnet18", "mobilenet_v2"])
 def test_cnn_conversion_matches_jax(backbone):
     from tpuhar.models import convert as jc

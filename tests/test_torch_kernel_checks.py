@@ -7,7 +7,13 @@ versions on the card by ``tests/test_torch_kernels_cuda.py``."""
 import pytest
 import torch
 
-from tpuhar_torch.ops.conv3x3 import check_conv3x3_i8_shapes, check_conv3x3_shapes, conv3x3_bn_act, conv3x3_i8_pad_lo
+from tpuhar_torch.ops.conv3x3 import (
+    check_conv3x3_f32_shapes,
+    check_conv3x3_i8_shapes,
+    check_conv3x3_shapes,
+    conv3x3_bn_act,
+    conv3x3_i8_pad_lo,
+)
 from tpuhar_torch.ops.flash_lean import (
     HEAD_DIM,
     check_flash_grad_operands,
@@ -61,6 +67,33 @@ def test_conv3x3_shapes_taken(x, kernel, residual):
 def test_conv3x3_shapes_refused(x, kernel, residual, match):
     with pytest.raises(ValueError, match=match):
         check_conv3x3_shapes(x, kernel, residual)
+
+
+@pytest.mark.parametrize(
+    "x,kernel,residual",
+    [
+        ((8, 2, 2, 256), (3, 3, 256, 256), (8, 2, 2, 256)),  # the dry run's tower in f32
+        ((16, 1, 1, 512), (3, 3, 512, 512), None),
+        ((3, 7, 7, 48), (3, 3, 48, 40), None),  # any C and C_out
+    ],
+)
+def test_conv3x3_f32_shapes_taken(x, kernel, residual):
+    check_conv3x3_f32_shapes(x, kernel, residual)
+
+
+@pytest.mark.parametrize(
+    "x,kernel,residual,match",
+    [
+        ((2, 2, 256), (3, 3, 256, 256), None, r"\(N, S, S, C\)"),
+        ((8, 2, 1, 256), (3, 3, 256, 256), None, r"\(N, S, S, C\)"),
+        ((8, 2, 2, 256), (3, 3, 128, 256), None, "weights"),
+        ((8, 2, 2, 256), (3, 3, 256, 256), (8, 2, 2, 128), "residual"),
+        ((2**21, 32, 32, 8), (3, 3, 8, 8), None, "2\\^31"),
+    ],
+)
+def test_conv3x3_f32_shapes_refused(x, kernel, residual, match):
+    with pytest.raises(ValueError, match=match):
+        check_conv3x3_f32_shapes(x, kernel, residual)
 
 
 # (C, C_out, stride, residual, out) of the five int8 convs of the tower

@@ -16,6 +16,7 @@ import torch
 
 from tpuhar_torch.ops.conv3x3 import (
     conv3x3_bn_act,
+    conv3x3_bn_act_f32,
     conv3x3_bn_act_reference,
     conv3x3_i8,
     conv3x3_i8_reference,
@@ -214,10 +215,34 @@ def test_conv3x3_frames_do_not_leak(cuda):
         torch.testing.assert_close(whole[i : i + 1], conv3x3_bn_act(x[i : i + 1].contiguous(), k, scale, bias), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize(
+    "n,s,c,c_out,residual,relu",
+    [
+        # the tpu_cnn tower of the dry run's int8 engine, in f32: 2² maps at 256 channels,
+        # 1² at 512 (8 frames a rank), with and without the residual
+        (8, 2, 256, 256, False, True),
+        (8, 2, 256, 256, True, True),
+        (16, 1, 512, 512, True, True),
+        (3, 7, 48, 40, False, False),  # any C and C_out
+        (2, 14, 256, 256, True, True),
+    ],
+)
+def test_conv3x3_f32_matches_plain(cuda, n, s, c, c_out, residual, relu):
+    x, k, scale, bias, res = (t if t is None else t.float() for t in _conv_case(n, s, c, c_out, residual, cuda))
+    before = conv3x3_bn_act_f32.launches, conv3x3_bn_act.launches
+    got = conv3x3_bn_act(x, k, scale, bias, residual=res, relu=relu)
+    assert (conv3x3_bn_act_f32.launches, conv3x3_bn_act.launches) == (before[0] + 1, before[1])
+    want = conv3x3_bn_act_reference(x.double(), k.double(), scale, bias, None if res is None else res.double(), relu)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert ((got.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
 def test_conv3x3_refuses(cuda):
     x, k, scale, bias, _ = _conv_case(2, 7, 128, 128, False, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
-        conv3x3_bn_act(x.float(), k.float(), scale, bias)
+        conv3x3_bn_act(x.half(), k.half(), scale, bias)
+    with pytest.raises(ValueError, match="float32"):
+        conv3x3_bn_act(x.float(), k, scale, bias)
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3_bn_act(x.transpose(1, 2), k, scale, bias)
     with pytest.raises(ValueError, match="multiple of 64"):

@@ -14,12 +14,18 @@ program the JAX package's ``bench.py`` reports as its headline. ``build_pretrain
 pretraining of ``pretrain_config`` (``tpuhar/cli.py: Pipeline.run_pretraining``);
 ``build_classification_task`` the IMU classifier's linear probe or finetune of
 ``classify_config`` (``Pipeline.run_classification``), ``build_video_task`` and
-``build_fusion_task`` the video-only and fusion classifiers.
+``build_fusion_task`` the video-only and fusion classifiers. ``entry`` is
+``__graft_entry__.entry``'s twin; ``dryrun_multichip`` its ``dryrun_multichip``: one
+fully sharded fusion train step and the bf16 and int8 engines over a dp × tp mesh, then
+over a pure-dp mesh, in spawned ranks.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Optional, Tuple
+import socket
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,16 +35,20 @@ from .config import Config
 from .models.crossmodal import CrossModalModel, FusionClassifier, IMUClassifier, VideoClassifier
 from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
+from .ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_f32, conv3x3_i8
+from .ops.flash_lean import flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq
 from .ops.fused_window import featurize_windows_auto
-from .ops.stem import to_patch_major
+from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
 from .ops.video import clip_stats, normalize_clip
 from .train import factory
 
 
-def flagship_config(compute_dtype: str = "bfloat16"):
+def flagship_config(compute_dtype: str = "bfloat16", *, tiny: bool = False):
     """The flagship serving configuration (``__graft_entry__._flagship_config``) in
     the form the port runs: the ``tpu_cnn`` tower with its residual convs fused
-    (``conv_backend="pallas"`` in the JAX package)."""
+    (``conv_backend="pallas"`` in the JAX package). ``tiny`` makes the JAX package's
+    dry-run sizes: the ``videomae_tiny`` tower at d=64, the IMU encoder at d=64 with 4
+    heads and 2 layers, 4 fusion heads, 8 classes, 4 frames of 32²."""
     cfg = Config()
     m = cfg.model
     m.video_backbone = "tpu_cnn"
@@ -46,6 +56,11 @@ def flagship_config(compute_dtype: str = "bfloat16"):
     m.compute_dtype = compute_dtype
     m.head_norm = "layer"
     m.conv_backend = "pallas"
+    if tiny:
+        m.video_backbone, m.video_d_model = "videomae_tiny", 64
+        m.imu_d_model, m.imu_nhead, m.imu_num_layers = 64, 4, 2
+        m.fusion_heads, m.num_classes = 4, 8
+        cfg.data.video_resize, cfg.data.video_frames_per_window = (32, 32), 4
     return cfg
 
 
@@ -294,3 +309,187 @@ def build_int8_forward(
         torch.from_numpy(video_example).to(device),
     )
     return fn, example_args
+
+
+def entry(device="cuda"):
+    """The flagship serving forward at batch 8 and its example arguments
+    (``__graft_entry__.entry``): ``build_forward(flagship_config(), 8)`` on ``device``,
+    its weights drawn from seed 0."""
+    return build_forward(flagship_config(), 8, device=device)
+
+
+def launch_counters() -> Dict[str, Callable]:
+    """Each hand kernel's wrapper by name; each counts its launches in ``.launches``
+    (a call on CPU tensors takes the plain version and counts none)."""
+    return {
+        "fused_window": featurize_windows_auto, "conv3x3_bn_act": conv3x3_bn_act,
+        "conv3x3_bn_act_f32": conv3x3_bn_act_f32, "stem_gemm_u8": stem_gemm_u8,
+        "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
+        "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
+    }
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {name: n - before[name] for name, n in _launch_counts().items()}
+
+
+def dryrun_config(config=None):
+    """The dry run's training configuration: ``config`` (default ``flagship_config(
+    tiny=True)``) in f32, as ``__graft_entry__._dryrun_one_mesh`` makes it."""
+    cfg = copy.deepcopy(config) if config is not None else flagship_config(tiny=True)
+    cfg.model.compute_dtype = "float32"
+    return cfg
+
+
+def dryrun_batch(cfg, batch: int) -> Dict[str, np.ndarray]:
+    """The dry run's training batch of ``batch`` rows, drawn as the JAX package's is
+    (``np.random.default_rng(0)``): featurized IMU ``(B, C, T)`` f32, uint8 clips,
+    labels."""
+    d = cfg.data
+    H, W = d.video_resize
+    rng = np.random.default_rng(0)
+    return {
+        "imu": rng.normal(size=(batch, d.imu_channels, d.imu_window_size)).astype(np.float32),
+        "video": (rng.random((batch, d.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8),
+        "label": rng.integers(0, cfg.model.num_classes, size=batch).astype(np.int64),
+    }
+
+
+def _dryrun_train(mesh, cfg, params: Optional[Dict], device) -> Dict:
+    """One fully sharded fusion train step (``_dryrun_one_mesh``): the parameters and
+    their AdamW moments split over the model axis, the batch of ``max(2·dp, 2)`` rows
+    over the data axis. Returns its loss (the global batch's) and its batch size."""
+    data = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
+    B = max(2 * data, 2)
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(0), FusionClassifier)
+    task = factory.build_fusion_task(cfg, 2, params, device=device, mesh=mesh)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in dryrun_batch(cfg, B).items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    _, metrics = task.train_step(task.state, batch, gen)
+    loss = metrics["loss"].item()
+    if not np.isfinite(loss):
+        raise AssertionError(f"dryrun_multichip: non-finite loss {loss}")
+    return {"loss": loss, "batch": B}
+
+
+def _dryrun_serve(mesh, device) -> Dict:
+    """The bf16 and the int8 ``InferenceEngine`` of the ``tpu_cnn`` tower at the tiny
+    sizes over ``mesh`` (``_dryrun_serve_impl``): ``predict`` and one round of
+    ``predict_stream`` each; the int8 engine's logits against an engine without a mesh
+    (``rtol = atol = 1e-5``, the same predictions). The int8 engine serves in f32, as the
+    JAX package's dry run serves both engines, so that the sharded and the single program
+    differ only in f32 sum order; the bf16 engine serves in bf16, its convs through the
+    bf16 kernel. Returns the int8 logits' largest gap to the engine without a mesh and
+    each engine's kernel launches."""
+    from .serving import InferenceEngine
+
+    cfg = flagship_config("float32", tiny=True)
+    cfg.model.video_backbone = "tpu_cnn"
+    d = cfg.data
+    H, W = d.video_resize
+    T = d.video_frames_per_window
+    data = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
+    B = max(2 * data, 2)
+    variables = init_params(cfg, torch.Generator().manual_seed(1), FusionClassifier)
+    rng = np.random.default_rng(1)
+    imu = rng.normal(0, 8000.0, (B, d.imu_window_size, d.imu_channels)).astype(np.float32)
+    video = (rng.random((B, T, H, W, 3)) * 255).astype(np.uint8)
+    calib = (rng.random((4, T, H, W, 3)) * 255).astype(np.uint8)
+    cfg_bf16 = copy.deepcopy(cfg)
+    cfg_bf16.model.compute_dtype = "bfloat16"
+    out = {"launches": {}}
+    for name, c, kw in (("bf16", cfg_bf16, {}), ("int8", cfg, {"quantize_calib_clips": calib})):
+        before = _launch_counts()
+        engine = InferenceEngine(c, variables, mesh=mesh, batch_sizes=[B], device=device, **kw)
+        got = engine.predict(imu, video)
+        if got["logits"].shape != (B, cfg.model.num_classes):
+            raise AssertionError(f"dryrun_multichip serve[{name}]: logits {got['logits'].shape}")
+        for k in ("logits", "msp", "energy"):
+            if not np.isfinite(got[k]).all():
+                raise AssertionError(f"dryrun_multichip serve[{name}]: non-finite {k}")
+        (streamed,) = list(engine.predict_stream(iter([(imu, video)])))
+        np.testing.assert_allclose(streamed["logits"], got["logits"], atol=1e-5)
+        if name == "int8":
+            ref = InferenceEngine(c, variables, batch_sizes=[B], device=device, **kw).predict(imu, video)
+            np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-5, atol=1e-5)
+            if not (np.asarray(got["preds"]) == np.asarray(ref["preds"])).all():
+                raise AssertionError("dryrun_multichip: sharded int8 predictions diverge from one device's")
+            out["int8_gap"] = float(np.abs(got["logits"] - ref["logits"]).max())
+        out["launches"][name] = _launches_since(before)
+        out[f"{name}_logits_shape"] = tuple(got["logits"].shape)
+    return out
+
+
+def _dryrun_rank(rank: int, n: int, port: int, device: str, config, params, out_dir: str) -> None:
+    """Rank ``rank`` of ``dryrun_multichip``: a gloo group of ``n`` (a group of one
+    where ``n`` is 1), on ``cuda:(rank % cards)`` or the CPU; the dp × tp mesh and then
+    the pure-dp mesh, each a train step and the serve pass. Writes ``rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize_distributed
+    from .parallel.mesh import create_mesh
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    address = f"127.0.0.1:{port}"
+    if not initialize_distributed(address, n, rank, device=device, backend="gloo"):
+        dist.init_process_group("gloo", init_method=f"tcp://{address}", world_size=1, rank=0)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
+    try:
+        model_axis = 2 if n % 2 == 0 and n > 1 else 1
+        meshes = []
+        for size in [model_axis] + ([1] if model_axis > 1 else []):
+            mesh = create_mesh(model_axis_size=size)
+            before = _launch_counts()
+            train = _dryrun_train(mesh, dryrun_config(config), params, dev)
+            train_launches = _launches_since(before)
+            serve = _dryrun_serve(mesh, dev)
+            serve["launches"]["train"] = train_launches
+            meshes.append({"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), **train, **serve})
+        torch.save({"rank": rank, "device": str(dev), "meshes": meshes}, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int, *, device="cuda", config=None, params: Optional[Dict] = None) -> List[Dict]:
+    """One fully sharded (dp × tp) fusion train step and the sharded bf16 and int8
+    engines on ``n_devices`` ranks (``__graft_entry__.dryrun_multichip``).
+
+    ``n_devices`` processes are spawned on a gloo group at a free local port; on
+    ``"cuda"`` rank ``k`` runs on card ``k % torch.cuda.device_count()``, so the ranks
+    share the cards there are, and without a card the call raises. Each rank runs a
+    ``{data: n/2, model: 2}`` mesh where ``n_devices`` is even and above 1, then the
+    pure-dp ``{data: n}`` mesh: the train step of ``dryrun_config(config)`` from
+    ``params`` (a ``FusionClassifier`` tree, default drawn from seed 0), whose loss must
+    be finite, and the serve pass, whose sharded int8 logits must equal an engine's
+    without a mesh. Prints the JAX function's ``[dryrun_multichip] ... OK`` lines and
+    returns each rank's record: per mesh its shape, batch, loss, the int8 gap and the
+    kernel launches of each part."""
+    from .utils import resolve_device
+
+    if n_devices < 1:
+        raise ValueError(f"dryrun_multichip needs at least one rank, got {n_devices}")
+    kind = resolve_device(device, "dryrun_multichip").type
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        torch.multiprocessing.start_processes(_dryrun_rank, args=(n_devices, port, kind, config, params, out),
+                                              nprocs=n_devices, start_method="spawn")
+        ranks = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(n_devices)]
+    for i, m in enumerate(ranks[0]["meshes"]):
+        losses = {r["meshes"][i]["loss"] for r in ranks}
+        if len(losses) != 1:
+            raise AssertionError(f"dryrun_multichip: the ranks' losses differ on mesh {m['mesh']}: {sorted(losses)}")
+        print(f"[dryrun_multichip] {n_devices} devices, mesh={m['mesh']}, train loss={m['loss']:.4f} OK")
+        print(f"[dryrun_multichip] mesh={m['mesh']} int8 sharded == single-device logits (atol 1e-5, largest gap "
+              f"{max(r['meshes'][i]['int8_gap'] for r in ranks):.3e}) OK")
+        for name in ("bf16", "int8"):
+            print(f"[dryrun_multichip] {n_devices} devices, mesh={m['mesh']}, serve[{name}] "
+                  f"logits{m[f'{name}_logits_shape']} OK")
+    return ranks

@@ -131,8 +131,9 @@ def convert_videomae_state_dict(sd: Mapping, depth: int, d_model: int, num_heads
             "mlp_out": {"kernel": _np(pre(p + "output.dense.weight")).T, "bias": _np(pre(p + "output.dense.bias"))},
         }
     # a checkpoint trained with mean pooling has no final LayerNorm: build the ViT
-    # with use_final_norm=False for it
-    if videomae_has_final_norm(sd):
+    # with use_final_norm=False for it. As in the JAX package, a final LayerNorm that
+    # lacks its weight or its bias is left out
+    if has("layernorm.weight") and has("layernorm.bias"):
         params["final_norm"] = {"scale": _np(pre("layernorm.weight")), "bias": _np(pre("layernorm.bias"))}
     return params
 

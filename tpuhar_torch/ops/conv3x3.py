@@ -3,7 +3,8 @@
 ``conv3x3_bn_act`` computes ``act(conv3x3_same(x) · scale + bias [+ residual])``. A
 tensor on the CPU takes the plain path (``conv3x3_bn_act_reference``: ``F.conv2d``,
 then the affine, residual and ReLU in f32); a CUDA tensor launches the bf16 kernel of
-``csrc/conv3x3.cu``, the port of ``tpuhar/ops/conv3x3.py: conv3x3_bn_act``, or raises.
+``csrc/conv3x3.cu``, the port of ``tpuhar/ops/conv3x3.py: conv3x3_bn_act``, for f32
+operands the f32 kernel of ``csrc/conv3x3_f32.cu`` (``conv3x3_bn_act_f32``), or raises.
 
 ``conv3x3_i8`` is its int8 form, which also takes the place of the XLA int8 convs of
 the JAX package's quantized tower (its ``ops/quant.int8_conv``, stride 1 and 2):
@@ -134,6 +135,21 @@ def check_conv3x3_shapes(x_shape, kernel_shape, residual_shape=None) -> None:
         raise ValueError(f"conv3x3 kernel: {N * S * S} output rows exceed 2^31")
 
 
+def check_conv3x3_f32_shapes(x_shape, kernel_shape, residual_shape=None) -> None:
+    """Raise ``ValueError`` on shapes the f32 kernel does not take: ``x`` ``(N, S, S,
+    C)``, the weights ``(3, 3, C, C_out)``, the residual ``(N, S, S, C_out)``, fewer than
+    2^31 output rows; any C and C_out."""
+    if len(x_shape) != 4 or x_shape[1] != x_shape[2]:
+        raise ValueError(f"conv3x3 f32 kernel: x must be (N, S, S, C), got {tuple(x_shape)}")
+    N, S, _, C = x_shape
+    if len(kernel_shape) != 4 or tuple(kernel_shape[:3]) != (3, 3, C) or min(N, S, C, kernel_shape[3]) <= 0:
+        raise ValueError(f"conv3x3 f32 kernel: weights {tuple(kernel_shape)} != (3, 3, {C}, C_out)")
+    if residual_shape is not None and tuple(residual_shape) != (N, S, S, kernel_shape[3]):
+        raise ValueError(f"conv3x3 f32 kernel: residual {tuple(residual_shape)} != {(N, S, S, kernel_shape[3])}")
+    if N * S * S >= 2**31:
+        raise ValueError(f"conv3x3 f32 kernel: {N * S * S} output rows exceed 2^31")
+
+
 def conv3x3_bn_act(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -154,6 +170,8 @@ def conv3x3_bn_act(
     """
     if x.device.type == "cpu":
         return conv3x3_bn_act_reference(x, kernel, scale, bias, residual, relu)
+    if x.dtype == torch.float32:
+        return conv3x3_bn_act_f32(x, kernel, scale, bias, residual=residual, relu=relu)
     tensors = {"x": x, "kernel": kernel}
     if residual is not None:
         tensors["residual"] = residual
@@ -184,6 +202,50 @@ def conv3x3_bn_act(
 
 
 conv3x3_bn_act.launches = 0
+
+
+def conv3x3_bn_act_f32(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    relu: bool = True,
+) -> torch.Tensor:
+    """``conv3x3_bn_act`` on f32 operands (``conv3x3_bn_act`` sends them here): the CPU
+    takes ``conv3x3_bn_act_reference``, a CUDA tensor launches the f32 kernel of
+    ``csrc/conv3x3_f32.cu`` (any C and C_out) or raises."""
+    if x.device.type == "cpu":
+        return conv3x3_bn_act_reference(x, kernel, scale, bias, residual, relu)
+    tensors = {"x": x, "kernel": kernel}
+    if residual is not None:
+        tensors["residual"] = residual
+    for name, t in tensors.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"conv3x3 f32 kernel: {name} must be a contiguous float32 CUDA tensor")
+    check_conv3x3_f32_shapes(x.shape, kernel.shape, None if residual is None else residual.shape)
+    N, S, _, C = x.shape
+    C_out = kernel.shape[-1]
+    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if scale.shape != (C_out,) or bias.shape != (C_out,):
+        raise ValueError("conv3x3 f32 kernel: scale and bias must be (C_out,)")
+    out = torch.empty((N, S, S, C_out), dtype=x.dtype, device=x.device)
+    lib = _ext.library()
+    with torch.cuda.device(x.device):
+        status = lib.tpuhar_conv3x3_bn_act_f32(
+            x.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            N * S * S, S, C, C_out, int(relu),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _ext.check(status, "tpuhar_conv3x3_bn_act_f32")
+    conv3x3_bn_act_f32.launches += 1
+    return out
+
+
+conv3x3_bn_act_f32.launches = 0
 
 
 def pack_conv3x3_i8(kernel_hwio: torch.Tensor) -> torch.Tensor:

@@ -20,15 +20,17 @@ TIMEOUT = datetime.timedelta(hours=2)
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None, *, device="cuda") -> bool:
+                           process_id: Optional[int] = None, *, device="cuda",
+                           backend: Optional[str] = None) -> bool:
     """Join the process group; returns True when more than one process takes part.
 
     ``coordinator_address`` is ``"host:port"`` of rank 0 (default ``MASTER_ADDR:
     MASTER_PORT``), ``num_processes`` the world size (``WORLD_SIZE``), ``process_id``
     this rank (``RANK``). Returns False, and starts nothing, where the world is one
     process or none is given. The backend is NCCL for ``"cuda"`` (each process on the
-    card of its ``LOCAL_RANK``) and gloo for ``"cpu"``. A group that is already up is
-    kept."""
+    card of its ``LOCAL_RANK``, else of its rank modulo the cards there are) and gloo for
+    ``"cpu"``; ``backend="gloo"`` on ``"cuda"`` lets several processes share a card,
+    which NCCL refuses. A group that is already up is kept."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -46,7 +48,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None, num_proces
     if cuda:
         local = int(env.get("LOCAL_RANK", process_id % max(torch.cuda.device_count(), 1)))
         torch.cuda.set_device(local)
-    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://{coordinator_address}",
+    dist.init_process_group(backend or ("nccl" if cuda else "gloo"), init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id),
                             timeout=TIMEOUT)
     return True

@@ -160,10 +160,11 @@ def _pool_retrieval(cfg, out: Path, device) -> dict:
     }
 
 
-def pretrain_on_pool(args, work: Path, device):
-    """Pretrain on a separate, larger unlabeled pool (a fresh draw, seed + 1000, of the
-    same hard distribution: no labeled-fixture sequence leaks in); returns the IMU
-    encoder's parameters and the run's telemetry."""
+def write_pool(args, work: Path, device):
+    """The unlabeled pretraining pool under ``work / "pool"``: a fresh draw (seed + 1000)
+    of the same hard distribution, so that no labeled-fixture sequence leaks in. Returns
+    its ``Pipeline`` (``pool/out``), whose ``run_preprocessing`` writes the windows that
+    pretraining and ``debug_pretrain_parity`` read."""
     from ..cli import Pipeline
     from ..data.synthetic import generate_synthetic_dataset, make_synthetic_config
 
@@ -189,7 +190,15 @@ def pretrain_on_pool(args, work: Path, device):
     cfg.training.pretrain_lr = args.pretrain_lr
     cfg.training.seed = args.seed
     cfg.training.patience = args.pretrain_patience
-    pipe = Pipeline(cfg, device=device)
+    return Pipeline(cfg, device=device)
+
+
+def pretrain_on_pool(args, work: Path, device):
+    """Pretrain on the pool ``write_pool`` writes; returns the IMU encoder's parameters
+    and the run's telemetry."""
+    pool = work / "pool"
+    pipe = write_pool(args, work, device)
+    cfg = pipe.config
     t0 = time.perf_counter()
     pipe.run_preprocessing()
     pipe.run_pretraining()

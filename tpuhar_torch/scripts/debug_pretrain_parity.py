@@ -211,7 +211,7 @@ def run(steps: int = 40, work="outputs/torch/article_hard_r5", *, device, params
             "loss_last5": [round(x, 4) for x in losses[-5:]],
             "loss_final": round(losses[-1], 4),
         }
-        log(f"{name}: grad0={g0} emb_std={emb} first5={losses[:5]} last={losses[-1]:.4f}")
+        log(f"{name}: grad0={g0} emb_std={emb} first5={losses[:5]} last={losses[-1]:.4f} losses={losses}")
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))

@@ -14,8 +14,10 @@ Phases; any failed check raises and the exit code is non-zero:
    rate of their type): the featurizer (its time a CUDA graph's per launch, the
    wrapper's host time per call apart, at batch 8, 256 and 8192: a few microseconds of
    device work, which events around eager calls would measure as the host's pace),
-   the bf16 conv (beside ``F.conv2d``) and its f32 form at the dry run's shapes (against
-   its plain version in float64, beside ``F.conv2d`` in f32), the int8
+   the bf16 conv (beside ``F.conv2d``) and its f32 form (split-TF32 products) at the dry
+   run's shapes and at full width at batch 256 (against its plain version in float64 on
+   the first 64 frames, beside ``F.conv2d`` in f32 with TF32 off and, for reference, on,
+   and its bound at the split products' rate and at the FFMA rate), the int8
    stem's byte-map preflight, the uint8 stem GEMM (beside ``torch._int_mm`` on the
    mapped codes) and the int8 conv (both bit for bit; the int8 conv beside
    ``torch._int_mm`` on its im2col matrix and beside the bf16 conv's time, with their
@@ -176,7 +178,13 @@ Phases; any failed check raises and the exit code is non-zero:
     int8 engines over the mesh (the featurizer, the bf16 conv at 2² and 1² maps, the
     uint8 stem, the int8 conv and the f32 conv), the int8 logits against an engine's
     without a mesh within 1e-5, each mesh's loss and gap and the launches summed over the
-    ranks.
+    ranks;
+28. the f32 flagship at full width (``entry.flagship_config("float32")`` under
+    ``full_f32()``): ``build_forward`` and ``InferenceEngine``'s graphs at batch 8 and 256,
+    each forward 1 featurizer, 4 f32 fused convs and no bf16 one, its logits, MSP, energy
+    and embeddings within 1e-4 of the same program with the fused convs on their plain
+    version, the replay and eager ms of both programs, and the int8-resident build of the
+    same configuration (its recalibration's f32 conv launches and seconds).
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -233,7 +241,7 @@ from tpuhar_torch.ops.conv3x3 import (
     conv3x3_i8,
     conv3x3_i8_reference,
 )
-from tpuhar_torch.ood import KNOWN_SCORES, OODEvaluator
+from tpuhar_torch.ood import KNOWN_SCORES, OODEvaluator, full_f32
 from tpuhar_torch.ops import attention as attention_module
 from tpuhar_torch.ops import flash_lean as flash_lean_module
 from tpuhar_torch.ops.featurize import featurize_windows
@@ -269,7 +277,7 @@ from tpuhar_torch.profile_step import device_profile
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 from tpuhar_torch.utils.profiling import StepProfiler
-from tpuhar_torch.utils.roofline import bound
+from tpuhar_torch.utils.roofline import PEAK_OPS_PER_S, bound
 
 FEATURIZE_ATOL = 1e-5  # f32 in and out; only the order of the mean/var sums differs
 FEATURIZE_BATCHES = (8, 256, 8192)  # latency, throughput, and 98 MB a call: past the L2
@@ -291,12 +299,18 @@ CONV_SHAPES = [
     (3, 7, 512, 512, False, False), (3, 14, 256, 256, False, False),
 ]
 CONV_TIMED_SHAPE = (4096, 14, 256, 256, True, True)  # the s0 second conv at batch 256
-# the f32 form (the dry run's int8 engine recalibrates against its f32 tower): the
-# tower's four convs at the dry run's 8 frames a rank (2² maps at 256 channels, 1² at
-# 512) and a single engine's 16; |kernel - plain in float64| / max |plain|
+# the f32 form (the f32 flagship of phase 28, and the dry run's int8 engine, which
+# recalibrates against its f32 tower): the tower's four convs at the dry run's 8 frames a
+# rank (2² maps at 256 channels, 1² at 512) and a single engine's 16, and at full width at
+# batch 256 (4096 frames of 14² and 7²); |kernel - plain in float64| / max |plain|, on the
+# first CONV_F32_CHECK_FRAMES frames (frames do not interact)
 CONV_F32_SHAPES = [(8, 2, 256, 256, False, True), (8, 2, 256, 256, True, True),
-                   (8, 1, 512, 512, False, True), (16, 1, 512, 512, True, True)]
-CONV_F32_TIMED_SHAPE = (8, 2, 256, 256, True, True)
+                   (8, 1, 512, 512, False, True), (16, 1, 512, 512, True, True),
+                   (4096, 14, 256, 256, False, True), (4096, 14, 256, 256, True, True),
+                   (4096, 7, 512, 512, False, True), (4096, 7, 512, 512, True, True)]
+CONV_F32_TIMED_SHAPES = [(8, 2, 256, 256, True, True), *CONV_F32_SHAPES[4:]]
+CONV_F32_LINE_SHAPE = (4096, 14, 256, 256, True, True)  # the kernels line's entry
+CONV_F32_CHECK_FRAMES = 64
 CONV_F32_RTOL = 1e-5
 # the uint8 stem: (frames, int8 out) at batch 8 and 256, and a ragged M = 3·196
 STEM_SHAPES = [(128, False), (128, True), (4096, False), (4096, True), (3, True)]
@@ -519,6 +533,14 @@ VIT_STAGE_BATCH, VIT_STAGE_ITERS = 16, 4  # of 64 and 12
 SWEEP_VARIANTS = ("resnet18:64", "videomae_small:32")  # of resnet18:512, videomae_small:256
 FLOOR_RTOL = 1e-5  # phase 3's stem bound also counts the 2 KB of its scale and bias
 DRYRUN_RANKS = 4  # phase 27: entry.dryrun_multichip's ranks, all on cuda:0
+# phase 28, the f32 flagship at full width: entry.flagship_config("float32") (224², 16
+# frames, the tpu_cnn tower with its fused convs) under full_f32(), eager and through
+# the engine at these batch sizes; each output held to the same program with the fused
+# convs on their plain version (F.conv2d in f32, TF32 off) within F32_FLAGSHIP_RTOL of its
+# largest: the same f32 function, its sums in another order through four convs
+F32_FLAGSHIP_SIZES = [8, 256]
+F32_FLAGSHIP_RTOL = 1e-4
+F32_FLAGSHIP_FORWARD = {"fused_window": 1, "conv3x3_bn_act_f32": 4, "conv3x3_bn_act": 0}  # launches a forward
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -632,11 +654,14 @@ def check_conv3x3() -> dict:
 
 
 def check_conv3x3_f32() -> dict:
-    """The f32 form of the fused conv against its plain version in float64 at the dry
-    run's shapes, timed (with ``F.conv2d`` in f32, TF32 off) at one of them."""
+    """The f32 form of the fused conv against its plain version in float64 (on the first
+    CONV_F32_CHECK_FRAMES frames) at the dry run's shapes and at full width, timed with
+    its plain version, ``F.conv2d`` in f32 with TF32 off (the same conv, without the BN,
+    residual and ReLU) and, for reference only, with TF32 on, beside its bound at the
+    split products' rate (three TF32 products an f32 one) and at the FFMA rate."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst_abs = worst_rel = 0.0
-    timed = None
+    by_shape, line = {}, None
     for n, s, c, c_out, has_res, relu in CONV_F32_SHAPES:
         x = torch.relu(torch.randn((n, s, s, c), generator=gen, device="cuda"))
         kernel = torch.randn((3, 3, c, c_out), generator=gen, device="cuda") * (9 * c) ** -0.5
@@ -644,27 +669,48 @@ def check_conv3x3_f32() -> dict:
         bias = torch.randn(c_out, generator=gen, device="cuda") * 0.1
         res = torch.randn((n, s, s, c_out), generator=gen, device="cuda") if has_res else None
         got = conv3x3_bn_act_f32(x, kernel, scale, bias, residual=res, relu=relu)
-        want = conv3x3_bn_act_reference(x.double(), kernel.double(), scale, bias,
-                                         None if res is None else res.double(), relu)
-        err = (got.double() - want).abs().max().item()
+        k = min(n, CONV_F32_CHECK_FRAMES)
+        want = conv3x3_bn_act_reference(x[:k].double(), kernel.double(), scale, bias,
+                                         None if res is None else res[:k].double(), relu)
+        err = (got[:k].double() - want).abs().max().item()
         rel = err / want.abs().max().item()
-        ms = cuda_ms(lambda: conv3x3_bn_act_f32(x, kernel, scale, bias, residual=res, relu=relu), 50)
-        plain_ms = cuda_ms(lambda: conv3x3_bn_act_reference(x, kernel, scale, bias, res, relu), 50)
+        del got, want
         name = f"({n}, {s}, {s}, {c})->{c_out} residual={has_res} relu={relu}"
-        print(f"[kernel] conv3x3 f32 {name}: max abs diff {err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+        print(f"[kernel] conv3x3 f32 {name}: max abs diff {err:.3e}, rel {rel:.3e} against float64 on the first "
+              f"{k} frames")
         if not rel <= CONV_F32_RTOL:
             raise AssertionError(f"conv3x3 f32 {name}: relative diff {rel} > {CONV_F32_RTOL}")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        if (n, s, c, c_out, has_res, relu) == CONV_F32_TIMED_SHAPE:
-            xc, wc = x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 50)
-            b = bound((x.numel() + kernel.numel() + 2 * res.numel()) * 4, {"f32": 2 * n * s * s * 9 * c * c_out})
-            print(f"[kernel] conv3x3 f32 {name}: F.conv2d {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']})")
-            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
-    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed,
-            "shape": "(8, 2, 2, 256)->256 f32 + residual"}
+        if (n, s, c, c_out, has_res, relu) not in CONV_F32_TIMED_SHAPES:
+            continue
+        iters = 10 if n >= 4096 else 50
+        ms = cuda_ms(lambda: conv3x3_bn_act_f32(x, kernel, scale, bias, residual=res, relu=relu), iters)
+        plain_ms = cuda_ms(lambda: conv3x3_bn_act_reference(x, kernel, scale, bias, res, relu), iters)
+        xc, wc = x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        flops = 2 * n * s * s * 9 * c * c_out
+        moved = (x.numel() + kernel.numel() + (2 if has_res else 1) * n * s * s * c_out) * 4
+        b, ffma = bound(moved, {"tf32x3": flops}), bound(moved, {"f32": flops})
+        print(f"[kernel] conv3x3 f32 {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of f32 work, "
+              f"{b['bound_ms'] / ms:.1%} of its bound), plain {plain_ms:.4f} ms, F.conv2d f32 {library_ms:.4f} ms, "
+              f"F.conv2d TF32 {tf32_ms:.4f} ms (reference only: three decimal digits); bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: the split products at {PEAK_OPS_PER_S['tf32x3'] / 1e12:.0f} TFLOP/s of f32 work, "
+              f"three TF32 products an f32 one), {ffma['bound_ms']:.4f} ms at the FFMA rate "
+              f"({PEAK_OPS_PER_S['f32'] / 1e12:.0f} TFLOP/s)")
+        by_shape[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_tf32_ms": tf32_ms,
+                          **b, "ffma_bound_ms": ffma["bound_ms"], "max_rel_err": rel}
+        if (n, s, c, c_out, has_res, relu) == CONV_F32_LINE_SHAPE:
+            line = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b,
+                    "library_tf32_ms": tf32_ms, "ffma_bound_ms": ffma["bound_ms"]}
+        del x, res, xc
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **line,
+            "shape": "(4096, 14, 14, 256)->256 f32 + residual", "by_shape": by_shape}
 
 
 def _plain_ms(fn, frames: int) -> float:
@@ -3549,6 +3595,80 @@ def run_dryrun_stage(kernels: dict, smi: str) -> None:
           f"summed over ranks and meshes {json.dumps(totals)} ({smi})")
 
 
+def run_f32_flagship_stage(counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 28: the f32 flagship served at full width under ``full_f32()`` (the stem GEMM
+    and ``down1`` in f32 too): ``build_forward`` eagerly and ``InferenceEngine``'s graphs at
+    F32_FLAGSHIP_SIZES, each forward 1 featurizer, 4 f32 fused convs and no bf16 one;
+    logits, MSP, energy and embeddings against the same program with the fused convs on
+    their plain version, the replay and eager ms of both programs; then the int8-resident
+    build of the same configuration (its logit recalibration runs the f32 tower). Every
+    launch count is set to 0 just before each path and read just after it."""
+    t_phase = time.perf_counter()
+    cfg = flagship_config("float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    forward = {**dict.fromkeys(counters, 0), **F32_FLAGSHIP_FORWARD}
+    plain = {**forward, "conv3x3_bn_act_f32": 0}
+    result = {}
+    with full_f32():
+        fn, _ = build_forward(cfg, F32_FLAGSHIP_SIZES[0], device="cuda", params=params)
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        for b in F32_FLAGSHIP_SIZES:
+            imu = torch.randn((b, 250, 6), generator=gen, device="cuda") * 8000.0
+            video = torch.randint(0, 256, (b, 16, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
+            got, _, _ = drive_counted(counters, kernels, f"f32_eager_{b}", lambda: fn(imu, video), forward)
+            with plain_fused_convs():
+                want, _, _ = drive_counted(counters, kernels, f"f32_plain_{b}", lambda: fn(imu, video), plain)
+            shapes = {"logits": (b, cfg.model.num_classes), "msp": (b,), "energy": (b,),
+                      "embeddings": (b, 2 * cfg.model.imu_d_model)}
+            gaps = {}
+            for key, shape in shapes.items():
+                if tuple(got[key].shape) != shape or not torch.isfinite(got[key]).all():
+                    raise AssertionError(f"f32 flagship batch {b}: {key} {tuple(got[key].shape)} not finite {shape}")
+                gaps[key] = ((got[key] - want[key]).abs().max() / want[key].abs().max()).item()
+            print(f"[f32 flagship] batch {b}: eager forward with 1 featurizer, 4 f32 fused convs and no bf16 conv; "
+                  f"against the plain-conv program, max |diff| / max |plain| {json.dumps(gaps)}")
+            bad = {key: gap for key, gap in gaps.items() if not gap <= F32_FLAGSHIP_RTOL}
+            if bad:
+                raise AssertionError(f"f32 flagship batch {b}: outputs beyond {F32_FLAGSHIP_RTOL} of the plain-conv "
+                                     f"program: {bad}")
+            del got, want, imu, video
+
+        timings = {}
+        for path, scope, expected in (("engine_f32", contextlib.nullcontext, forward),
+                                      ("engine_f32_plain", plain_fused_convs, plain)):
+            with scope():
+                engine = InferenceEngine(cfg, params, batch_sizes=F32_FLAGSHIP_SIZES, device="cuda")
+                requests = [engine_request(280, F32_FLAGSHIP_SIZES[0], cfg),
+                            engine_request(281, F32_FLAGSHIP_SIZES[0] + 1, cfg)]  # the graph of each size
+                check_graph_replay(path, engine, requests, counters, kernels, expected)
+                for b in engine.batch_sizes:
+                    iters = ENGINE_TIMING_ITERS[b]
+                    inputs = engine._graphs[b].inputs
+                    replay_ms = cuda_ms(lambda: engine._replay(b), iters)
+                    eager_ms = cuda_ms(lambda: engine._forward(*inputs), iters)
+                    timings.setdefault(path, {})[b] = {"replay_ms": replay_ms, "eager_ms": eager_ms}
+                    print(f"[{path}] batch {b}: graph replay {replay_ms:.3f} ms ({b / replay_ms * 1e3:.1f} inf/s), "
+                          f"eager forward {eager_ms:.3f} ms on the graph's inputs ({smi})")
+            del engine
+            torch.cuda.empty_cache()
+        result["timings"] = timings
+
+        H, W = cfg.data.video_resize
+        calib = (np.random.default_rng(0).random((2, cfg.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+        fn8, counts, seconds = drive_counted(
+            counters, kernels, "f32_int8_build",
+            lambda: build_int8_forward(cfg, 8, device="cuda", params=params, calib_clips=calib, resident=True)[0],
+            {"conv3x3_bn_act_f32": 4, "conv3x3_bn_act": 0})
+        result["int8_build"] = {"seconds": seconds, **fn8.build_seconds, "conv3x3_bn_act_f32": counts["conv3x3_bn_act_f32"]}
+        print(f"[f32 flagship] build_quantized_forward(resident=True) on the f32 configuration in {seconds:.1f} s "
+              f"(calibration {fn8.build_seconds['calibration']:.1f} s on the CPU, recalibration "
+              f"{fn8.build_seconds['recalibration']:.1f} s on the card); launches {counts}")
+        del fn8
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[f32 flagship] phase 28: {result['seconds']:.1f} s ({smi})")
+    return result
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3866,6 +3986,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     run_dryrun_stage(kernels, smi)
+    kernels["conv3x3_bn_act_f32"]["f32_flagship"] = run_f32_flagship_stage(counters, kernels, smi)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

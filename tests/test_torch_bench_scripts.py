@@ -332,6 +332,6 @@ def test_one_home_for_the_card_peaks():
 
     assert chip_smoke.bound is roofline.bound
     assert time_fused_window.HBM_BYTES_PER_S is roofline.HBM_BYTES_PER_S == 3.35e12
-    assert roofline.PEAK_OPS_PER_S == {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+    assert roofline.PEAK_OPS_PER_S == {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
     for path in (ROOT / "chip_smoke.py", ROOT / "tpuhar_torch" / "time_fused_window.py"):
         assert "3.35e12" not in path.read_text() and "1979e12" not in path.read_text(), path

@@ -225,6 +225,13 @@ def test_conv3x3_frames_do_not_leak(cuda):
         (16, 1, 512, 512, True, True),
         (3, 7, 48, 40, False, False),  # any C and C_out
         (2, 14, 256, 256, True, True),
+        (2, 5, 3, 7, True, True),  # C not a multiple of 4 (4-byte gathers), C_out odd (scalar stores)
+        (3, 9, 130, 131, True, False),  # C past a 32-channel chunk, C_out past a 128-column tile
+        # the f32 flagship's four convs at batch 4 (64 frames of 14² and 7²)
+        (64, 14, 256, 256, False, True),
+        (64, 14, 256, 256, True, True),
+        (64, 7, 512, 512, False, True),
+        (64, 7, 512, 512, True, True),
     ],
 )
 def test_conv3x3_f32_matches_plain(cuda, n, s, c, c_out, residual, relu):
@@ -235,6 +242,16 @@ def test_conv3x3_f32_matches_plain(cuda, n, s, c, c_out, residual, relu):
     want = conv3x3_bn_act_reference(x.double(), k.double(), scale, bias, None if res is None else res.double(), relu)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert ((got.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_conv3x3_f32_frames_do_not_leak(cuda):
+    """Each frame's f32 conv equals the same conv run on that frame alone: a 128-row
+    tile spans frames, and no tap reaches across a frame's edge."""
+    x, k, scale, bias, res = (t.float() for t in _conv_case(4, 7, 128, 128, True, cuda, seed=1))
+    whole = conv3x3_bn_act(x, k, scale, bias, residual=res)
+    for i in range(4):
+        alone = conv3x3_bn_act(x[i : i + 1].contiguous(), k, scale, bias, residual=res[i : i + 1].contiguous())
+        torch.testing.assert_close(whole[i : i + 1], alone, rtol=0, atol=0)
 
 
 def test_conv3x3_refuses(cuda):
@@ -861,12 +878,13 @@ def _engine_case(path, device):
     from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config, vit_config
 
     vit = "vit" in path
-    cfg = vit_config() if vit else flagship_config()
+    cfg = vit_config() if vit else flagship_config("float32" if path == "f32" else "bfloat16")
     if vit:
         cfg.model.video_backbone = "videomae_tiny"
     cfg.data.video_resize, cfg.data.video_frames_per_window = (ENGINE_SIZE, ENGINE_SIZE), ENGINE_FRAMES
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "stem_gemm_u8", "conv3x3_i8", "int8_gemm", "flash_lean"), 0)
+    launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "conv3x3_bn_act_f32", "stem_gemm_u8", "conv3x3_i8",
+                              "int8_gemm", "flash_lean"), 0)
     launches["fused_window"] = 1
     if path in ("int8_vit", "int8_resnet18", "int8_resnet18_resident"):  # the ViT with vit_config()'s tanh GELU
         cfg.model.video_backbone = "videomae_tiny" if path == "int8_vit" else "resnet18"
@@ -887,7 +905,8 @@ def _engine_case(path, device):
         fold = not path.endswith("unfolded")
         kw = dict(fast_attention=True, fold_normalize=fold) if vit else dict(fold_normalize=fold)
         fn, _ = build_forward(cfg, 4, device=device, params=params, fold_normalize=fold)
-        launches.update({"flash_lean": 4} if vit else {"conv3x3_bn_act": 4})
+        conv = "conv3x3_bn_act_f32" if path == "f32" else "conv3x3_bn_act"  # the f32 flagship: the f32 form
+        launches.update({"flash_lean": 4} if vit else {conv: 4})
     return cfg, params, kw, fn, launches
 
 
@@ -910,7 +929,7 @@ def _assert_bitwise(got, want, what):
 @pytest.mark.parametrize(
     "path",
     ["bf16", "bf16_unfolded", "int8_resident", "int8_baseline", "vit", "vit_unfolded", "int8_vit", "int8_resnet18",
-     "int8_resnet18_resident"],
+     "int8_resnet18_resident", "f32"],
 )
 def test_engine_replays_the_eager_program(cuda, path):
     """One CUDA graph per registered size, each holding the eager forward's kernel

@@ -33,8 +33,9 @@ SIGNATURES = {
     "tpuhar_fused_window": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # x, w, scale, bias, residual, out, M, S, C, C_out, relu, stream
     "tpuhar_conv3x3_bn_act": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # the same, f32
-    "tpuhar_conv3x3_bn_act_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same in f32: x, w_hi, w_lo, scale, bias, residual, out, M, S, C, C_out, relu,
+    # stream
+    "tpuhar_conv3x3_bn_act_f32_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream
     "tpuhar_stem_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x_q, w, scale, bias, out, M, K, C0, relu, int8_out, out_scale, stream

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of this
 // directory: mbarriers, TMA loads, cp.async with zero fill, the generic -> async proxy
 // fence, named barriers, register reallocation, ldmatrix, wgmma (descriptors, fences, and
-// the bf16 and int8 instruction shapes the kernels issue) and the host's tensor-map
+// the bf16, int8 and tf32 instruction shapes the kernels issue) and the host's tensor-map
 // encoder. The device side is inline PTX; nothing here launches.
 #pragma once
 #include <cuda.h>
@@ -410,13 +410,52 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 128, f32) (+)= A (64 x 8, registers, tf32) * B (8 x 128, shared, K-major, tf32).
+// 32-bit operands have no transpose bit: B is K-major, and a k-step is 32 bytes of K as in
+// the other forms. The register A operand of a k-step holds one tf32 (an f32 bit pattern
+// whose low 13 bits are not read) a register, in the byte layout of the bf16 form: a[0] =
+// row 16w + l/4, column l%4; a[1] row + 8; a[2], a[3] the same rows at column l%4 + 4.
+__device__ __forceinline__ void wgmma_m64n128k8_rs_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // ---- host: tensor maps ---------------------------------------------------------------
-// A tensor of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, or _UINT8 for any 8-bit type: TMA
-// copies bytes, and cuda.h has no signed 8-bit type) and `rank` dimensions (innermost
-// first; `strides` in bytes for dimensions 1.., multiples of 16) read or written in boxes
-// that lie in shared memory in the 128-byte swizzle (box[0] = one 128-byte row: 64 bf16
-// or 128 8-bit elements). cuTensorMapEncodeTiled lives in libcuda; its address comes from
-// the runtime, so the library links against no stub of it.
+// A tensor of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, _FLOAT32, or _UINT8 for any 8-bit
+// type: TMA copies bytes, and cuda.h has no signed 8-bit type) and `rank` dimensions
+// (innermost first; `strides` in bytes for dimensions 1.., multiples of 16) read or
+// written in boxes that lie in shared memory in the 128-byte swizzle (box[0] = one
+// 128-byte row: 32 f32, 64 bf16 or 128 8-bit elements). cuTensorMapEncodeTiled lives in
+// libcuda; its address comes from the runtime, so the library links against no stub of it.
 inline bool encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
                               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -4,7 +4,8 @@
 tensor on the CPU takes the plain path (``conv3x3_bn_act_reference``: ``F.conv2d``,
 then the affine, residual and ReLU in f32); a CUDA tensor launches the bf16 kernel of
 ``csrc/conv3x3.cu``, the port of ``tpuhar/ops/conv3x3.py: conv3x3_bn_act``, for f32
-operands the f32 kernel of ``csrc/conv3x3_f32.cu`` (``conv3x3_bn_act_f32``), or raises.
+operands the f32 kernel of ``csrc/conv3x3_f32.cu`` (``conv3x3_bn_act_f32``: split-TF32
+products on the tensor cores, its weights repacked by ``pack_conv3x3_f32``), or raises.
 
 ``conv3x3_i8`` is its int8 form, which also takes the place of the XLA int8 convs of
 the JAX package's quantized tower (its ``ops/quant.int8_conv``, stride 1 and 2):
@@ -150,6 +151,52 @@ def check_conv3x3_f32_shapes(x_shape, kernel_shape, residual_shape=None) -> None
         raise ValueError(f"conv3x3 f32 kernel: {N * S * S} output rows exceed 2^31")
 
 
+CONV_F32_K_CHUNK = 32  # input channels the f32 kernel takes per step: C is padded to it
+CONV_F32_N_TILE = 128  # output channels per block of the f32 kernel: C_out is padded to it
+_F32_EXP = 0x7F800000  # the f32 exponent's bits
+_TF32_KEEP = -0x2000  # 0xFFFFE000 as int32: the 19 bits TF32 keeps
+
+
+def _tf32_round(v: torch.Tensor, nan: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` (``nan``: its NaNs) rounded to TF32 at bit 13, as int32 bit patterns: to
+    nearest, ties away from zero (an add on the magnitude's bits); inf keeps its bits, a
+    NaN stays a NaN in its top 19 bits, and a finite value that would round to inf is cut
+    instead. The same recipe as ``csrc/conv3x3_f32.cu``'s ``tf32_round``."""
+    u = v.view(torch.int32)
+    r = (torch.where(nan, 0, u) + 0x1000) & _TF32_KEEP  # no NaN in the add: no int32 overflow
+    r = torch.where((r & _F32_EXP) == _F32_EXP, u & _TF32_KEEP, r)  # inf, or a cut at the top
+    return torch.where(nan, (u | 0x400000) & _TF32_KEEP, r)
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``v`` as two TF32 values in f32 tensors (low 13 mantissa bits zero), the
+    operands of the f32 kernel's split products: ``hi`` is ``v`` rounded to TF32 (to
+    nearest, ties away from zero), ``lo`` is ``v − hi`` (exact in f32) rounded the same
+    way, so ``|v − hi − lo| ≤ 2⁻²²·|v|`` for ``|v| ≥ 2⁻¹¹⁵`` (below it TF32's subnormal
+    step bounds what is left: at most 2⁻¹³⁷). inf and NaN keep their class in ``hi`` with
+    ``lo = 0``; a finite value that would round to inf is cut."""
+    v = v.float().contiguous()
+    hi = _tf32_round(v, torch.isnan(v)).view(torch.float32)
+    rest = torch.where(torch.isfinite(v), v - hi, 0.0)
+    lo = ((rest.view(torch.int32) + 0x1000) & _TF32_KEEP).view(torch.float32)  # finite and small
+    return hi, lo
+
+
+def pack_conv3x3_f32(kernel_hwio: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(3, 3, C, C_out)`` f32 HWIO kernel → ``(w_hi, w_lo)``, the two
+    ``(C_out_pad, 9·C_pad)`` K-major halves the f32 kernel reads (``split_tf32`` of the
+    weights): row ``n`` is output channel ``n``'s K run in the order ``(dy·3 + dx)·C_pad
+    + c``, zero past ``C`` and past ``C_out``; ``C_pad`` is ``C`` rounded up to 32 and
+    ``C_out_pad`` is ``C_out`` rounded up to 128, so that every box the kernel loads
+    lies inside the matrix."""
+    kh, kw, c, c_out = kernel_hwio.shape
+    c_pad = -(-c // CONV_F32_K_CHUNK) * CONV_F32_K_CHUNK
+    c_out_pad = -(-c_out // CONV_F32_N_TILE) * CONV_F32_N_TILE
+    w = kernel_hwio.float().reshape(kh * kw, c, c_out).permute(2, 0, 1)  # (C_out, 9, C)
+    w = F.pad(w, (0, c_pad - c, 0, 0, 0, c_out_pad - c_out))
+    return split_tf32(w.reshape(c_out_pad, kh * kw * c_pad))
+
+
 def conv3x3_bn_act(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -215,7 +262,8 @@ def conv3x3_bn_act_f32(
 ) -> torch.Tensor:
     """``conv3x3_bn_act`` on f32 operands (``conv3x3_bn_act`` sends them here): the CPU
     takes ``conv3x3_bn_act_reference``, a CUDA tensor launches the f32 kernel of
-    ``csrc/conv3x3_f32.cu`` (any C and C_out) or raises."""
+    ``csrc/conv3x3_f32.cu`` (any C and C_out; the weights repacked by
+    ``pack_conv3x3_f32`` on each call) or raises."""
     if x.device.type == "cpu":
         return conv3x3_bn_act_reference(x, kernel, scale, bias, residual, relu)
     tensors = {"x": x, "kernel": kernel}
@@ -234,13 +282,14 @@ def conv3x3_bn_act_f32(
     out = torch.empty((N, S, S, C_out), dtype=x.dtype, device=x.device)
     lib = _ext.library()
     with torch.cuda.device(x.device):
-        status = lib.tpuhar_conv3x3_bn_act_f32(
-            x.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        w_hi, w_lo = pack_conv3x3_f32(kernel)
+        status = lib.tpuhar_conv3x3_bn_act_f32_split(
+            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
             N * S * S, S, C, C_out, int(relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _ext.check(status, "tpuhar_conv3x3_bn_act_f32")
+    _ext.check(status, "tpuhar_conv3x3_bn_act_f32_split")
     conv3x3_bn_act_f32.launches += 1
     return out
 

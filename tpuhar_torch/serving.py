@@ -39,7 +39,7 @@ from .bridge import load_variables
 from .entry import featurize, fusion_program
 from .models.crossmodal import IMUClassifier
 from .ood import MahalanobisScorer, energy_score, fit_ood_thresholds, msp_score
-from .ops.conv3x3 import conv3x3_bn_act, conv3x3_i8
+from .ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_f32, conv3x3_i8
 from .ops.flash_lean import flash_lean
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import center_u8, int8_gemm, stem_gemm_u8, to_patch_major
@@ -52,6 +52,7 @@ PATCH = 16  # the tpu_cnn stem's patch: the patch-major wire is (..., H/16, W/16
 KERNEL_COUNTERS = {
     "fused_window": featurize_windows_auto,
     "conv3x3_bn_act": conv3x3_bn_act,
+    "conv3x3_bn_act_f32": conv3x3_bn_act_f32,
     "stem_gemm_u8": stem_gemm_u8,
     "conv3x3_i8": conv3x3_i8,
     "int8_gemm": int8_gemm,

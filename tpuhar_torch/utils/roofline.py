@@ -2,7 +2,8 @@
 
 - ``HBM_BYTES_PER_S``, ``PEAK_OPS_PER_S`` and ``bound()``: the least time the card
   could take for some work, the larger of its bytes over the memory rate and each
-  type's operations over that type's peak (H100 SXM data sheet, dense).
+  type's operations over that type's peak (H100 SXM data sheet, dense; f32 products on
+  the tensor cores as three TF32 ones at a third of the TF32 rate).
 - ``tpucnn_layers``, ``resnet18_int8_layers`` and ``analyze``: the per-layer
   operation and byte counts of the int8 towers at a serving shape
   (``scripts/roofline_int8.py:39-96`` and the layer map of ``scripts/roofline_resnet.py``),
@@ -17,7 +18,9 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# "tf32x3": f32 products made of three TF32 ones on the tensor cores (the split-TF32 f32
+# conv): 495 TFLOP/s of TF32 products, a third of it of f32 work
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def bound(bytes_moved: float, ops: Dict[str, float]) -> dict:

@@ -184,7 +184,22 @@ Phases; any failed check raises and the exit code is non-zero:
     each forward 1 featurizer, 4 f32 fused convs and no bf16 one, its logits, MSP, energy
     and embeddings within 1e-4 of the same program with the fused convs on their plain
     version, the replay and eager ms of both programs, and the int8-resident build of the
-    same configuration (its recalibration's f32 conv launches and seconds).
+    same configuration (its recalibration's f32 conv launches and seconds);
+29. the f32 ViT with flash at full width (``entry.vit_config("float32")``, videomae_base:
+    12 blocks, d = 768, 1568 tokens, 224², 16 frames; seed 0) under ``full_f32()``:
+    ``build_forward`` and ``InferenceEngine(fast_attention=True)``'s graphs at batch 8 and
+    64, each forward 1 featurizer, 12 launches of the f32 flash forward and none of the
+    bf16 one, its logits, MSP, energy and embeddings within 1e-4 of the same program with
+    flash off (plain f32 attention), the replay and eager ms of both; then f32
+    pretraining (``pretrain_config()`` with ``compute_dtype="float32"``, under
+    ``precision_scope("float32")``): 3 steps at batch 16 with 12 launches of each f32 flash
+    kernel a step, their ms, samples/s and peak memory, and 3 steps at batch 4 with flash
+    on, and with flash off in f32 and in float64, from the same parameters, batches and
+    generator: each flash step's loss within 1e-5 of the float64 step's, relative, its
+    gradient norm within 1e-4.
+
+Phases 3 and 12 hold the f32 forms of the flash kernels (full f32 FFMA) against their
+plain versions in float64, within 1e-5 of the largest element, at the bf16 forms' shapes.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -370,6 +385,12 @@ FLASH_BWD_SHAPES = (
 )
 FLASH_BWD_TIMED_SHAPE = (16, 12, 1568)
 SM_SCALE = 0.125  # 1/sqrt(64)
+# the flash kernels' f32 forms (full f32 FFMA), at the bf16 forms' shapes: the output, dq,
+# dk and dv each against the plain version in float64 on the same f32 operands, |kernel -
+# plain| / max |plain|, and the log-sum-exp absolute: the same f32 function, its sums in
+# another order
+FLASH_F32_RTOL = 1e-5
+FLASH_F32_LSE_ATOL = 1e-5
 # pretraining: one epoch of four batches of 16 (and one validation batch), the depth
 # cut to one epoch from the configuration's ten
 PRETRAIN_BATCH, PRETRAIN_TRAIN_BATCHES, PRETRAIN_EPOCHS = 16, 4, 1
@@ -541,6 +562,21 @@ DRYRUN_RANKS = 4  # phase 27: entry.dryrun_multichip's ranks, all on cuda:0
 F32_FLAGSHIP_SIZES = [8, 256]
 F32_FLAGSHIP_RTOL = 1e-4
 F32_FLAGSHIP_FORWARD = {"fused_window": 1, "conv3x3_bn_act_f32": 4, "conv3x3_bn_act": 0}  # launches a forward
+# phase 29, the f32 ViT with flash: served at ENGINE_SIZES["engine_vit"] against the same
+# program with flash off within F32_FLAGSHIP_RTOL (the same f32 function, its attention's
+# sums in another order), each program timed over F32_VIT_TIMING_ITERS calls a size (cut
+# from ENGINE_TIMING_ITERS: an f32 forward at 64 takes most of a second); pretraining
+# F32_VIT_STEPS steps at PRETRAIN_BATCH, and the same steps at F32_VIT_CHECK_BATCH (where
+# the materialized scores fit) with flash on, and with flash off in f32 and in float64:
+# each flash step's loss within F32_VIT_LOSS_RTOL of the float64 step's, relative, its
+# gradient norm (before the clip) within F32_VIT_GRAD_RTOL. The float64 steps are the
+# arbiter because the f32 flash-off steps are not exact enough to be one: at init, with
+# the projection heads' BatchNorm over 4 rows, the first gradient norm of the f32
+# flash-off step was 3.5e-4 from the float64 step's on an H100, the flash step's 5.9e-6;
+# the f32 pair's gaps are printed beside
+F32_VIT_TIMING_ITERS = {8: 5, 64: 2}
+F32_VIT_STEPS, F32_VIT_CHECK_BATCH = 3, 4
+F32_VIT_LOSS_RTOL, F32_VIT_GRAD_RTOL = 1e-5, 1e-4
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
 ENGINE_SIZES = {"engine_bf16": [8, 256], "engine_int8_resident": [8, 256], "engine_vit": [8, 64]}
@@ -1062,6 +1098,149 @@ def check_flash_backward() -> dict:
                 "common": {"plain_ms": plain_ms, "library_ms": library_ms,
                            "function_bound_ms": b_fn["bound_ms"], "shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} bf16"},
                 "train_forward": {"train_forward_shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} bf16",
+                                  "train_forward_ms": fwd_ms, "train_forward_library_ms": fwd_library_ms,
+                                  "train_forward_bound_ms": b_fwd["bound_ms"]},
+            }
+    out = {
+        name: {"max_abs_err": worst[name][0], "max_rel_err": worst[name][1], **timed[name], **timed["common"]}
+        for name in ("dkv", "dq")
+    }
+    out["train_forward"] = timed["train_forward"]
+    return out
+
+
+def f32_projections(gen, B: int, H: int, N: int, n: int = 3) -> list:
+    """``n`` (B, H, N, 64) f32 views of (B, N, H·64) buffers, as the ViT's attention hands
+    them over."""
+    return [torch.randn((B, N, H, 64), generator=gen, device="cuda").transpose(1, 2) for _ in range(n)]
+
+
+def ffma_ms(flops: float) -> float:
+    """``flops`` of f32 work at the card's FFMA rate, in ms."""
+    return flops / PEAK_OPS_PER_S["f32"] * 1e3
+
+
+def check_flash_f32() -> dict:
+    """The f32 forward kernel against its plain version in float64 on f32 views of (B, N,
+    H·64) projections at the bf16 form's shapes; at (8, 12, 1568) its time beside the
+    plain version's (in f32), SDPA's in f32 with TF32 off and the bound (three TF32
+    products an f32 one, and at the FFMA rate)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timed, worst_abs, worst_rel = None, 0.0, 0.0
+    for B, H, N in FLASH_SHAPES:
+        q, k, v = f32_projections(gen, B, H, N)
+        got = flash_lean(q, k, v)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"flash_lean f32 ({B}, {H}, {N}): output {got.dtype}")
+        want = flash_lean_reference(q.double(), k.double(), v.double())
+        err = (got.double() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        print(f"[kernel] flash_lean ({B}, {H}, {N}, 64) f32: against float64 max abs diff {err:.3e}, rel {rel:.3e}")
+        if not rel <= FLASH_F32_RTOL:
+            raise AssertionError(f"flash_lean f32 ({B}, {H}, {N}, 64): relative diff {rel} > {FLASH_F32_RTOL}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        del want
+        if (B, H, N) == FLASH_TIMED_SHAPE:
+            ms = cuda_ms(lambda: flash_lean(q, k, v), 20)
+            plain_ms = cuda_ms(lambda: flash_lean_reference(q, k, v), 5)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            scores = B * H * N * N
+            # 2 products of 2·N·N·64 per (batch, head) of f32 work; 5 f32 operations per
+            # score (scale, max, subtract, exponential, sum)
+            b = bound(4 * q.numel() * 4, {"tf32x3": 4 * scores * 64, "f32": 5 * scores})
+            ffma = ffma_ms(4 * scores * 64)
+            print(
+                f"[kernel] flash_lean ({B}, {H}, {N}, 64) f32: kernel {ms:.4f} ms "
+                f"({4 * scores * 64 / ms / 1e9:.1f} TFLOP/s), plain (f32) {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention (f32, TF32 off) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}; {ffma:.4f} ms at the FFMA rate)"
+            )
+            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b, "ffma_bound_ms": ffma}
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed, "shape": "(8, 12, 1568, 64) f32"}
+
+
+def check_flash_backward_f32() -> dict:
+    """The f32 forward's log-sum-exp and the f32 dQ and dK/dV kernels against the plain
+    backward in float64 on f32 views of (B, N, H·64) buffers at the bf16 forms' shapes;
+    at the pretraining shape, both kernels bit for bit across two calls and the times
+    (the plain backward's in f32, SDPA's f32 backward with TF32 off, the bounds), and the
+    training forward's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
+    timed = None
+    for B, H, N in FLASH_BWD_SHAPES:
+        q, k, v, dout = f32_projections(gen, B, H, N, 4)
+        out, lse, out_f32 = flash_lean_with_stats(q, k, v, SM_SCALE)
+        if out_f32 is not out:
+            raise AssertionError("flash forward f32: the f32 output is not the output")
+        lse_err = (lse.double() - torch.logsumexp((q.double() @ k.double().mT) * SM_SCALE, dim=-1)).abs().max().item()
+        got = dict(zip(("dq", "dk", "dv"), flash_lean_backward(q, k, v, out_f32, dout, lse, SM_SCALE)))
+        want = dict(zip(("dq", "dk", "dv"), flash_lean_backward_reference(
+            q.double(), k.double(), v.double(), dout.double(), SM_SCALE)))
+        errs = {}
+        for name in got:
+            if got[name].dtype != torch.float32:
+                raise AssertionError(f"flash backward f32 {name}: {got[name].dtype}")
+            err = (got[name].double() - want[name]).abs().max().item()
+            errs[name] = (err, err / want[name].abs().max().item())
+        print(f"[kernel] flash backward ({B}, {H}, {N}, 64) f32 against float64: lse max abs diff {lse_err:.3e}; "
+              + ", ".join(f"{n} max abs diff {e:.3e} rel {r:.3e}" for n, (e, r) in errs.items()))
+        if not lse_err <= FLASH_F32_LSE_ATOL:
+            raise AssertionError(f"flash lse f32 ({B}, {H}, {N}): max abs diff {lse_err} > {FLASH_F32_LSE_ATOL}")
+        for name, (err, rel) in errs.items():
+            if not rel <= FLASH_F32_RTOL:
+                raise AssertionError(f"flash backward f32 {name} ({B}, {H}, {N}): relative diff {rel} > "
+                                     f"{FLASH_F32_RTOL}")
+            w = worst["dq" if name == "dq" else "dkv"]
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        del got, want
+        if (B, H, N) == FLASH_BWD_TIMED_SHAPE:
+            first, again = (flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("flash dQ f32: two calls on the same operands differ (dq or di)")
+            di = first[1]
+            first, again = (flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("flash dK/dV f32: two calls on the same operands differ")
+            del first, again
+            dkv_ms = cuda_ms(lambda: flash_lean_bwd_dkv(q, k, v, dout, lse, di, SM_SCALE), 10)
+            dq_ms = cuda_ms(lambda: flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, SM_SCALE), 10)
+            plain_ms = cuda_ms(lambda: flash_lean_backward_reference(q, k, v, dout, SM_SCALE), 3, warmup=1)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), 10)
+            del o, leaves
+            product = 2 * B * H * N * N * 64
+            tensor = q.numel() * 4  # bytes of one (B, H, N, 64) f32 tensor
+            stat = lse.numel() * 4
+            # the whole backward (q, k, v, dO, O and lse in; dq, dk, dv out): S and dP once,
+            # then dV, dK and dQ. dK/dV: q, k, v, dO, lse and di in, dk and dv out; dQ: q, k,
+            # v, O, dO and lse in, dq and di out
+            b_fn = bound(8 * tensor + stat, {"tf32x3": 5 * product})
+            b_dkv = bound(6 * tensor + 2 * stat, {"tf32x3": 4 * product})
+            b_dq = bound(6 * tensor + 2 * stat, {"tf32x3": 3 * product})
+            print(
+                f"[kernel] flash backward ({B}, {H}, {N}, 64) f32: dK/dV kernel {dkv_ms:.4f} ms "
+                f"({4 * product / dkv_ms / 1e9:.1f} TFLOP/s, bound {b_dkv['bound_ms']:.4f} ms, "
+                f"{ffma_ms(4 * product):.4f} at the FFMA rate), dQ kernel {dq_ms:.4f} ms "
+                f"({3 * product / dq_ms / 1e9:.1f} TFLOP/s, bound {b_dq['bound_ms']:.4f} ms, "
+                f"{ffma_ms(3 * product):.4f} at the FFMA rate, di included); together {dkv_ms + dq_ms:.4f} ms "
+                f"against the function's bound {b_fn['bound_ms']:.4f} ms ({b_fn['bound_by']}); plain backward (f32) "
+                f"{plain_ms:.4f} ms; SDPA backward (f32, TF32 off) {library_ms:.4f} ms"
+            )
+            fwd_ms = cuda_ms(lambda: flash_lean_with_stats(q, k, v, SM_SCALE), 10)
+            fwd_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+            scores = B * H * N * N
+            b_fwd = bound(4 * tensor + stat, {"tf32x3": 4 * scores * 64, "f32": 5 * scores})
+            print(f"[kernel] flash forward with stats ({B}, {H}, {N}, 64) f32: kernel {fwd_ms:.4f} ms, "
+                  f"F.scaled_dot_product_attention (f32, TF32 off) {fwd_library_ms:.4f} ms, bound "
+                  f"{b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}; {ffma_ms(4 * scores * 64):.4f} at the FFMA rate)")
+            timed = {
+                "dkv": {"ms": dkv_ms, **b_dkv, "ffma_bound_ms": ffma_ms(4 * product)},
+                "dq": {"ms": dq_ms, **b_dq, "ffma_bound_ms": ffma_ms(3 * product)},
+                "common": {"plain_ms": plain_ms, "library_ms": library_ms,
+                           "function_bound_ms": b_fn["bound_ms"], "shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} f32"},
+                "train_forward": {"train_forward_shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} f32",
                                   "train_forward_ms": fwd_ms, "train_forward_library_ms": fwd_library_ms,
                                   "train_forward_bound_ms": b_fwd["bound_ms"]},
             }
@@ -2693,29 +2872,34 @@ def run_mesh_stage(counters: dict, kernels: dict, smi: str, cfg) -> dict:
     return reference
 
 
-def check_flash_at(shape) -> dict:
+def check_flash_at(shape, dtype=torch.bfloat16) -> dict:
     """The flash forward (with and without the stats) and both backward kernels against
-    their plain versions at ``(B, H, N, 64)``, bf16, as phase 12 holds them."""
+    their plain versions at ``(B, H, N, 64)`` in ``dtype``, as phase 12 holds them: bf16
+    against the plain version in the operands' type, f32 against it in float64."""
     B, H, N = shape
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, dout = (torch.randn((B, N, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    q, k, v, dout = (torch.randn((B, N, H, 64), generator=gen, device="cuda").to(dtype).transpose(1, 2)
                      for _ in range(4))
+    f32 = dtype == torch.float32
+    plain = [t.double() for t in (q, k, v, dout)] if f32 else [q, k, v, dout]
     errs = {}
-    want = flash_lean_reference(q, k, v).float()
-    errs["flash_lean"] = (flash_lean(q, k, v).float() - want).abs().max().item() / want.abs().max().item()
+    want = flash_lean_reference(*plain[:3]).double()
+    errs["flash_lean"] = (flash_lean(q, k, v).double() - want).abs().max().item() / want.abs().max().item()
     out, lse, out_f32 = flash_lean_with_stats(q, k, v, SM_SCALE)
-    errs["flash_lean (stats)"] = (out.float() - want).abs().max().item() / want.abs().max().item()
-    lse_err = (lse - torch.logsumexp((q.float() @ k.float().mT) * SM_SCALE, dim=-1)).abs().max().item()
+    errs["flash_lean (stats)"] = (out.double() - want).abs().max().item() / want.abs().max().item()
+    scores = (q.to(plain[0].dtype if f32 else torch.float32) @ k.to(plain[0].dtype if f32 else torch.float32).mT)
+    lse_err = (lse.double() - torch.logsumexp(scores * SM_SCALE, dim=-1).double()).abs().max().item()
+    del scores
     got = flash_lean_backward(q, k, v, out_f32, dout, lse, SM_SCALE)
-    ref = flash_lean_backward_reference(q, k, v, dout, SM_SCALE)
+    ref = flash_lean_backward_reference(*plain, SM_SCALE)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-        errs[f"flash backward {name}"] = (g.float() - r.float()).abs().max().item() / r.float().abs().max().item()
-    print(f"[tp] flash kernels at a rank's shape {shape + (64,)} bf16: lse max abs diff {lse_err:.3e}; relative "
-          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
-    limits = {n: FLASH_BWD_RTOL if "backward" in n else FLASH_RTOL for n in errs}
+        errs[f"flash backward {name}"] = (g.double() - r.double()).abs().max().item() / r.double().abs().max().item()
+    print(f"[tp] flash kernels at a rank's shape {shape + (64,)} {'f32' if f32 else 'bf16'}: lse max abs diff "
+          f"{lse_err:.3e}; relative " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    limits = {n: FLASH_F32_RTOL if f32 else FLASH_BWD_RTOL if "backward" in n else FLASH_RTOL for n in errs}
     bad = {n: e for n, e in errs.items() if not e <= limits[n]}
-    if bad or not lse_err <= LSE_ATOL:
-        raise AssertionError(f"flash kernels at {shape}: {bad}, lse {lse_err}")
+    if bad or not lse_err <= (FLASH_F32_LSE_ATOL if f32 else LSE_ATOL):
+        raise AssertionError(f"flash kernels at {shape} {dtype}: {bad}, lse {lse_err}")
     return errs
 
 
@@ -2920,6 +3104,7 @@ def run_tp_stage(counters: dict, kernels: dict, smi: str, cfg, reference: dict) 
     print(f"[tp_engine_bf16] in each rank: one featurizer and 4 fused convs a graph; predict on {list(MESH_REQUESTS)} "
           f"rows equals the engine without a mesh bit for bit")
     check_flash_at(TP_FLASH_SHAPE)
+    check_flash_at(TP_FLASH_SHAPE, torch.float32)
     print(f"[tp] phase 23: {time.perf_counter() - t_phase:.1f} s")
 
 def check_centered_stem(smi: str) -> dict:
@@ -3669,6 +3854,156 @@ def run_f32_flagship_stage(counters: dict, kernels: dict, smi: str) -> dict:
     return result
 
 
+def f32_vit_steps(cfg, params, batches: list, seed: int) -> tuple:
+    """``(losses, gradient norms before the clip, ms a step)`` of ``cfg``'s train steps on
+    ``batches`` in turn from ``params``, dropout and augmentation from a card generator of
+    ``seed``."""
+    task = build_pretrain_task(cfg, device="cuda", params=params, steps_per_epoch=len(batches))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    losses, norms, step_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = task.train_step(task.state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        grads = [p.grad for p in task.state.optimizer.params if p.grad is not None]
+        norms.append(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item())
+    del task
+    torch.cuda.empty_cache()
+    return losses, norms, step_ms
+
+
+def run_f32_vit_stage(counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 29: the f32 ViT with flash at full width. Served under ``full_f32()``:
+    ``build_forward`` eagerly and ``InferenceEngine(fast_attention=True)``'s graphs at
+    ``ENGINE_SIZES["engine_vit"]``, each forward 1 featurizer, 12 f32 flash launches and
+    no bf16 one; logits, MSP, energy and embeddings against the same program with flash
+    off (plain f32 attention); the replay and eager ms of both programs. Pretrained in
+    f32 under ``precision_scope("float32")`` (the train step's own): F32_VIT_STEPS steps
+    at PRETRAIN_BATCH with 12 launches of each f32 flash kernel a step, their ms, samples/s
+    and peak memory; then the same steps at F32_VIT_CHECK_BATCH with flash on, and with
+    flash off in f32 and in float64, from the same parameters, batches and generator,
+    each flash step's loss and gradient norm held to the float64 step's. Every launch
+    count is set to 0 just before each path and read just after it."""
+    t_phase = time.perf_counter()
+    cfg = vit_config("float32")
+    cfg_plain = copy.deepcopy(cfg)
+    cfg_plain.model.use_flash_attention = False
+    depth = VIT_CONFIGS[cfg.model.video_backbone][0]
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    forward = {**dict.fromkeys(counters, 0), "fused_window": 1, "flash_lean_f32": depth}
+    plain = {**forward, "flash_lean_f32": 0}
+    sizes = ENGINE_SIZES["engine_vit"]
+    result = {}
+    with full_f32():
+        fn, _ = build_forward(cfg, sizes[0], device="cuda", params=params)
+        fn_plain, _ = build_forward(cfg_plain, sizes[0], device="cuda", params=params)
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        d = cfg.data
+        for b in sizes:
+            imu = torch.randn((b, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0
+            video = torch.randint(0, 256, (b, d.video_frames_per_window, *d.video_resize, 3), generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+            got, _, _ = drive_counted(counters, kernels, f"vit_f32_eager_{b}", lambda: fn(imu, video), forward)
+            want, _, _ = drive_counted(counters, kernels, f"vit_f32_plain_{b}", lambda: fn_plain(imu, video), plain)
+            shapes = {"logits": (b, cfg.model.num_classes), "msp": (b,), "energy": (b,),
+                      "embeddings": (b, 2 * cfg.model.imu_d_model)}
+            gaps = {}
+            for key, shape in shapes.items():
+                if tuple(got[key].shape) != shape or got[key].dtype != torch.float32 or not torch.isfinite(got[key]).all():
+                    raise AssertionError(f"f32 ViT batch {b}: {key} {tuple(got[key].shape)} {got[key].dtype} not "
+                                         f"finite f32 {shape}")
+                gaps[key] = ((got[key] - want[key]).abs().max() / want[key].abs().max()).item()
+            print(f"[f32 vit] batch {b}: eager forward with 1 featurizer, {depth} f32 flash launches and no bf16 one; "
+                  f"against the flash-off program, max |diff| / max |plain| {json.dumps(gaps)}")
+            bad = {key: gap for key, gap in gaps.items() if not gap <= F32_FLAGSHIP_RTOL}
+            if bad:
+                raise AssertionError(f"f32 ViT batch {b}: outputs beyond {F32_FLAGSHIP_RTOL} of the flash-off "
+                                     f"program: {bad}")
+            del got, want, imu, video
+        del fn, fn_plain
+        torch.cuda.empty_cache()
+
+        timings = {}
+        for path, c, expected in (("engine_vit_f32", cfg, forward), ("engine_vit_f32_plain", cfg_plain, plain)):
+            engine = InferenceEngine(c, params, batch_sizes=sizes, fast_attention=c.model.use_flash_attention,
+                                     device="cuda")
+            requests = [engine_request(290, sizes[0], cfg), engine_request(291, sizes[0] + 1, cfg)]
+            check_graph_replay(path, engine, requests, counters, kernels, expected)
+            for b in engine.batch_sizes:
+                iters = F32_VIT_TIMING_ITERS[b]
+                inputs = engine._graphs[b].inputs
+                replay_ms = cuda_ms(lambda: engine._replay(b), iters, warmup=1)
+                eager_ms = cuda_ms(lambda: engine._forward(*inputs), iters, warmup=1)
+                timings.setdefault(path, {})[b] = {"replay_ms": replay_ms, "eager_ms": eager_ms}
+                print(f"[{path}] batch {b}: graph replay {replay_ms:.3f} ms ({b / replay_ms * 1e3:.1f} inf/s), "
+                      f"eager forward {eager_ms:.3f} ms on the graph's inputs ({smi})")
+            del engine
+            torch.cuda.empty_cache()
+        result["timings"] = timings
+
+    cfg_pt = pretrain_config()
+    cfg_pt.model.compute_dtype = "float32"
+    if cfg_pt.training.pretrain_matmul_precision != "float32":
+        raise AssertionError(f"pretraining precision {cfg_pt.training.pretrain_matmul_precision!r}, not float32")
+    params_pt = init_params(cfg_pt, torch.Generator().manual_seed(0), CrossModalModel)
+    batches = pretrain_batches(cfg_pt, F32_VIT_STEPS, PRETRAIN_BATCH, seed=292)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"flash_lean_f32": depth, "flash_bwd_dq_f32": depth, "flash_bwd_dkv_f32": depth}
+    (losses, norms, step_ms), counts, seconds = drive_counted(
+        counters, kernels, "vit_f32_pretrain", lambda: f32_vit_steps(cfg_pt, params_pt, batches, seed=29),
+        {**dict.fromkeys(counters, 0), **{name: F32_VIT_STEPS * n for name, n in per_step.items()}})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = float(np.mean(step_ms[1:]))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"f32 pretraining: losses {losses}")
+    print(f"[f32 vit pretrain] {F32_VIT_STEPS} steps of batch {PRETRAIN_BATCH} in f32 with flash: ms a step "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (the first builds and allocates); after the first "
+          f"{steady:.3f} ms, {PRETRAIN_BATCH / steady * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB; losses "
+          f"{losses}; launches {counts} ({smi})")
+    result["pretrain"] = {"step_ms": step_ms, "steady_ms": steady, "peak_gib": peak, "losses": losses}
+
+    small = [{key: t[:F32_VIT_CHECK_BATCH] for key, t in batch.items()} for batch in batches]
+    cfg_pt_plain = copy.deepcopy(cfg_pt)
+    cfg_pt_plain.model.use_flash_attention = False
+    cfg_pt_f64 = copy.deepcopy(cfg_pt_plain)
+    cfg_pt_f64.model.compute_dtype = "float64"
+    arms = {}
+    for path, c, expected in (
+        ("vit_f32_pretrain_check", cfg_pt, {name: F32_VIT_STEPS * n for name, n in per_step.items()}),
+        ("vit_f32_pretrain_plain", cfg_pt_plain, {}),
+        ("vit_f64_pretrain_plain", cfg_pt_f64, {}),
+    ):
+        (losses, norms, _), _, _ = drive_counted(counters, kernels, path, lambda: f32_vit_steps(c, params_pt, small, 30),
+                                                 {**dict.fromkeys(counters, 0), **expected})
+        arms[path] = (losses, norms)
+    exact = arms["vit_f64_pretrain_plain"]
+    gaps = {path: ([abs(a - b) / abs(b) for a, b in zip(losses, exact[0])],
+                   [abs(a - b) / abs(b) for a, b in zip(norms, exact[1])])
+            for path, (losses, norms) in arms.items() if path != "vit_f64_pretrain_plain"}
+    pair = ([abs(a - b) / abs(b) for a, b in zip(arms["vit_f32_pretrain_check"][0], arms["vit_f32_pretrain_plain"][0])],
+            [abs(a - b) / abs(b) for a, b in zip(arms["vit_f32_pretrain_check"][1], arms["vit_f32_pretrain_plain"][1])])
+    fmt = lambda xs: ", ".join(f"{x:.3e}" for x in xs)  # noqa: E731
+    print(f"[f32 vit pretrain] batch {F32_VIT_CHECK_BATCH}, {F32_VIT_STEPS} steps: losses / gradient norms with flash "
+          f"(f32 kernels) {arms['vit_f32_pretrain_check']}, flash off in f32 {arms['vit_f32_pretrain_plain']}, flash "
+          f"off in float64 {exact}")
+    print(f"[f32 vit pretrain] relative to the float64 steps: with flash loss {fmt(gaps['vit_f32_pretrain_check'][0])}, "
+          f"gradient norm {fmt(gaps['vit_f32_pretrain_check'][1])}; flash off in f32 loss "
+          f"{fmt(gaps['vit_f32_pretrain_plain'][0])}, gradient norm {fmt(gaps['vit_f32_pretrain_plain'][1])}; "
+          f"flash on against off, both f32: loss {fmt(pair[0])}, gradient norm {fmt(pair[1])}")
+    loss_gaps, norm_gaps = gaps["vit_f32_pretrain_check"]
+    if not max(loss_gaps) <= F32_VIT_LOSS_RTOL or not max(norm_gaps) <= F32_VIT_GRAD_RTOL:
+        raise AssertionError(f"f32 pretraining with flash against the float64 steps: loss gaps {loss_gaps} (bound "
+                             f"{F32_VIT_LOSS_RTOL}), gradient-norm gaps {norm_gaps} (bound {F32_VIT_GRAD_RTOL})")
+    result["pretrain_check"] = {"against_float64": gaps, "flash_on_against_off_f32": pair}
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[f32 vit] phase 29: {result['seconds']:.1f} s ({smi})")
+    return result
+
+
 def main() -> None:
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3750,6 +4085,30 @@ def main() -> None:
                     "through tpuhar/ops/attention.py:72",
         **bwd["dq"],
     }
+    kernels["flash_lean_f32"] = {
+        "name": "flash_lean_f32", "route": "cuda",
+        "source": "tpuhar_torch/csrc/flash_attn_f32.cu",
+        "replaces": "tpuhar/ops/flash_lean.py:89",
+        "also_replaces": "tpuhar/ops/attention.py:72",
+        **check_flash_f32(),
+    }
+    bwd32 = check_flash_backward_f32()
+    kernels["flash_lean_f32"].update(bwd32["train_forward"])  # row 5a'': the same kernel with the LSE stored
+    kernels["flash_bwd_dkv_f32"] = {
+        "name": "flash_bwd_dkv_f32", "route": "cuda",
+        "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv) "
+                    "through tpuhar/ops/attention.py:72",
+        **bwd32["dkv"],
+    }
+    kernels["flash_bwd_dq_f32"] = {
+        "name": "flash_bwd_dq_f32", "route": "cuda",
+        "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq) "
+                    "through tpuhar/ops/attention.py:72",
+        **bwd32["dq"],
+    }
+    torch.cuda.empty_cache()
     counters = launch_counters()
 
     def drive(path: str, fn, requests, expected: dict, cfg) -> list:
@@ -3987,6 +4346,7 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     run_dryrun_stage(kernels, smi)
     kernels["conv3x3_bn_act_f32"]["f32_flagship"] = run_f32_flagship_stage(counters, kernels, smi)
+    kernels["flash_lean_f32"]["f32_vit"] = run_f32_vit_stage(counters, kernels, smi)
     for name, k in kernels.items():
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] <= 0:

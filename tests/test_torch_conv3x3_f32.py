@@ -158,10 +158,11 @@ def test_f32_wrapper_takes_the_plain_version_on_the_cpu():
 
 def test_engine_counts_the_f32_conv():
     """``InferenceEngine`` records each graph's launches of every serving kernel, the f32
-    conv of an f32 ``tpu_cnn`` among them: every hand kernel but the flash backward's two."""
+    conv of an f32 ``tpu_cnn`` among them: every hand kernel but the flash backward's two
+    (in bf16 and in f32)."""
     from tpuhar_torch import serving
     from tpuhar_torch.entry import launch_counters
 
-    training_only = {"flash_bwd_dkv", "flash_bwd_dq"}
+    training_only = {"flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_dkv_f32", "flash_bwd_dq_f32"}
     assert serving.KERNEL_COUNTERS == {k: v for k, v in launch_counters().items() if k not in training_only}
     assert "conv3x3_bn_act_f32" in serving.kernel_launches()

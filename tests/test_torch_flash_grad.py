@@ -33,7 +33,7 @@ def _case(B, H, N, seed=0, D=64):
     return [rng.standard_normal((B, H, N, D)).astype(np.float32) for _ in range(4)]
 
 
-@pytest.mark.parametrize("N", [8, 100])
+@pytest.mark.parametrize("N", [8, 100, 1568])  # 1568: videomae_base's tokens
 def test_function_gradient_matches_autograd_and_jax(N):
     q, k, v, dout = _case(2, 3, N)
     scale = 0.125

@@ -654,8 +654,12 @@ def test_flash_lean_refuses(cuda):
     q, k, v = _attention_case(1, 2, 64, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_lean(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous())
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash_lean(q.float(), k.float(), v.float())
+    got = flash_lean(q.float(), k.float(), v.float())  # f32 goes to the f32 kernel, nothing is cast
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash_lean(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k must be a torch.bfloat16 tensor"):  # one type for all three
+        flash_lean(q, k.float(), v)
     with pytest.raises(ValueError, match="unit stride"):
         flash_lean(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
     wide = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)
@@ -668,6 +672,123 @@ def test_flash_lean_refuses(cuda):
     for sm_scale in (0.0, -0.125):  # the kernel takes the max of the raw scores
         with pytest.raises(ValueError, match="positive"):
             flash_lean(q, k, v, sm_scale=sm_scale)
+
+
+F32_RTOL = 1e-5  # of the largest element: the same f32 function, its sums in another order
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3), (8, 12)])
+@pytest.mark.parametrize("N", [1, 8, 32, 100, 112, 128, 192, 224, 256, 384, 1568])
+def test_flash_lean_f32_matches_float64(cuda, B, H, N, strided):
+    """The f32 forward kernel (full f32 FFMA) against the plain version in float64 on the
+    same operands: max |kernel − plain| / max |plain| ≤ 1e-5; the f32 kernel's launch
+    counted, the bf16 one's not."""
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_f32, flash_lean_reference
+
+    q, k, v = _attention_case(B, H, N, cuda, dtype=torch.float32, strided=strided)
+    before = flash_lean.launches, flash_lean_f32.launches
+    got = flash_lean(q, k, v)
+    assert (flash_lean.launches, flash_lean_f32.launches) == (before[0], before[1] + 1)
+    want = flash_lean_reference(q.double(), k.double(), v.double())
+    assert got.dtype == torch.float32 and got.shape == (B, H, N, 64)
+    assert got.transpose(1, 2).is_contiguous()  # the (B, N, H, 64) buffer
+    rel = (got.double() - want).abs().max() / want.abs().max()
+    assert rel.item() <= F32_RTOL
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+# the bf16 backward's shapes (FLASH_BWD_SHAPES below): the f32 kernels' 64-row blocks and
+# tiles end at N = 64, 127, 128, 129 as the bf16 ones' do
+@pytest.mark.parametrize("B,H,N", [
+    (16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384),
+    (2, 3, 64), (2, 3, 127), (2, 3, 128), (2, 3, 129), (2, 3, 200),
+])
+def test_flash_backward_f32_matches_float64(cuda, B, H, N, strided):
+    """The f32 forward's log-sum-exp and the f32 dQ and dK/dV kernels against the plain
+    backward in float64 on the same operands: lse within 1e-5 absolute, dq, dk and dv
+    each within 1e-5 of its largest element, ``di`` as ``rowsum(O∘dO)``; the gradients f32
+    views of (B, N, H, 64) buffers, and one launch of each f32 kernel."""
+    from tpuhar_torch.ops.flash_lean import (
+        flash_lean_backward,
+        flash_lean_backward_reference,
+        flash_lean_bwd_dkv,
+        flash_lean_bwd_dkv_f32,
+        flash_lean_bwd_dq,
+        flash_lean_bwd_dq_f32,
+        flash_lean_with_stats,
+    )
+
+    q, k, v = _attention_case(B, H, N, cuda, dtype=torch.float32, strided=strided)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn((B, N, H, 64), generator=gen, device=cuda)
+    dout = dout.transpose(1, 2) if strided else dout.transpose(1, 2).contiguous()
+    out, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    assert out_f32 is out
+    want_lse = torch.logsumexp((q.double() @ k.double().mT) * 0.125, dim=-1)
+    assert (lse.double() - want_lse).abs().max().item() <= 1e-5
+    counts = lambda: (flash_lean_bwd_dkv.launches, flash_lean_bwd_dq.launches,  # noqa: E731
+                      flash_lean_bwd_dkv_f32.launches, flash_lean_bwd_dq_f32.launches)
+    before = counts()
+    got = flash_lean_backward(q, k, v, out_f32, dout, lse, 0.125)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    _, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125)
+    torch.testing.assert_close(di.double(), (out.double() * dout.double()).sum(dim=-1), rtol=1e-5, atol=1e-5)
+    want = flash_lean_backward_reference(q.double(), k.double(), v.double(), dout.double(), 0.125)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == (B, H, N, 64) and g.dtype == torch.float32, name
+        assert g.transpose(1, 2).is_contiguous(), name
+        rel = (g.double() - w).abs().max() / w.abs().max()
+        assert rel.item() <= F32_RTOL, (name, rel.item())
+
+
+def test_flash_f32_backward_is_deterministic(cuda):
+    """The f32 dQ and dK/dV kernels: bit for bit equal across two calls (no atomics)."""
+    from tpuhar_torch.ops.flash_lean import flash_lean_bwd_dkv, flash_lean_bwd_dq, flash_lean_with_stats
+
+    q, k, v = _attention_case(2, 3, 1568, cuda, dtype=torch.float32, strided=True)
+    dout = torch.randn((2, 1568, 3, 64), device=cuda).transpose(1, 2)
+    _, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    first, again = (flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, 0.125) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    di = first[1]
+    first, again = (flash_lean_bwd_dkv(q, k, v, dout, lse, di, 0.125) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_function_f32_gradients_through_attention(cuda):
+    """``FlashSelfAttention`` in f32 with grad enabled: one launch of each f32 kernel and
+    none of the bf16 ones, and the output and input gradient within 1e-5 of the plain f32
+    attention's (TF32 off) on the same parameters."""
+    from tpuhar_torch.models.layers import MultiHeadDotProductAttention
+    from tpuhar_torch.ops.attention import FlashSelfAttention
+    from tpuhar_torch.ops.flash_lean import (
+        flash_lean,
+        flash_lean_bwd_dkv,
+        flash_lean_bwd_dkv_f32,
+        flash_lean_bwd_dq,
+        flash_lean_bwd_dq_f32,
+        flash_lean_f32,
+    )
+
+    torch.manual_seed(0)
+    flash = FlashSelfAttention(192, 3).to(cuda)
+    plain = MultiHeadDotProductAttention(192, 3).to(cuda)
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn((2, 100, 192), device=cuda)
+    counters = (flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq, flash_lean_f32, flash_lean_bwd_dkv_f32,
+                flash_lean_bwd_dq_f32)
+    before = [c.launches for c in counters]
+    outs, grads = [], []
+    for module, args in ((flash, ()), (plain, (None,))):
+        xi = x.clone().requires_grad_(True)
+        out = module(xi) if not args else module(xi, xi)
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append(xi.grad)
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 0, 1, 1, 1]
+    for got, want in zip((outs[0], grads[0]), (outs[1], grads[1])):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= F32_RTOL
 
 
 def test_vit_slice_on_card_matches_cpu_f32(cuda):
@@ -878,13 +999,14 @@ def _engine_case(path, device):
     from tpuhar_torch.entry import build_forward, build_int8_forward, flagship_config, vit_config
 
     vit = "vit" in path
-    cfg = vit_config() if vit else flagship_config("float32" if path == "f32" else "bfloat16")
+    f32 = path in ("f32", "vit_f32")
+    cfg = vit_config("float32" if f32 else "bfloat16") if vit else flagship_config("float32" if f32 else "bfloat16")
     if vit:
         cfg.model.video_backbone = "videomae_tiny"
     cfg.data.video_resize, cfg.data.video_frames_per_window = (ENGINE_SIZE, ENGINE_SIZE), ENGINE_FRAMES
     params = init_params(cfg, torch.Generator().manual_seed(0))
     launches = dict.fromkeys(("fused_window", "conv3x3_bn_act", "conv3x3_bn_act_f32", "stem_gemm_u8", "conv3x3_i8",
-                              "int8_gemm", "flash_lean"), 0)
+                              "int8_gemm", "flash_lean", "flash_lean_f32"), 0)
     launches["fused_window"] = 1
     if path in ("int8_vit", "int8_resnet18", "int8_resnet18_resident"):  # the ViT with vit_config()'s tanh GELU
         cfg.model.video_backbone = "videomae_tiny" if path == "int8_vit" else "resnet18"
@@ -906,7 +1028,7 @@ def _engine_case(path, device):
         kw = dict(fast_attention=True, fold_normalize=fold) if vit else dict(fold_normalize=fold)
         fn, _ = build_forward(cfg, 4, device=device, params=params, fold_normalize=fold)
         conv = "conv3x3_bn_act_f32" if path == "f32" else "conv3x3_bn_act"  # the f32 flagship: the f32 form
-        launches.update({"flash_lean": 4} if vit else {conv: 4})
+        launches.update({"flash_lean_f32" if f32 else "flash_lean": 4} if vit else {conv: 4})
     return cfg, params, kw, fn, launches
 
 
@@ -929,7 +1051,7 @@ def _assert_bitwise(got, want, what):
 @pytest.mark.parametrize(
     "path",
     ["bf16", "bf16_unfolded", "int8_resident", "int8_baseline", "vit", "vit_unfolded", "int8_vit", "int8_resnet18",
-     "int8_resnet18_resident", "f32"],
+     "int8_resnet18_resident", "f32", "vit_f32"],
 )
 def test_engine_replays_the_eager_program(cuda, path):
     """One CUDA graph per registered size, each holding the eager forward's kernel

@@ -55,6 +55,12 @@ SIGNATURES = {
     # q, k, v, o (f32), dO, lse, di (written), dq, B, H, N, sm_scale, the strides of q, k,
     # v, o, dO and dq, stream
     "tpuhar_flash_bwd_dq": (*(_P,) * 8, _I, _I, _I, _F, *(_L,) * 18, _P),
+    # the f32 forms: q, k, v, out, lse (null on the serving path; out is the f32 output the
+    # dQ kernel reads), B, H, N, sm_scale, the strides of q, k, v and out, stream
+    "tpuhar_flash_attn_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _F, *(_L,) * 12, _P),
+    # the arguments of their bf16 forms
+    "tpuhar_flash_bwd_dkv_f32": (*(_P,) * 8, _I, _I, _I, _F, *(_L,) * 18, _P),
+    "tpuhar_flash_bwd_dq_f32": (*(_P,) * 8, _I, _I, _I, _F, *(_L,) * 18, _P),
 }
 
 

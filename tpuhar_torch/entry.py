@@ -36,7 +36,14 @@ from .models.crossmodal import CrossModalModel, FusionClassifier, IMUClassifier,
 from .ood import energy_score, msp_score
 from .ops.fold import fold_normalization
 from .ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_f32, conv3x3_i8
-from .ops.flash_lean import flash_lean, flash_lean_bwd_dkv, flash_lean_bwd_dq
+from .ops.flash_lean import (
+    flash_lean,
+    flash_lean_bwd_dkv,
+    flash_lean_bwd_dkv_f32,
+    flash_lean_bwd_dq,
+    flash_lean_bwd_dq_f32,
+    flash_lean_f32,
+)
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import int8_gemm, stem_gemm_u8, to_patch_major
 from .ops.video import clip_stats, normalize_clip
@@ -326,6 +333,8 @@ def launch_counters() -> Dict[str, Callable]:
         "conv3x3_bn_act_f32": conv3x3_bn_act_f32, "stem_gemm_u8": stem_gemm_u8,
         "conv3x3_i8": conv3x3_i8, "int8_gemm": int8_gemm, "flash_lean": flash_lean,
         "flash_bwd_dkv": flash_lean_bwd_dkv, "flash_bwd_dq": flash_lean_bwd_dq,
+        "flash_lean_f32": flash_lean_f32, "flash_bwd_dkv_f32": flash_lean_bwd_dkv_f32,
+        "flash_bwd_dq_f32": flash_lean_bwd_dq_f32,
     }
 
 

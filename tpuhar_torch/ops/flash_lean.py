@@ -6,22 +6,25 @@ and backward.
 tensors as the TPU kernel does: f32 scores and softmax, the probabilities rounded to
 v's type for the product with v, an f32 sum, then the division by the normalizer. A
 tensor on the CPU takes the plain path (``flash_lean_reference``); a CUDA tensor
-launches the kernel of ``csrc/flash_attn.cu`` or raises. The kernel takes bf16 with
-D = 64 (the head width of every ``VIT_CONFIGS`` entry) and any strides whose last is 1,
-so views of the ``(B, N, H·D)`` projections go in as they are. ``flash_lean.launches``
-counts its launches.
+launches a kernel or raises. The kernels take D = 64 (the head width of every
+``VIT_CONFIGS`` entry) and any strides whose last is 1, so views of the ``(B, N, H·D)``
+projections go in as they are, in one of two types, as the TPU kernels run in the
+input's: bf16 goes to ``csrc/flash_attn.cu`` (``flash_lean.launches`` counts its
+launches), f32 to ``csrc/flash_attn_f32.cu`` (full f32 FFMA whatever the matmul
+precision; ``flash_lean_f32.launches``); any other type raises.
 
 ``FlashLean`` gives the forward a gradient: it saves each row's log-sum-exp and the
-output in f32 (``flash_lean_with_stats``, the same kernel with two more outputs), and its
-backward runs the dQ and the dK/dV kernels of ``csrc/flash_attn_bwd.cu``, the ports of
-the stock TPU kernel's two backward kernels (``flash_lean_bwd_dq``,
-``flash_lean_bwd_dkv``, each with its ``launches``), or autograd through the plain
-version on the CPU.
+output in f32 (``flash_lean_with_stats``, the same kernel with more outputs), and its
+backward runs the dQ and the dK/dV kernels, the ports of the stock TPU kernel's two
+backward kernels: ``csrc/flash_attn_bwd.cu`` for bf16 (``flash_lean_bwd_dq``,
+``flash_lean_bwd_dkv``, each with its ``launches``), ``csrc/flash_attn_bwd_f32.cu`` for
+f32 (``flash_lean_bwd_dq_f32``, ``flash_lean_bwd_dkv_f32``); or autograd through the
+plain version on the CPU. The gradients come back in q's type.
 
 The TPU kernel's ``block_q``/``block_k`` are tiles of the TPU's memory and change no
 result (at its defaults ``(392, 1792)`` it clamps the KV block to N and runs one
-full-KV tile per query tile). The Hopper kernel has its own fixed tiles (192 query
-rows, 112 key rows), so this function takes no block sizes.
+full-KV tile per query tile). The Hopper kernels have their own fixed tiles (bf16: 192
+query rows, 112 key rows; f32: 128 and 64), so this function takes no block sizes.
 """
 from __future__ import annotations
 
@@ -31,28 +34,32 @@ import torch
 
 from .. import _ext
 
-HEAD_DIM = 64  # the one head width the kernel takes
-QUERY_TILE = 192  # query rows of one work item of the kernel's persistent grid
+HEAD_DIM = 64  # the one head width the kernels take
+# operand type → query rows of one work item of its forward kernel (bf16: the persistent
+# grid's items; f32: one block each)
+QUERY_TILE = {torch.bfloat16: 192, torch.float32: 128}
 
 
-def _reference_f32(q, k, v, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _reference_sums(q, k, v, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version's output before its rounding to q's type, and each row's
-    log-sum-exp of the scaled scores, both f32."""
-    s = (q.float() @ k.float().mT) * sm_scale
+    log-sum-exp of the scaled scores: in f32, or in float64 for float64 operands (the
+    exact reference the f32 kernels are held to)."""
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = (q.to(wide) @ k.to(wide).mT) * sm_scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    return (p.to(v.dtype).float() @ v.float()) / l, (m + torch.log(l)).squeeze(-1)
+    return (p.to(v.dtype).to(wide) @ v.to(wide)) / l, (m + torch.log(l)).squeeze(-1)
 
 
 def flash_lean_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: Optional[float] = None
 ) -> torch.Tensor:
     """Plain version: the TPU kernel's one-tile math, step by step; the ``(N, N)``
-    score matrix is materialized in f32."""
+    score matrix is materialized in f32 (in float64 for float64 operands)."""
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
-    return _reference_f32(q, k, v, sm_scale)[0].to(q.dtype)
+    return _reference_sums(q, k, v, sm_scale)[0].to(q.dtype)
 
 
 def check_flash_operand(name: str, shape, strides, data_ptr: int, expected_shape, itemsize: int = 2) -> None:
@@ -84,37 +91,64 @@ def check_flash_scale(sm_scale: float) -> None:
         raise ValueError(f"flash_lean kernel: sm_scale must be positive, got {sm_scale}")
 
 
+# operand type → bytes of one element: the types the kernels take
+FLASH_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+
+
+def check_flash_dtypes(what: str, operands) -> torch.dtype:
+    """Raise ``ValueError`` unless the tensors of ``operands`` (name → tensor, q first)
+    share one type the kernels take (bf16 or f32) and q's device, and each passes
+    ``check_flash_operand`` at that type's element size; return the type. The device
+    itself is the wrapper's to check."""
+    q = next(iter(operands.values()))
+    if q.dtype not in FLASH_DTYPES:
+        raise ValueError(f"{what}: q must be a bfloat16 or float32 tensor, got {q.dtype}")
+    for name, t in operands.items():
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} must be a {q.dtype} tensor on {q.device}, as q is")
+        check_flash_operand(name, t.shape, t.stride(), t.data_ptr(), q.shape, itemsize=FLASH_DTYPES[q.dtype])
+    return q.dtype
+
+
+def _require_cuda(what: str, q: torch.Tensor) -> None:
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q must be a CUDA tensor, got one on {q.device}")
+
+
 def _forward_kernel(q, k, v, sm_scale: float, stats: bool):
-    """One launch of the forward kernel → ``(out, lse, out_f32)``. With ``stats`` it also
-    stores each row's log-sum-exp, ``(B, H, N)`` f32, and the output in f32 before its
-    rounding, a view of a ``(B, N, H, D)`` buffer like ``out``; without, those two are
+    """One launch of the forward kernel of q's type → ``(out, lse, out_f32)``. With
+    ``stats`` it also stores each row's log-sum-exp, ``(B, H, N)`` f32, and returns the
+    output in f32 before its rounding: for bf16 a view of a second ``(B, N, H, D)``
+    buffer that the kernel stores too, for f32 the output itself. Without, those two are
     None and the kernel stores nothing more."""
     B, H, N, D = q.shape
     check_flash_scale(sm_scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_lean kernel: {name} must be a bfloat16 tensor on {q.device}")
-        check_flash_operand(name, t.shape, t.stride(), t.data_ptr(), (B, H, N, D))
-    if B * H * -(-N // QUERY_TILE) >= 2**31:
-        raise ValueError(f"flash_lean kernel: B·H·⌈N/{QUERY_TILE}⌉ work items exceed 2^31")
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    _require_cuda("flash_lean kernel", q)
+    dtype = check_flash_dtypes("flash_lean kernel", {"q": q, "k": k, "v": v})
+    tile = QUERY_TILE[dtype]
+    if B * H * -(-N // tile) >= 2**31:
+        raise ValueError(f"flash_lean kernel: B·H·⌈N/{tile}⌉ work items exceed 2^31")
+    f32 = dtype == torch.float32
+    out = torch.empty((B, N, H, D), dtype=dtype, device=q.device).transpose(1, 2)
     lse = out_f32 = None
     if stats:
         lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-        out_f32 = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device).transpose(1, 2)
+        out_f32 = out if f32 else torch.empty((B, N, H, D), dtype=torch.float32, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out, lse, out_f32
     lib = _ext.library()
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if stats else 0)
+    if not f32:
+        pointers += (out_f32.data_ptr() if stats else 0,)
+    entry = "tpuhar_flash_attn_f32" if f32 else "tpuhar_flash_attn"
     with torch.cuda.device(q.device):
-        status = lib.tpuhar_flash_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if stats else 0, out_f32.data_ptr() if stats else 0,
-            B, H, N, float(sm_scale),
+        status = getattr(lib, entry)(
+            *pointers, B, H, N, float(sm_scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _ext.check(status, "tpuhar_flash_attn")
-    flash_lean.launches += 1
+    _ext.check(status, entry)
+    (flash_lean_f32 if f32 else flash_lean).launches += 1
     return out, lse, out_f32
 
 
@@ -130,7 +164,8 @@ def flash_lean(
     On a CUDA device the result is a view of a ``(B, N, H, D)`` buffer, so
     ``out.transpose(1, 2).reshape(B, N, H·D)`` is free, and ``sm_scale`` must be positive
     (``check_flash_scale``); the CPU's plain path takes any scale. ``launches`` counts the
-    forward kernel's launches, those of ``flash_lean_with_stats`` included.
+    bf16 forward kernel's launches, those of ``flash_lean_with_stats`` included;
+    ``flash_lean_f32.launches`` the f32 one's.
     """
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
@@ -142,15 +177,32 @@ def flash_lean(
 flash_lean.launches = 0
 
 
+def _require_f32(what: str, q: torch.Tensor) -> None:
+    if q.dtype != torch.float32:
+        raise ValueError(f"{what}: q must be a float32 tensor, got {q.dtype}")
+
+
+def flash_lean_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: Optional[float] = None):
+    """``flash_lean`` on f32 operands only. ``launches`` counts the launches of the f32
+    forward kernel (``csrc/flash_attn_f32.cu``), through ``flash_lean`` and
+    ``flash_lean_with_stats`` too."""
+    _require_f32("flash_lean_f32", q)
+    return flash_lean(q, k, v, sm_scale=sm_scale)
+
+
+flash_lean_f32.launches = 0
+
+
 def flash_lean_with_stats(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``flash_lean`` that also returns what the backward kernels read: each row's
     log-sum-exp of the scaled scores, ``(B, H, N)`` f32, which they recompute P from, and
-    the output in f32 before its rounding, which the dQ kernel forms ``di`` from. On a
-    CUDA device it is the same kernel with its two more pointers set."""
+    the output in f32 before its rounding, which the dQ kernel forms ``di`` from (for
+    f32 operands the output itself). On a CUDA device it is the same kernel with its
+    statistics' pointers set."""
     if q.device.type == "cpu":
-        out_f32, lse = _reference_f32(q, k, v, sm_scale)
+        out_f32, lse = _reference_sums(q, k, v, sm_scale)
         return out_f32.to(q.dtype), lse, out_f32
     return _forward_kernel(q, k, v, sm_scale, stats=True)
 
@@ -158,7 +210,8 @@ def flash_lean_with_stats(
 # ---------------------------------------------------------------------------------------
 # Backward: the stock Pallas TPU kernel's dK/dV and dQ kernels
 # (jax/experimental/pallas/ops/tpu/flash_attention.py: _flash_attention_bwd_dkv,
-# _flash_attention_bwd_dq), ported as the two kernels of csrc/flash_attn_bwd.cu.
+# _flash_attention_bwd_dq), ported as the two kernels of csrc/flash_attn_bwd.cu (bf16)
+# and of csrc/flash_attn_bwd_f32.cu (f32).
 # ---------------------------------------------------------------------------------------
 def flash_lean_backward_reference(q, k, v, dout, sm_scale: Optional[float] = None):
     """Plain version of the backward: ``(dq, dk, dv)`` by autograd through
@@ -172,12 +225,13 @@ def flash_lean_backward_reference(q, k, v, dout, sm_scale: Optional[float] = Non
 def check_flash_grad_operands(B: int, H: int, N: int, stats) -> None:
     """Raise ``ValueError`` on saved statistics the backward kernels do not take, from
     shapes and contiguity alone: ``stats`` maps a name (``lse``, ``di``) to ``(shape,
-    contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The grids of both kernels,
-    ``⌈N/128⌉ × H × B`` blocks (128 query rows a block for dQ, 128 key rows for dK/dV),
-    need ``H`` and ``B`` from 1 to 65535 (CUDA's limit on a grid's second and third
-    dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``, the output and ``dO`` are held to
-    ``check_flash_operand``: both kernels read q, k, v and dO through tensor maps, and
-    the dQ kernel the f32 output in 8-byte pieces."""
+    contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The grids of both kernels
+    of either type, ``⌈N/rows⌉ × H × B`` blocks (bf16: 128 query rows a block for dQ, 128
+    key rows for dK/dV; f32: 64 and 64), need ``H`` and ``B`` from 1 to 65535 (CUDA's
+    limit on a grid's second and third dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``,
+    the output and ``dO`` are held to ``check_flash_operand``: the bf16 kernels read q,
+    k, v and dO through tensor maps, the f32 ones in 16-byte pieces, and the dQ kernel
+    the f32 output in 8-byte (bf16) or 16-byte (f32) pieces."""
     for name, (shape, contiguous) in stats.items():
         if tuple(shape) != (B, H, N):
             raise ValueError(f"flash backward kernel: {name} {tuple(shape)} != {(B, H, N)}")
@@ -188,22 +242,20 @@ def check_flash_grad_operands(B: int, H: int, N: int, stats) -> None:
 
 
 def _grad_buffer(q: torch.Tensor) -> torch.Tensor:
-    """A ``(B, H, N, 64)`` view of a ``(B, N, H, 64)`` bf16 buffer: the layout of the
-    projections, so a gradient leaves the kernel as ``(B, N, H·64)`` without a copy."""
+    """A ``(B, H, N, 64)`` view of a ``(B, N, H, 64)`` buffer of q's type: the layout of
+    the projections, so a gradient leaves the kernel as ``(B, N, H·64)`` without a copy."""
     B, H, N, D = q.shape
-    return torch.empty((B, N, H, D), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    return torch.empty((B, N, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
-def _check_backward(operands, stats, out_f32=None) -> None:
-    """``operands``: name → a ``(B, H, N, 64)`` bf16 tensor the kernel reads (q first);
-    ``stats``: name → a ``(B, H, N)`` f32 tensor it reads; ``out_f32`` the forward's f32
-    output, if it reads it."""
+def _check_backward(operands, stats, out_f32=None) -> torch.dtype:
+    """``operands``: name → a ``(B, H, N, 64)`` tensor the kernel reads (q first), all of
+    one type the kernels take; ``stats``: name → a ``(B, H, N)`` f32 tensor it reads;
+    ``out_f32`` the forward's f32 output, if it reads it. Returns the operands' type,
+    which picks the kernel. The device is the wrapper's to check."""
     q = next(iter(operands.values()))
     B, H, N, D = q.shape
-    for name, t in operands.items():
-        if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"flash backward kernel: {name} must be a bfloat16 tensor on {q.device}")
-        check_flash_operand(name, t.shape, t.stride(), t.data_ptr(), (B, H, N, D))
+    dtype = check_flash_dtypes("flash backward kernel", operands)
     if out_f32 is not None:
         if out_f32.device != q.device or out_f32.dtype != torch.float32:
             raise ValueError(f"flash backward kernel: out_f32 must be a float32 tensor on {q.device}")
@@ -212,27 +264,31 @@ def _check_backward(operands, stats, out_f32=None) -> None:
         if t.device != q.device or t.dtype != torch.float32:
             raise ValueError(f"flash backward kernel: {name} must be a float32 tensor on {q.device}")
     check_flash_grad_operands(B, H, N, {name: (t.shape, t.is_contiguous()) for name, t in stats.items()})
+    return dtype
 
 
 def flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dq, di)`` by the dQ kernel from the forward's f32 output and ``lse``
+    """``(dq, di)`` by the dQ kernel of q's type from the forward's f32 output and ``lse``
     (``flash_lean_with_stats``): ``di = rowsum(O∘dO)`` in f32, ``(B, H, N)``, which the
-    dK/dV kernel reads; CUDA tensors only. ``launches`` counts its launches."""
+    dK/dV kernel reads; CUDA tensors only. ``launches`` counts the bf16 kernel's
+    launches, ``flash_lean_bwd_dq_f32.launches`` the f32 one's."""
     check_flash_scale(sm_scale)
-    _check_backward({"q": q, "k": k, "v": v, "dO": dout}, {"lse": lse}, out_f32)
+    _require_cuda("flash backward kernel", q)
+    f32 = _check_backward({"q": q, "k": k, "v": v, "dO": dout}, {"lse": lse}, out_f32) == torch.float32
     B, H, N, _ = q.shape
     dq = _grad_buffer(q)
     di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    entry = "tpuhar_flash_bwd_dq_f32" if f32 else "tpuhar_flash_bwd_dq"
     with torch.cuda.device(q.device):
-        status = _ext.library().tpuhar_flash_bwd_dq(
+        status = getattr(_ext.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out_f32.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, H, N, float(sm_scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out_f32.stride()[:3],
             *dout.stride()[:3], *dq.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _ext.check(status, "tpuhar_flash_bwd_dq")
-    flash_lean_bwd_dq.launches += 1
+    _ext.check(status, entry)
+    (flash_lean_bwd_dq_f32 if f32 else flash_lean_bwd_dq).launches += 1
     return dq, di
 
 
@@ -240,34 +296,58 @@ flash_lean_bwd_dq.launches = 0
 
 
 def flash_lean_bwd_dkv(q, k, v, dout, lse, di, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv)`` by the dK/dV kernel from the forward's ``lse`` and the dQ kernel's
-    ``di``; CUDA tensors only. ``launches`` counts its launches."""
+    """``(dk, dv)`` by the dK/dV kernel of q's type from the forward's ``lse`` and the dQ
+    kernel's ``di``; CUDA tensors only. ``launches`` counts the bf16 kernel's launches,
+    ``flash_lean_bwd_dkv_f32.launches`` the f32 one's."""
     check_flash_scale(sm_scale)
-    _check_backward({"q": q, "k": k, "v": v, "dO": dout}, {"lse": lse, "di": di})
+    _require_cuda("flash backward kernel", q)
+    f32 = _check_backward({"q": q, "k": k, "v": v, "dO": dout}, {"lse": lse, "di": di}) == torch.float32
     B, H, N, _ = q.shape
     dk, dv = _grad_buffer(q), _grad_buffer(q)
+    entry = "tpuhar_flash_bwd_dkv_f32" if f32 else "tpuhar_flash_bwd_dkv"
     with torch.cuda.device(q.device):
-        status = _ext.library().tpuhar_flash_bwd_dkv(
+        status = getattr(_ext.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, N, float(sm_scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
             *dk.stride()[:3], *dv.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _ext.check(status, "tpuhar_flash_bwd_dkv")
-    flash_lean_bwd_dkv.launches += 1
+    _ext.check(status, entry)
+    (flash_lean_bwd_dkv_f32 if f32 else flash_lean_bwd_dkv).launches += 1
     return dk, dv
 
 
 flash_lean_bwd_dkv.launches = 0
 
 
+def flash_lean_bwd_dq_f32(q, k, v, out_f32, dout, lse, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_lean_bwd_dq`` on f32 operands only. ``launches`` counts the launches of the
+    f32 dQ kernel (``csrc/flash_attn_bwd_f32.cu``), through ``flash_lean_bwd_dq`` too."""
+    _require_f32("flash_lean_bwd_dq_f32", q)
+    return flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, sm_scale)
+
+
+flash_lean_bwd_dq_f32.launches = 0
+
+
+def flash_lean_bwd_dkv_f32(q, k, v, dout, lse, di, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_lean_bwd_dkv`` on f32 operands only. ``launches`` counts the launches of
+    the f32 dK/dV kernel (``csrc/flash_attn_bwd_f32.cu``), through ``flash_lean_bwd_dkv``
+    too."""
+    _require_f32("flash_lean_bwd_dkv_f32", q)
+    return flash_lean_bwd_dkv(q, k, v, dout, lse, di, sm_scale)
+
+
+flash_lean_bwd_dkv_f32.launches = 0
+
+
 def flash_lean_backward(q, k, v, out_f32, dout, lse, sm_scale: float):
     """``(dq, dk, dv)`` of ``flash_lean`` for the output gradient ``dout``, from the
     forward's f32 output and log-sum-exp (``flash_lean_with_stats``). A CPU tensor takes
-    ``flash_lean_backward_reference``; on a CUDA device the dQ kernel runs first (and
-    leaves ``di = rowsum(O∘dO)``), then the dK/dV kernel; the gradients are views of
-    ``(B, N, H, 64)`` buffers."""
+    ``flash_lean_backward_reference``; on a CUDA device the dQ kernel of q's type runs
+    first (and leaves ``di = rowsum(O∘dO)``), then the dK/dV kernel; the gradients are
+    views of ``(B, N, H, 64)`` buffers of q's type."""
     if q.device.type == "cpu":
         return flash_lean_backward_reference(q, k, v, dout, sm_scale)
     dq, di = flash_lean_bwd_dq(q, k, v, out_f32, dout, lse, sm_scale)
@@ -276,8 +356,8 @@ def flash_lean_backward(q, k, v, out_f32, dout, lse, sm_scale: float):
 
 class FlashLean(torch.autograd.Function):
     """``flash_lean`` with a gradient: the forward keeps q, k, v, the f32 output and the
-    log-sum-exp; the backward is ``flash_lean_backward`` (the two kernels on a CUDA
-    device, autograd through the plain version on the CPU)."""
+    log-sum-exp; the backward is ``flash_lean_backward`` (the two kernels of q's type on a
+    CUDA device, autograd through the plain version on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float):
@@ -291,7 +371,8 @@ class FlashLean(torch.autograd.Function):
         q, k, v, out_f32, lse = ctx.saved_tensors
         if dout.is_cuda:
             try:
-                check_flash_operand("dO", dout.shape, dout.stride(), dout.data_ptr(), q.shape)
+                check_flash_operand("dO", dout.shape, dout.stride(), dout.data_ptr(), q.shape,
+                                    itemsize=FLASH_DTYPES.get(dout.dtype, 2))
             except ValueError:  # a broadcast or packed gradient: the kernels read 16-byte rows
                 dout = dout.contiguous()
         dq, dk, dv = flash_lean_backward(q, k, v, out_f32, dout, lse, ctx.sm_scale)

@@ -40,7 +40,7 @@ from .entry import featurize, fusion_program
 from .models.crossmodal import IMUClassifier
 from .ood import MahalanobisScorer, energy_score, fit_ood_thresholds, msp_score
 from .ops.conv3x3 import conv3x3_bn_act, conv3x3_bn_act_f32, conv3x3_i8
-from .ops.flash_lean import flash_lean
+from .ops.flash_lean import flash_lean, flash_lean_f32
 from .ops.fused_window import featurize_windows_auto
 from .ops.stem import center_u8, int8_gemm, stem_gemm_u8, to_patch_major
 from .parallel import scope
@@ -57,6 +57,7 @@ KERNEL_COUNTERS = {
     "conv3x3_i8": conv3x3_i8,
     "int8_gemm": int8_gemm,
     "flash_lean": flash_lean,
+    "flash_lean_f32": flash_lean_f32,
 }
 
 

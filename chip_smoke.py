@@ -198,8 +198,9 @@ Phases; any failed check raises and the exit code is non-zero:
     generator: each flash step's loss within 1e-5 of the float64 step's, relative, its
     gradient norm within 1e-4.
 
-Phases 3 and 12 hold the f32 forms of the flash kernels (full f32 FFMA) against their
-plain versions in float64, within 1e-5 of the largest element, at the bf16 forms' shapes.
+Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward and dQ in
+FFMA, dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of
+the largest element, at the bf16 forms' shapes and the dK/dV kernel's block edges.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -385,11 +386,15 @@ FLASH_BWD_SHAPES = (
 )
 FLASH_BWD_TIMED_SHAPE = (16, 12, 1568)
 SM_SCALE = 0.125  # 1/sqrt(64)
-# the flash kernels' f32 forms (full f32 FFMA), at the bf16 forms' shapes: the output, dq,
+# the flash kernels' f32 forms (full f32), at the bf16 forms' shapes: the output, dq,
 # dk and dv each against the plain version in float64 on the same f32 operands, |kernel -
 # plain| / max |plain|, and the log-sum-exp absolute: the same f32 function, its sums in
 # another order
 FLASH_F32_RTOL = 1e-5
+# and the f32 dK/dV kernel's edges beyond those: the halves of 32 query rows its dV and dK
+# products run in (31, 33), its second block of 128 key rows (255, 257), and a block of
+# two rows whose second consumer has none (at N = 1 dk is 0: one key)
+FLASH_F32_DKV_SHAPES = [(2, 3, n) for n in (2, 31, 33, 255, 257)]
 FLASH_F32_LSE_ATOL = 1e-5
 # pretraining: one epoch of four batches of 16 (and one validation batch), the depth
 # cut to one epoch from the configuration's ten
@@ -1023,7 +1028,7 @@ def check_flash_backward() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
     timed = None
-    for B, H, N in FLASH_BWD_SHAPES:
+    for B, H, N in FLASH_BWD_SHAPES + FLASH_F32_DKV_SHAPES:
         q, k, v, dout = (
             torch.randn((B, N, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
             for _ in range(4)
@@ -1161,14 +1166,14 @@ def check_flash_f32() -> dict:
 
 def check_flash_backward_f32() -> dict:
     """The f32 forward's log-sum-exp and the f32 dQ and dK/dV kernels against the plain
-    backward in float64 on f32 views of (B, N, H·64) buffers at the bf16 forms' shapes;
-    at the pretraining shape, both kernels bit for bit across two calls and the times
+    backward in float64 on f32 views of (B, N, H·64) buffers at the bf16 forms' shapes and
+    FLASH_F32_DKV_SHAPES; at the pretraining shape, both kernels bit for bit across two calls and the times
     (the plain backward's in f32, SDPA's f32 backward with TF32 off, the bounds), and the
     training forward's."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
     timed = None
-    for B, H, N in FLASH_BWD_SHAPES:
+    for B, H, N in FLASH_BWD_SHAPES + FLASH_F32_DKV_SHAPES:
         q, k, v, dout = f32_projections(gen, B, H, N, 4)
         out, lse, out_f32 = flash_lean_with_stats(q, k, v, SM_SCALE)
         if out_f32 is not out:

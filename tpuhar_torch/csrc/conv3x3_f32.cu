@@ -8,14 +8,13 @@
 // C_out) f32. Any C and C_out. An f32 tower runs it: f32 serving of the tpu_cnn flagship,
 // and the f32 program an int8 engine recalibrates its logits against.
 //
-// Arithmetic. Each f32 operand v is split into two TF32 values, hi = v rounded to TF32
-// (nearest, ties away from zero) and lo = v - hi rounded the same way, so that
-// |v - hi - lo| <= 2^-22 |v| (ops/conv3x3.split_tf32 is the same split in torch; a value
-// that would round to inf is cut instead, and inf and NaN keep their class). The kernel
+// Arithmetic (csrc/split_tf32.cuh, shared with the f32 flash dK/dV kernel). Each f32
+// operand v is split into two TF32 values, hi = v rounded to TF32 and lo = v - hi rounded
+// the same way (ops/conv3x3.split_tf32 is the same split in torch). The kernel
 // accumulates lo_a*hi_b + hi_a*lo_b + hi_a*hi_b in f32 on the tensor cores and drops
-// lo_a*lo_b (2^-22 of the product). A TF32 product has 11 x 11 significant bits, exact in
-// f32, so the sum carries the error of an f32 sum and not TF32's three decimal digits:
-// the tensor cores keep the f32 function at three times the operations.
+// lo_a*lo_b (2^-22 of the product), so the sum carries the error of an f32 sum and not
+// TF32's three decimal digits: the tensor cores keep the f32 function at three times the
+// operations.
 //
 // What bounds it: operations. At batch 256 (4096 frames) each 14x14x256 and 7x7x512 conv
 // is 2*M*K*N = 0.947 TFLOP of f32 products, 2.84 TFLOP of TF32 ones: 5.74 ms at the card's
@@ -61,8 +60,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split_tf32.cuh"
 
 using namespace hopper;
+using tf32x3::split_in_place;
 
 namespace {
 
@@ -75,30 +76,6 @@ constexpr int A_BYTES = BM * BK * 4;
 constexpr int B_BYTES = BN * BK * 4;  // each half
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + room to align to 1024
-
-// v rounded to TF32 at bit 13, to nearest with ties away from zero (an add on the
-// magnitude's bits); inf keeps its bits, a NaN stays a NaN in its top 19 bits, and a
-// finite value that would round to inf is cut instead
-__device__ __forceinline__ uint32_t tf32_round(uint32_t u) {
-  if ((u & 0x7F800000u) == 0x7F800000u) return (u & 0x007FFFFFu) ? ((u | 0x00400000u) & 0xFFFFE000u) : u;
-  const uint32_t r = (u + 0x1000u) & 0xFFFFE000u;
-  return (r & 0x7F800000u) == 0x7F800000u ? (u & 0xFFFFE000u) : r;
-}
-
-// v = hi + lo + (at most 2^-22 |v|); lo is 0 for inf and NaN
-__device__ __forceinline__ void split_tf32(uint32_t u, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_round(u);
-  lo = (u & 0x7F800000u) == 0x7F800000u
-           ? 0u
-           : tf32_round(__float_as_uint(__fsub_rn(__uint_as_float(u), __uint_as_float(hi))));
-}
-
-// the same split where |v| < 0x7F7FF000 (finite, and rounding stays finite): two adds
-// and two ands on the bits and one f32 subtraction
-__device__ __forceinline__ void split_tf32_finite(uint32_t u, uint32_t& hi, uint32_t& lo) {
-  hi = (u + 0x1000u) & 0xFFFFE000u;
-  lo = (__float_as_uint(__fsub_rn(__uint_as_float(u), __uint_as_float(hi))) + 0x1000u) & 0xFFFFE000u;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_bn_act_f32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
@@ -208,29 +185,14 @@ conv3x3_bn_act_f32_kernel(const float* __restrict__ x, const float* __restrict__
       const uint32_t b_hi = smem_base + s * STAGE_BYTES + A_BYTES;
       const uint32_t b_lo = b_hi + B_BYTES;
       uint32_t a_hi[BK / 8][4], a_lo[BK / 8][4];
-      uint32_t top = 0;  // the largest magnitude's bits among this thread's 16 values
 #pragma unroll
       for (int kk = 0; kk < BK / 8; ++kk)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < 4; ++e)
           a_hi[kk][e] = *reinterpret_cast<const uint32_t*>(
               a_rows + (r0 + 8 * (e & 1)) * 128 + (((2 * kk + (e >> 1)) ^ (r0 & 7)) << 4) +
               4 * (lane & 3));
-          top = max(top, a_hi[kk][e] & 0x7FFFFFFFu);
-        }
-      // the split is most of a consumer's instructions: the full recipe only for a thread
-      // that holds a value near f32's top, inf or NaN
-      if (top < 0x7F7FF000u) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32_finite(a_hi[kk][e], a_hi[kk][e], a_lo[kk][e]);
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(a_hi[kk][e], a_hi[kk][e], a_lo[kk][e]);
-      }
+      split_in_place(a_hi, a_lo);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 8; ++kk) {

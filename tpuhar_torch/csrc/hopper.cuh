@@ -449,6 +449,32 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs_tf32(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 8, registers, tf32) * B (8 x 64, shared, K-major, tf32);
+// the operands as in the N = 128 form above
+__device__ __forceinline__ void wgmma_m64n64k8_rs_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 8, registers, tf32) * B (8 x 32, shared, K-major, tf32);
+// the operands as in the N = 128 form above
 // ---- host: tensor maps ---------------------------------------------------------------
 // A tensor of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, _FLOAT32, or _UINT8 for any 8-bit
 // type: TMA copies bytes, and cuda.h has no signed 8-bit type) and `rank` dimensions

@@ -18,7 +18,8 @@ output in f32 (``flash_lean_with_stats``, the same kernel with more outputs), an
 backward runs the dQ and the dK/dV kernels, the ports of the stock TPU kernel's two
 backward kernels: ``csrc/flash_attn_bwd.cu`` for bf16 (``flash_lean_bwd_dq``,
 ``flash_lean_bwd_dkv``, each with its ``launches``), ``csrc/flash_attn_bwd_f32.cu`` for
-f32 (``flash_lean_bwd_dq_f32``, ``flash_lean_bwd_dkv_f32``); or autograd through the
+f32 (``flash_lean_bwd_dq_f32``, full f32 FFMA; ``flash_lean_bwd_dkv_f32``, full f32 on the
+tensor cores in split TF32, whatever the matmul precision); or autograd through the
 plain version on the CPU. The gradients come back in q's type.
 
 The TPU kernel's ``block_q``/``block_k`` are tiles of the TPU's memory and change no
@@ -227,11 +228,14 @@ def check_flash_grad_operands(B: int, H: int, N: int, stats) -> None:
     shapes and contiguity alone: ``stats`` maps a name (``lse``, ``di``) to ``(shape,
     contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The grids of both kernels
     of either type, ``⌈N/rows⌉ × H × B`` blocks (bf16: 128 query rows a block for dQ, 128
-    key rows for dK/dV; f32: 64 and 64), need ``H`` and ``B`` from 1 to 65535 (CUDA's
-    limit on a grid's second and third dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``,
-    the output and ``dO`` are held to ``check_flash_operand``: the bf16 kernels read q,
-    k, v and dO through tensor maps, the f32 ones in 16-byte pieces, and the dQ kernel
-    the f32 output in 8-byte (bf16) or 16-byte (f32) pieces."""
+    key rows for dK/dV; f32: 64 query rows for dQ, 128 key rows for dK/dV, which walks
+    the query rows in stages of 64), need ``H`` and ``B`` from 1 to 65535 (CUDA's limit on
+    a grid's second and third dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``, the output
+    and ``dO`` are held to ``check_flash_operand``: the dK/dV kernels of both types and the
+    bf16 dQ kernel read q, k, v and dO through tensor maps (rows of 128 bytes: 64 bf16 or
+    32 f32 head columns a box), the f32 dQ kernel in 16-byte pieces; the dK/dV kernels
+    read lse and di 4 bytes at a time, and the dQ kernels the f32 output in 8-byte (bf16)
+    or 16-byte (f32) pieces."""
     for name, (shape, contiguous) in stats.items():
         if tuple(shape) != (B, H, N):
             raise ValueError(f"flash backward kernel: {name} {tuple(shape)} != {(B, H, N)}")

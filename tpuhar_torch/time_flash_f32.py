@@ -6,7 +6,8 @@ backward kernels at the pretraining shape (16, 12, 1568, 64).
 
 Each ``name=DIR`` names a ``csrc`` directory: its ``flash_attn_f32.cu`` and
 ``flash_attn_bwd_f32.cu`` are compiled together (with ``-Xptxas -v``: each f32 kernel's
-registers, shared memory and spills are printed) into a library under ``_build/timing/``,
+registers, shared memory and spills are printed, and any C75xx note that ``ptxas``
+serialized a kernel's ``wgmma``) into a library under ``_build/timing/``,
 loaded with ``ctypes``, and their entry points are called on the same operands (views of
 ``(B, N, H·64)`` buffers, as the ViT hands them over). Each library's outputs are held
 against the plain version in float64 (max |kernel − plain| / max |plain|) and against a
@@ -50,6 +51,8 @@ def build(name: str, csrc: Path) -> ctypes.CDLL:
             kernel = next((k for k in ("bwd_dkv", "bwd_dq", "attn") if f"{k}_f32_kernel" in line), None)
         elif kernel and ("spill" in line or "registers" in line):
             print(f"[ptxas {name} {kernel}] {line.strip()}")
+        if "C75" in line:  # ptxas serialized the wgmma of a kernel
+            print(f"[ptxas {name}] {line.strip()}")
     lib = ctypes.CDLL(str(so))
     for entry in ENTRIES:
         getattr(lib, entry).argtypes = list(_ext.SIGNATURES[entry])

@@ -198,9 +198,9 @@ Phases; any failed check raises and the exit code is non-zero:
     generator: each flash step's loss within 1e-5 of the float64 step's, relative, its
     gradient norm within 1e-4.
 
-Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward and dQ in
-FFMA, dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of
-the largest element, at the bf16 forms' shapes and the dK/dV kernel's block edges.
+Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward in FFMA,
+dQ and dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of
+the largest element, at the bf16 forms' shapes and the f32 backward kernels' block edges.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -391,10 +391,13 @@ SM_SCALE = 0.125  # 1/sqrt(64)
 # plain| / max |plain|, and the log-sum-exp absolute: the same f32 function, its sums in
 # another order
 FLASH_F32_RTOL = 1e-5
-# and the f32 dK/dV kernel's edges beyond those: the halves of 32 query rows its dV and dK
-# products run in (31, 33), its second block of 128 key rows (255, 257), and a block of
-# two rows whose second consumer has none (at N = 1 dk is 0: one key)
-FLASH_F32_DKV_SHAPES = [(2, 3, n) for n in (2, 31, 33, 255, 257)]
+# and the f32 backward kernels' edges beyond those (both hold 128 rows a block, 64 a
+# consumer, and walk the other side's rows in stages of 64, each product over a stage's
+# rows in two halves of 32): the halves (31, 33), the second block (255, 257), a block of
+# two rows whose second consumer has none (2; at N = 1 dq and dk are 0: one key); and the
+# dQ kernel's ring of two key-row parts, whose second part is first used by a stage of
+# one key row while the second consumer holds one query row (65)
+FLASH_F32_DKV_SHAPES = [(2, 3, n) for n in (2, 31, 33, 65, 255, 257)]
 FLASH_F32_LSE_ATOL = 1e-5
 # pretraining: one epoch of four batches of 16 (and one validation batch), the depth
 # cut to one epoch from the configuration's ten

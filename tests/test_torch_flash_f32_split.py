@@ -1,16 +1,19 @@
-"""The f32 flash dK/dV kernel's split-TF32 arithmetic on the CPU, in the style of
-``tests/test_torch_conv3x3_f32.py``: the kernel's products emulated in float64 with
+"""The f32 flash backward kernels' split-TF32 arithmetic on the CPU, in the style of
+``tests/test_torch_conv3x3_f32.py``: each kernel's products emulated in float64 with
 ``split_tf32`` against the plain backward in float64.
 
-The kernel (``tpuhar_torch/csrc/flash_attn_bwd_f32.cu``) computes S^T = K Q^T and
-dP^T = V dO^T as three TF32 products each (``lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``), then
-P = exp(S·scale − lse) and dS = P (dP − di)·scale, and adds, for each stage of 64 query
-rows, the three products of dV += P^T dO and dK += dS^T Q into a fresh accumulator. Its
-hi is ``split_tf32``'s; its lo is v − hi unrounded, which the tensor cores read as TF32
-(the top 19 bits). The A of the last products comes straight from the S^T and dP^T
-accumulators' registers, so its k-th column is query row ``8 j + sigma(k)`` of each group
-of eight; the kernel stores the B tiles' query rows in that order. Query rows past N
-arrive as zeros with lse = +inf, so P = 0 there. The kernel itself runs only on the card
+Both kernels (``tpuhar_torch/csrc/flash_attn_bwd_f32.cu``) compute S and dP as three TF32
+products each (``lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``), then P = exp(S·scale − lse) and
+dS = P (dP − di)·scale, and add, for each stage of 64 rows, the three products over the
+stage's rows into a fresh accumulator: the dK/dV kernel S^T = K Q^T and dP^T = V dO^T,
+then dV += P^T dO and dK += dS^T Q over stages of 64 query rows; the dQ kernel S = Q K^T
+and dP = dO V^T, then dQ += dS K over stages of 64 key rows. Their hi is
+``split_tf32``'s; their lo is v − hi unrounded, which the tensor cores read as TF32 (the
+top 19 bits). The A of the last products comes straight from the S and dP accumulators'
+registers, so its k-th column is stage row ``8 j + sigma(k)`` of each group of eight; the
+kernels store the B tiles' stage rows in that order. Stage rows past N arrive as zeros,
+and P is 0 there: the dK/dV kernel gives those query rows lse = +inf, the dQ kernel
+masks the key columns. The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 import pytest
@@ -23,7 +26,7 @@ from tpuhar_torch.ops.flash_lean import flash_lean_backward_reference, flash_lea
 torch.set_num_threads(2)
 
 SIGMA = (0, 2, 4, 6, 1, 3, 5, 7)  # A's column k of a k-step is the accumulator's column SIGMA[k]
-STAGE = 64  # query rows of one stage: the K of the dV and dK products of one fresh accumulator
+STAGE = 64  # rows of one stage: the K of the products of one fresh accumulator (dV, dK; dQ)
 SM_SCALE = 0.125
 
 
@@ -48,8 +51,8 @@ def _split_product(a: torch.Tensor, b: torch.Tensor, *, single: bool = False) ->
 
 
 def _query_order(n: int) -> torch.Tensor:
-    """The order of the query rows in the kernel's [d][query] tiles: position ``8 j + k``
-    holds query row ``8 j + sigma(k)``."""
+    """The order of the stage rows in the kernels' [d][row] tiles (dK/dV: query rows, dQ:
+    key rows): position ``8 j + k`` holds row ``8 j + sigma(k)``."""
     return torch.tensor([8 * (p // 8) + SIGMA[p % 8] for p in range(n)])
 
 
@@ -96,6 +99,27 @@ def _emulated_dkv(q, k, v, dout, lse, di, *, single: bool = False):
     return dk, dv, p
 
 
+def _emulated_dq(q, k, v, dout, lse, di, *, single: bool = False):
+    """dq of the dQ kernel on f32 operands, each product and sum in float64: lse and di
+    as the kernel reads them (f32), key rows padded to whole stages with zeros and P = 0
+    in the key columns past N, each stage's dS K products into a fresh sum, A's columns
+    and K's [d][key] rows in the tiles' key order. Also returns P."""
+    N = k.shape[2]
+    n_pad = -(-N // STAGE) * STAGE
+    k, v = (F.pad(t, (0, 0, 0, n_pad - N)) for t in (k, v))
+    s = _split_product(q, k.mT, single=single)  # (B, H, N queries, n_pad keys)
+    dp = _split_product(dout, v.mT, single=single)
+    p = torch.exp(s * SM_SCALE - lse.float().double()[..., None])
+    p[..., N:] = 0.0  # the kernel's mask: exp(-lse) may overflow in f32 there
+    ds = p * (dp - di.float().double()[..., None]) * SM_SCALE
+    order = _query_order(n_pad)
+    dq = 0.0
+    for s0 in range(0, n_pad, STAGE):
+        keys = order[s0:s0 + STAGE]  # a fresh accumulator a stage, added in f32 registers
+        dq = dq + _split_product(ds[..., keys], k[..., keys, :], single=single)
+    return dq, p
+
+
 def _case(B, H, N, seed):
     gen = torch.Generator().manual_seed(seed)
     q, k, v, dout = (torch.randn((B, H, N, 64), generator=gen) for _ in range(4))
@@ -122,6 +146,20 @@ def test_split_dkv_matches_the_float64_backward(B, H, N):
     assert not p[..., N:].any()  # rows past N: exp(0 − inf)
     dk1, dv1, _ = _emulated_dkv(q, k, v, dout, lse, di, single=True)
     assert _rel(dk1, want_dk) > 1e-5 and _rel(dv1, want_dv) > 1e-5
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1568), (2, 1, 200)])
+def test_split_dq_matches_the_float64_backward(B, H, N):
+    """The dQ kernel's arithmetic within 1e-6 of dq's largest element against the plain
+    backward in float64 (what is left as for dK/dV above); key columns past N get P = 0
+    and add nothing; a single TF32 pass (hi·hi) misses by more than 1e-5."""
+    q, k, v, dout, lse, di = _case(B, H, N, seed=N + 1)
+    want_dq = flash_lean_backward_reference(q.double(), k.double(), v.double(), dout.double(), SM_SCALE)[0]
+    dq, p = _emulated_dq(q, k, v, dout, lse, di)
+    assert _rel(dq, want_dq) <= 1e-6
+    assert not p[..., N:].any()  # key columns past N: masked
+    dq1, _ = _emulated_dq(q, k, v, dout, lse, di, single=True)
+    assert _rel(dq1, want_dq) > 1e-5
 
 
 def test_accumulator_columns_make_the_permuted_a_operand():

@@ -698,15 +698,18 @@ def test_flash_lean_f32_matches_float64(cuda, B, H, N, strided):
 
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
-# the bf16 backward's shapes (FLASH_BWD_SHAPES below): the f32 dQ kernel's 64-row blocks
-# and tiles end at N = 64, 127, 128, 129 as the bf16 ones' do, and so do the f32 dK/dV
-# kernel's stages of 64 query rows and first block of 128 key rows; its products' halves of
-# 32 query rows end at 31, 33, its second block at 255, 257, and at N = 2 a block of two
-# rows has a second consumer with none (at N = 1 dk is 0: one key)
+# the bf16 backward's shapes (FLASH_BWD_SHAPES below): both f32 kernels hold 128 rows a
+# block and walk the other side's rows in stages of 64 (dQ: 128 query rows, stages of key
+# rows; dK/dV: 128 key rows, stages of query rows), which end at N = 64, 127, 128, 129 as
+# the bf16 kernels' blocks and tiles do; their products' halves of 32 stage rows end at
+# 31, 33, their second block at 255, 257; at N = 2 a block of two rows has a second
+# consumer with none (at N = 1 dq and dk are 0: one key); at 65 the dQ kernel's second
+# key-row part is first used by a stage of one key row, while its second consumer holds
+# one query row
 @pytest.mark.parametrize("B,H,N", [
     (16, 12, 1568), (8, 12, 1568), (1, 12, 1568), (2, 3, 1568), (2, 3, 32), (2, 3, 100), (2, 3, 224), (2, 3, 384),
     (2, 3, 64), (2, 3, 127), (2, 3, 128), (2, 3, 129), (2, 3, 200),
-    (2, 3, 2), (2, 3, 31), (2, 3, 33), (2, 3, 255), (2, 3, 257),
+    (2, 3, 2), (2, 3, 31), (2, 3, 33), (2, 3, 255), (2, 3, 257), (2, 3, 65),
 ])
 def test_flash_backward_f32_matches_float64(cuda, B, H, N, strided):
     """The f32 forward's log-sum-exp and the f32 dQ and dK/dV kernels against the plain

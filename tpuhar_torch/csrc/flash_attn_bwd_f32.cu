@@ -26,70 +26,87 @@
 // No block writes what another writes, so the results need no atomics and are the same
 // from call to call.
 //
-// dQ (FFMA, csrc/flash_f32.cuh): a block of 128 threads owns 64 query rows (16 a warp) and
-// walks the 64-row tiles of K and V; every product is 64 k-steps of the register-tiled
-// FFMA product (a thread holds a 4 x 8 tile of each result). It holds Q and dO
-// (transposed) and streams K (both ways) and V (transposed): S = Q K^T and dP = dO V^T in
-// one loop over d, then dS goes transposed into the warp's query rows of a shared tile
-// (only __syncwarp between its store and its reads) and dQ += dS K. Before the loop it
-// forms di for its 64 rows, two threads a row over the f32 O and dO, writes it, and keeps
-// each thread's four rows of lse (times log2 e) and di in registers. Key columns past N
-// get P = 0 (exp(-lse) can overflow where every score of a row is very negative, and
-// inf x 0 is NaN); query rows past N compute on zeros and are not stored. 96 KB of shared
-// memory: two blocks an SM.
+// Both kernels run every product on the tensor cores in split TF32 (csrc/split_tf32.cuh)
+// and share one block shape, that of the bf16 kernels: a block holds 128 rows of one
+// (batch, head), 64 for each of two consumer warpgroups, and a producer warpgroup walks
+// the other side's rows in stages of 64. Launched with 168 registers a thread, which
+// setmaxnreg moves to where they are needed (72 + 216 + 216).
+//  - The producer brings the block's held rows once by TMA (raw f32, 64 KB, in 128-byte
+//    swizzled rows of 32 head columns) and then, each stage: lane 0 brings the stage's raw
+//    rows of two operands by TMA (4-D tensor maps over the strided views,
+//    csrc/flash_maps.cuh; rows past N arrive as zeros); its 128 threads split them into
+//    TF32 hi and lo halves as [row][d] tiles, the K-major B of the products that sum over
+//    d, and then transpose those that a product summing over the stage's rows reads into
+//    [d][row] tiles (TF32 wgmma reads both operands K-major). A stage's two layouts are
+//    two parts with their own full and empty mbarriers, so the producer writes one while
+//    the consumers read the other. A thread owns two 4 x 4 blocks of each operand (stage
+//    rows 8 j + par + 2 i, head columns 4 c .. 4 c + 3) in every layout, so it reads back
+//    only what it wrote, its loads and stores are 16 bytes, and no eight lanes of one
+//    share a bank.
+//  - A consumer's products over d take A from its held raw rows in shared memory, loaded
+//    into registers and split there (whether a thread's values need split_raw_lo's full
+//    recipe is known once a block), three m64n64k8 products a k-step, small terms first
+//    (lo_a hi_b, hi_a lo_b, hi_a hi_b; lo_a lo_b is dropped). Every split here leaves lo
+//    unrounded (split_raw_lo: the tensor cores read its top 19 bits, within 2^-21 of the
+//    value against 2^-22 rounded). The products over the stage's rows take A straight from
+//    the accumulators of those over d: an accumulator's 8-column group j holds, in a
+//    thread's d[4j .. 4j+3], columns 2t and 2t + 1 (t = lane % 4) of two rows; the
+//    register A operand of a k-step holds columns t and t + 4. So a = {d[4j], d[4j+2],
+//    d[4j+1], d[4j+3]} is the A of the k-step whose k-th column is stage row
+//    8 j + sigma(k), sigma = (0, 2, 4, 6, 1, 3, 5, 7), and the [d][row] tiles hold the
+//    stage's rows in that order: P and dS never go through shared memory. Each product
+//    runs in two halves of its k-steps, each half's A in its own registers, so one half is
+//    split while the other's products run; a register is written again only after the
+//    products that read it have been waited for (ptxas serializes every wgmma
+//    otherwise). Each stage's products over its rows land in a fresh accumulator that is
+//    added to the running sum in f32 registers, so the tensor cores' own accumulation
+//    spans 64 rows and not N. A consumer whose 64 rows all lie past N hands every stage
+//    straight back; held rows past N compute on zeros and are not stored, each quad of
+//    threads storing 32 bytes of a row.
 //
-// dK/dV (split-TF32 wgmma, csrc/split_tf32.cuh; the block shape of the bf16 dK/dV
-// kernel): a block owns 128 key rows and runs three warpgroups, launched with 168
-// registers a thread that setmaxnreg moves to where they are needed (72 + 216 + 216).
-//  - The producer warpgroup brings the block's K and V rows once by TMA (raw f32, 64 KB,
-//    in 128-byte swizzled rows of 32 head columns) and then walks the query rows in
-//    stages of 64: lane 0 brings a stage's raw Q and dO rows by TMA into a landing buffer
-//    (4-D tensor maps over the strided views, csrc/flash_maps.cuh; rows past N arrive as
-//    zeros); its 128 threads split them into TF32 hi and lo halves as [query][d] tiles,
-//    the K-major B of S^T and dP^T, and then transpose those into [d][query] tiles, the
-//    K-major B of dV and dK (TF32 wgmma reads both operands K-major). There is room for
-//    one stage (64 KB a layout), so its two layouts are two parts with their own full and
-//    empty mbarriers: the producer writes the next stage's [query][d] part while the
-//    consumers run dV and dK on the [d][query] part, and the next [d][query] part while
-//    they run S^T and dP^T; the next landing goes out as soon as the [query][d] part is
-//    written. A thread owns two 4 x 4 blocks of each operand (query rows 8 j + par + 2 i,
-//    head columns 4 c .. 4 c + 3) in every layout, so it reads back only what it wrote,
-//    its loads and stores are 16 bytes, and no eight lanes of one share a bank. The
-//    stage's lse (times log2 e; +inf past N) goes beside the [query][d] part, its di (0
-//    past N) beside the other.
-//  - Two consumer warpgroups own 64 key rows each. A stage: S^T = K Q^T and dP^T = V dO^T
-//    (the sum over d), A from the raw K or V rows in shared memory, loaded into registers
-//    and split there, three m64n64k8 products a k-step, small terms first (lo_a hi_b,
-//    hi_a lo_b, hi_a hi_b; lo_a lo_b is dropped). Every split here leaves lo unrounded
-//    (split_raw_lo: the tensor cores read its top 19 bits, within 2^-21 of the value
-//    against 2^-22 rounded). P = 2^(S scale log2 e - lse log2 e) while dP^T is
-//    multiplied, so query rows past N get P = 0 (their lse is +inf); then the [query][d]
-//    part goes back; dS = P (dP - di) scale; then dV += P^T dO and dK += dS^T Q (the sum
-//    over the stage's 64 query rows) with A straight from the S^T and dP^T accumulators,
-//    split in registers. An accumulator's 8-column group j holds, in a thread's
-//    d[4j .. 4j+3], columns 2t and 2t + 1 (t = lane % 4) of two rows; the register A
-//    operand of a k-step holds columns t and t + 4. So a = {d[4j], d[4j+2], d[4j+1],
-//    d[4j+3]} is the A of the k-step whose k-th column is query row 8 j + sigma(k),
-//    sigma = (0, 2, 4, 6, 1, 3, 5, 7), and the [d][query] tiles hold the query rows in
-//    that order: P and dS never go through shared memory. Each product runs in two
-//    halves of its k-steps, each half's A in its own registers, so one half is split
-//    while the other's products run; a register is written again only after the products
-//    that read it have been waited for (ptxas serializes every wgmma otherwise). Each
-//    stage's dV and dK products land in a fresh accumulator that is added to the running
-//    sum in f32 registers, so the tensor cores' own accumulation spans 64 query rows and
-//    not N. A consumer whose 64 key rows all lie past N hands every stage straight back;
-//    key rows past N compute on zeros and are not stored. dk and dv leave as f32, each
-//    quad of threads storing 32 bytes of a row.
-//  225 KB of shared memory: one block an SM.
-//  Measured on an H100 (80GB HBM3, 700 W) at (16, 12, 1568, 64) by time_flash_f32, each
-//  change against the form before it in turns: stages of 64 query rows against 32 in a two-stage ring (N = 32 for S^T and dP^T,
-//  K and V split again every 32 rows): 3.19-3.27 against 3.53-3.81 ms; lo unrounded
-//  3.00-3.05 against 3.23-3.30; the [d][query] tiles transposed from the split [query][d]
-//  ones rather than split again 2.90-2.93 against 2.96-3.01; K and V's finiteness
-//  checked once 2.82-2.83 against 2.88-2.93; the halves 2.79-2.81 against 2.82-2.86. The
-//  register split (56/224, 88/208), exp2 by ex2.approx and a skew between the consumers
-//  moved it by 1% or less. Left out, for its time alone: the producer's split and
-//  transpose (-17%), the consumers' K and V loads and splits (-15%).
+// dQ (a block holds 128 query rows, Q and dO; a stage is 64 key rows, K and V): before the
+// loop each consumer thread forms di for its two query rows, a quarter of each row a lane
+// over the f32 O (global) and dO (shared), writes it, and keeps it beside its rows'
+// lse * log2 e; then it rewrites its own A fragments of Q and dO fragment-major, so that
+// a half's A is four 16-byte loads. A stage: S = Q K^T and dP = dO V^T against the
+// [key][d] tiles of K and V; P = 2^(S scale log2 e - lse log2 e) while dP is multiplied,
+// with P = 0 in the key columns past N (exp(-lse) can overflow where every score of a row
+// is very negative, and inf x 0 is NaN); the [key][d] part goes back; dS = P (dP - di)
+// scale; dQ += dS K against K's [d][key] tiles. The [key][d] parts are a ring of two (64
+// KB each): TMA lands a stage's raw K and V rows in a part's lo tiles and the producer
+// splits them in place, so it splits stage t + 1 while the consumers still run S and dP
+// of stage t. Only K needs the [d][key] layout (32 KB). With Q and dO, 225 KB: one block
+// an SM.
+//
+// dK/dV (a block holds 128 key rows, K and V; a stage is 64 query rows, Q and dO): S^T =
+// K Q^T and dP^T = V dO^T against the [query][d] tiles; P = 2^(S scale log2 e - lse
+// log2 e) in place of S^T while dP^T is multiplied (query rows past N have lse = +inf, so
+// P = 0); the [query][d] part goes back; dS = P (dP - di) scale; dV += P^T dO and dK +=
+// dS^T Q against the [d][query] tiles. One stage of both layouts (128 KB) and a 32 KB
+// landing buffer for the next stage's raw rows: the producer writes the next [query][d]
+// part while the consumers run dV and dK, and the next [d][query] part while they run S^T
+// and dP^T. The stage's lse (times log2 e; +inf past N) goes beside the [query][d] part,
+// its di (0 past N) beside the other. 225 KB: one block an SM.
+//
+// Measured on an H100 (80GB HBM3, 700 W) at (16, 12, 1568, 64) by time_flash_f32, each
+// change against the form before it in turns. dK/dV: stages of 64 query rows against 32
+// in a two-stage ring (N = 32 for S^T and dP^T, K and V split again every 32 rows):
+// 3.19-3.27 against 3.53-3.81 ms; lo unrounded 3.00-3.05 against 3.23-3.30; the
+// [d][query] tiles transposed from the split [query][d] ones rather than split again
+// 2.90-2.93 against 2.96-3.01; K and V's finiteness checked once 2.82-2.83 against
+// 2.88-2.93; the halves 2.79-2.81 against 2.82-2.86. The register split (56/224, 88/208),
+// exp2 by ex2.approx and a skew between the consumers moved it by 1% or less. Left out,
+// for its time alone: the producer's split and transpose (-17%), the consumers' K and V
+// loads and splits (-15%). dQ, against the FFMA form's 6.43-6.70 ms: one [key][d] part
+// and a landing buffer (dK/dV's shape) 2.54-2.60; the ring of two parts 2.18-2.21 against
+// 2.54-2.57 (without it the producer's split and transpose held 28% of the kernel, 8%
+// with it); the fragment-major A 2.13-2.14 against 2.18-2.20; final 2.14-2.15 against
+// 6.53-6.70. Slower, each in turns against the form it changed: Q and dO split once into
+// hi and lo tiles, S and dP read A through descriptors (m64n32k8, stages of 32 key rows
+// to fit) 2.54-2.56 against 2.18-2.20 (168 against 88 KB of shared-memory reads a
+// consumer every 32 key rows); the next stage's Q prefetched while dQ runs (it spills)
+// 2.67-2.71 against 2.54-2.58; 40/232 registers 2.29-2.31, 56/224 2.20-2.23 against
+// 2.19-2.20; two [d][key] parts without the ring, level.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,131 +123,43 @@ using tf32x3::split_raw_lo_finite;
 
 namespace {
 
-constexpr int PS = T + 4;  // row stride of dQ's dS tile, padded as the forward's P tile
-constexpr int DQ_SMEM = (5 * TILE + T * PS + T) * 4;
+// ---- what both kernels share -------------------------------------------------------
+constexpr int HELD = 128;                  // rows a block holds: 64 a consumer warpgroup
+constexpr int BS = 64;                     // rows of one stage
+constexpr int BWD_THREADS = 384;           // two consumer warpgroups, then the producer
+constexpr int HELD_BYTES = HELD * D * 4;   // the block's rows of one operand, raw: two 16 KB halves
+constexpr int HELD_HALF = HELD_BYTES / 2;  // head columns 0-31, then 32-63
+constexpr int TILE_BYTES = BS * D * 4;     // a stage's tile of one operand, hi or lo: two 8 KB halves
+constexpr int TILE_HALF = TILE_BYTES / 2;  // [row][d]: head columns 0-31, then 32-63;
+                                           // [d][row]: stage rows 0-31, then 32-63
+constexpr int LAND_BYTES = 2 * TILE_BYTES;  // the stage's raw rows of two operands, as TMA lands them
+constexpr int PART_BYTES = 4 * TILE_BYTES;  // a part of a stage: two operands' tiles, hi and lo (64 KB)
 
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_dq_f32_kernel(View q, View k, View v, View o, View dout, const float* __restrict__ lse,
-                        float* __restrict__ di, OutView dq, int H, int N, float sm_scale, float scale_log2) {
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [d][query row]
-  float* dot = qt + TILE;                        // [d][query row]
-  float* kt = dot + TILE;                        // [d][key row]
-  float* vt = kt + TILE;                         // [d][key row]
-  float* ks = vt + TILE;                         // [key row][d], swizzled
-  float* dst = ks + TILE;                        // [key row][query row], row stride PS
-  float* di_s = dst + T * PS;                    // the block's rows of di
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * T;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane & 7;
-  const int r0 = 16 * warp + 4 * (lane >> 3);
-
-  load_tile<T, true, false>(q, b, h, q0, N, qt, nullptr);
-  load_tile<T, true, false>(dout, b, h, q0, N, dot, nullptr);
-  {  // di = rowsum(O o dO): two neighbouring threads a row, 32 columns each
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = q0 + r;
-    float sum = 0.f;
-    if (row < N) {
-      const float4* po = reinterpret_cast<const float4*>(row_of(o, b, h, row) + 32 * half);
-      const float4* pd = reinterpret_cast<const float4*>(row_of(dout, b, h, row) + 32 * half);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 x = po[i], y = pd[i];
-        sum = fmaf(x.x, y.x, sum);
-        sum = fmaf(x.y, y.y, sum);
-        sum = fmaf(x.z, y.z, sum);
-        sum = fmaf(x.w, y.w, sum);
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
-      di_s[r] = sum;
-      if (row < N) di[bh * N + row] = sum;
-    }
-  }
-  __syncthreads();
-  float lse2[4], di_r[4];  // the thread's rows: lse * log2 e, and di (0 past N)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r0 + i;
-    lse2[i] = row < N ? lse[bh * N + row] * LOG2E : 0.f;
-    di_r[i] = di_s[r0 + i];
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int tiles = (N + T - 1) / T;
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * T;
-    __syncthreads();  // the last step's K, V and dS are read
-    load_tile<T, true, true>(k, b, h, k0, N, kt, ks);
-    load_tile<T, true, false>(v, b, h, k0, N, vt, nullptr);
-    __syncthreads();
-    float s[4][8], dp[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      outer<4>(s, {ld4(qt + d * T + r0)}, ld4(kt + d * T + 4 * g), ld4(kt + d * T + 32 + 4 * g));
-      outer<4>(dp, {ld4(dot + d * T + r0)}, ld4(vt + d * T + 4 * g), ld4(vt + d * T + 32 + 4 * g));
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool valid = k0 + col_of(g, j) < N;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = valid ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.f;
-        s[i][j] = p * (dp[i][j] - di_r[i]) * sm_scale;  // dS
-      }
-    }
-    store_tr<4, PS>(dst, s, r0, g);
-    __syncwarp();  // the warp reads only its own query rows of dS
-    product_rows<4, PS>(acc, dst, ks, r0, g);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<4>(dq, b, h, q0, N, acc, one, r0, g);
-}
-
-// ---- dK/dV: split-TF32 wgmma, Q and dO split by a producer warpgroup ---------------------
-constexpr int KV_ROWS = 128;               // key rows a block owns: 64 a consumer warpgroup
-constexpr int BQ = 64;                     // query rows of one stage
-constexpr int DKV_THREADS = 384;           // two consumer warpgroups, then the producer
-constexpr int KV_BYTES = KV_ROWS * D * 4;  // the block's K or V rows, raw: two 16 KB halves
-constexpr int KV_HALF = KV_BYTES / 2;      // head columns 0-31, then 32-63
-constexpr int TILE_BYTES = BQ * D * 4;     // a stage's Q or dO tile, hi or lo: two 8 KB halves
-constexpr int TILE_HALF = TILE_BYTES / 2;  // [query][d]: head columns 0-31, then 32-63;
-                                           // [d][query]: query rows 0-31, then 32-63
-// the stage's two parts, each Q hi, Q lo, dO hi, dO lo: [query][d], the B of S^T and dP^T,
-// then [d][query], the B of dV and dK
-constexpr int Q_HI = 0, Q_LO = TILE_BYTES, DO_HI = 2 * TILE_BYTES, DO_LO = 3 * TILE_BYTES;
-constexpr int PART_BYTES = 4 * TILE_BYTES;  // 64 KB
-constexpr int LAND_BYTES = 2 * TILE_BYTES;  // the stage's raw Q, then dO rows, as TMA lands them
-// K, V, the two parts, the landing buffer, and room to align to 1024 bytes
-constexpr int DKV_SMEM = 2 * KV_BYTES + 2 * PART_BYTES + LAND_BYTES + 1024;
-
-// Producer thread (j, par, c)'s 4 x 4 blocks of one operand's stage: query rows
+// Producer thread (j, par, c)'s 4 x 4 blocks of one operand's stage: stage rows
 // 8 (j + 4 g) + 2 i + par (i = 0..3) of block g = 0, 1 at head columns 4 c .. 4 c + 3.
 // Eight lanes of a load or store are (j, par) = all eight pairs at one parity of c and
 // four values of c % 8, so their 16-byte chunks fall on eight different bank groups in
 // every layout.
-// rows_at: the offset of query row q's chunk of head columns 4 c .. 4 c + 3 in a
-// [query][d] tile (two halves of BQ rows x 128 bytes, swizzled), as TMA lands raw rows
-__device__ __forceinline__ int rows_at(int q, int c) { return (c >> 3) * TILE_HALF + q * 128 + (((c & 7) ^ (q & 7)) << 4); }
+struct Blocks {
+  int j, par, c;
+  __device__ __forceinline__ explicit Blocks(int p)
+      : j((p >> 1) & 3), par(p & 1), c(2 * ((((p >> 1) & 3) + (p >> 4)) & 3) + ((p >> 3) & 1) + 8 * (p >> 6)) {}
+};
 
-// the raw rows of blocks 0 and 1 at `land` into TF32 halves at `tile` ([query][d]; hi,
-// then lo TILE_BYTES on), a row at a time
-__device__ __forceinline__ void split_rows(const uint8_t* land, uint8_t* tile, int j, int par, int c) {
+// rows_at: the offset of stage row r's chunk of head columns 4 c .. 4 c + 3 in a
+// [row][d] tile (two halves of BS rows x 128 bytes, swizzled), as TMA lands raw rows
+__device__ __forceinline__ int rows_at(int r, int c) { return (c >> 3) * TILE_HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4); }
+
+// the raw rows of blocks 0 and 1 at `raw` into TF32 halves at `tile` ([row][d]; hi, then
+// lo TILE_BYTES on), a row at a time; `raw` may be the lo tile itself, since each chunk is
+// read before it is written
+__device__ __forceinline__ void split_rows(const uint8_t* raw, uint8_t* tile, Blocks m) {
 #pragma unroll
   for (int g = 0; g < 2; ++g)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int at = rows_at(8 * (j + 4 * g) + 2 * i + par, c);
-      const uint4 x = *reinterpret_cast<const uint4*>(land + at);
+      const int at = rows_at(8 * (m.j + 4 * g) + 2 * i + m.par, m.c);
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + at);
       uint32_t v[1][4] = {{x.x, x.y, x.z, x.w}}, lo[1][4];
       split_raw_lo(v, lo);
       *reinterpret_cast<uint4*>(tile + at) = make_uint4(v[0][0], v[0][1], v[0][2], v[0][3]);
@@ -238,12 +167,12 @@ __device__ __forceinline__ void split_rows(const uint8_t* land, uint8_t* tile, i
     }
 }
 
-// the same blocks of the split [query][d] tiles at `rows` (hi, lo) transposed into
-// `tile` as [d][query] (64 swizzled rows of 128 bytes a half; hi, then lo TILE_BYTES on),
-// where position 8 j + 4 par + i of a half's row holds query row 8 j + 2 i + par (sigma:
-// the order in which an accumulator's columns make the register A operand's k), so the
+// the same blocks of the split [row][d] tiles at `rows` (hi, lo) transposed into `tile`
+// as [d][row] (64 swizzled rows of 128 bytes a half; hi, then lo TILE_BYTES on), where
+// position 8 j + 4 par + i of a half's row holds stage row 8 j + 2 i + par (sigma: the
+// order in which an accumulator's columns make the register A operand's k), so the
 // thread's 4 rows at one head column are one 16-byte chunk
-__device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* tile, int j, int par, int c) {
+__device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* tile, Blocks m) {
 #pragma unroll
   for (int g = 0; g < 2; ++g)
 #pragma unroll
@@ -252,7 +181,7 @@ __device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* til
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const uint4 x =
-            *reinterpret_cast<const uint4*>(rows + half * TILE_BYTES + rows_at(8 * (j + 4 * g) + 2 * i + par, c));
+            *reinterpret_cast<const uint4*>(rows + half * TILE_BYTES + rows_at(8 * (m.j + 4 * g) + 2 * i + m.par, m.c));
         v[i][0] = x.x;
         v[i][1] = x.y;
         v[i][2] = x.z;
@@ -260,29 +189,62 @@ __device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* til
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int n = 4 * c + e;
-        const int at = half * TILE_BYTES + g * TILE_HALF + n * 128 + (((2 * j + par) ^ (n & 7)) << 4);
+        const int n = 4 * m.c + e;
+        const int at = half * TILE_BYTES + g * TILE_HALF + n * 128 + (((2 * m.j + m.par) ^ (n & 7)) << 4);
         *reinterpret_cast<uint4*>(tile + at) = make_uint4(v[0][e], v[1][e], v[2][e], v[3][e]);
       }
     }
 }
 
 // the register A operand of the 4 k-steps (8 head columns each) of head-column half
-// `half` from this thread's rows r0 and r0 + 8 of 64 raw K or V rows at `rows` (head
-// columns 0-31; 32-63 KV_HALF on): one 4-byte load an element, conflict-free under the
-// swizzle
+// `half` from this thread's rows r0 and r0 + 8 of a consumer's 64 held raw rows at `rows`
+// (head columns 0-31; 32-63 HELD_HALF on): one 4-byte load an element, conflict-free
+// under the swizzle
 __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const uint8_t* rows, int half, int r0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      a[kk][e] = *reinterpret_cast<const uint32_t*>(rows + half * KV_HALF + (r0 + 8 * (e & 1)) * 128 +
+      a[kk][e] = *reinterpret_cast<const uint32_t*>(rows + half * HELD_HALF + (r0 + 8 * (e & 1)) * 128 +
                                                     (((2 * kk + (e >> 1)) ^ (r0 & 7)) << 4) + 4 * (lane & 3));
+}
+
+// The dQ kernel's held rows, fragment-major: consumer thread i's 16 values of head-column
+// half `half` (what load_a gives it, a[kk][e]) as four 16-byte chunks at 64 i, chunk kk at
+// position kk ^ (i / 2 % 4), so that the eight lanes of a 16-byte access cover every bank
+__device__ __forceinline__ int frag_at(int half, int i, int kk) {
+  return half * HELD_HALF + 64 * i + ((kk ^ ((i >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void load_frag(uint32_t (&a)[4][4], const uint8_t* rows, int half, int i) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint4 x = *reinterpret_cast<const uint4*>(rows + frag_at(half, i, kk));
+    a[kk][0] = x.x;
+    a[kk][1] = x.y;
+    a[kk][2] = x.z;
+    a[kk][3] = x.w;
+  }
+}
+
+// whether every value of this thread's held rows r0 and r0 + 8 of two operands (at `x`
+// and `y`) lies below 0x7F7FF000, where split_raw_lo_finite takes them
+__device__ __forceinline__ bool held_finite(const uint8_t* x, const uint8_t* y, int r0, int lane) {
+  uint32_t a[4][4], top = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    load_a(a, s & 2 ? y : x, s & 1, r0, lane);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) top = max(top, a[kk][e] & 0x7FFFFFFFu);
+  }
+  return top < 0x7F7FF000u;
 }
 
 // the register A operand of the four k-steps over 32 of an accumulator's columns (half
 // `half` of its 64; see the head of the file), as f32 bits to be split
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[BQ / 2], int half) {
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[BS / 2], int half) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const int j = 4 * half + kk;
@@ -308,7 +270,297 @@ __device__ __forceinline__ void split_product(float (&acc)[32], const uint32_t (
   }
 }
 
-__global__ void __launch_bounds__(DKV_THREADS, 1)
+// acc (+)= A B over head-column half `half` of d, A a half of held raw rows loaded into
+// `a` and split there (split_raw_lo's full recipe unless `finite`), B the K-major tile
+// pair at b ([row][d]); leaves the half's products in flight as one commit group
+__device__ __forceinline__ void held_half(float (&acc)[32], uint32_t (&a)[4][4], uint32_t (&a_lo)[4][4], uint32_t b,
+                                          int half, bool finite) {
+  if (finite)
+    split_raw_lo_finite(a, a_lo);
+  else
+    split_raw_lo(a, a_lo);
+  wgmma_fence();
+  split_product(acc, a, a_lo, b, half, half == 0);
+  wgmma_commit();
+}
+
+// acc = A B over the stage's 64 rows, A from accumulator `d` (acc_to_a; split_raw_lo's
+// full recipe where `any`, else its finite form), B the [d][row] tile pair at b; waits
+// for its products
+template <bool kAny>
+__device__ __forceinline__ void stage_product(float (&acc)[32], uint32_t (&a0)[4][4], uint32_t (&a0_lo)[4][4],
+                                              uint32_t (&a1)[4][4], uint32_t (&a1_lo)[4][4], const float (&d)[BS / 2],
+                                              uint32_t b) {
+  acc_to_a(a0, d, 0);
+  if constexpr (kAny)
+    split_raw_lo(a0, a0_lo);
+  else
+    split_raw_lo_finite(a0, a0_lo);
+  wgmma_fence();
+  split_product(acc, a0, a0_lo, b, 0, true);
+  wgmma_commit();
+  acc_to_a(a1, d, 1);
+  if constexpr (kAny)
+    split_raw_lo(a1, a1_lo);
+  else
+    split_raw_lo_finite(a1, a1_lo);
+  wgmma_fence();
+  split_product(acc, a1, a1_lo, b, 1, false);
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// a map's dimensions are (64, heads, tokens, batch) where its bit of heads_inner is set,
+// else (64, tokens, heads, batch); a box is 32 head columns from d0
+__device__ __forceinline__ void load_box(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int heads_inner, int bit,
+                                         int d0, int row, int h, int b) {
+  if (heads_inner >> bit & 1)
+    tma_load_4d(smem_addr(dst), map, bar, d0, h, row, b);
+  else
+    tma_load_4d(smem_addr(dst), map, bar, d0, row, h, b);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// ---- dQ: a block holds 128 query rows; stages of 64 key rows -------------------------
+// a [key][d] part: K hi, K lo, V hi, V lo; TMA lands a stage's raw K and V rows in its lo
+// tiles, and the producer splits them in place
+constexpr int K_HI = 0, V_HI = 2 * TILE_BYTES;
+constexpr int DQ_TR_BYTES = 2 * TILE_BYTES;  // the [d][key] part: K hi, K lo (32 KB)
+// Q, dO, a ring of two [key][d] parts, the [d][key] part, and room to align to 1024 bytes
+constexpr int DQ_SMEM = 2 * HELD_BYTES + 2 * PART_BYTES + DQ_TR_BYTES + 1024;
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict__ di, OutView dq, int H, int N,
+                        float sm_scale, int heads_inner,
+                        const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map) {
+  extern __shared__ uint8_t smem_raw[];
+  // each part: full (the producer's 128 threads, after their stores) and empty (lane 0
+  // of every consumer warp); a [key][d] part's raw rows and Q/dO: TMA bytes
+  __shared__ uint64_t rows_full[2], rows_empty[2], landed[2], tr_full, tr_empty, qo_full;
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* rows = smem + 2 * HELD_BYTES;  // Q, dO, the two [key][d] parts, the [d][key] part
+  uint8_t* tr = rows + 2 * PART_BYTES;
+  const int q0 = blockIdx.x * HELD, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int k_tiles = (N + BS - 1) / BS;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(&rows_full[u], 128);
+      mbar_init(&rows_empty[u], 8);
+      mbar_init(&landed[u], 1);
+    }
+    mbar_init(&tr_full, 128);
+    mbar_init(&tr_empty, 8);
+    mbar_init(&qo_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------- producer -------------------------------------
+    reg_dealloc<72>();
+    const int p = tid - 256;
+    auto land_stage = [&](int t) {  // the raw K and V rows of stage t, into part t % 2's lo tiles
+      uint8_t* part = rows + (t & 1) * PART_BYTES;
+      mbar_arrive_expect_tx(&landed[t & 1], LAND_BYTES);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        load_box(part + K_HI + TILE_BYTES + half * TILE_HALF, &k_map, &landed[t & 1], heads_inner, 1, 32 * half,
+                 t * BS, h, b);
+        load_box(part + V_HI + TILE_BYTES + half * TILE_HALF, &v_map, &landed[t & 1], heads_inner, 2, 32 * half,
+                 t * BS, h, b);
+      }
+    };
+    if (p == 0) {
+      mbar_arrive_expect_tx(&qo_full, 2 * HELD_BYTES);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        load_box(smem + half * HELD_HALF, &q_map, &qo_full, heads_inner, 0, 32 * half, q0, h, b);
+        load_box(smem + HELD_BYTES + half * HELD_HALF, &do_map, &qo_full, heads_inner, 3, 32 * half, q0, h, b);
+      }
+      land_stage(0);
+      if (k_tiles > 1) land_stage(1);
+    }
+    const Blocks m(p);  // this thread's 4 x 4 blocks of a stage (split_rows, transpose_rows)
+    for (int t = 0; t < k_tiles; ++t) {
+      const int u = t & 1;
+      uint8_t* part = rows + u * PART_BYTES;
+      // the part's raw rows are in, and the consumers are past S and dP of stage t - 2
+      // (the same part's last use: its landing waited for that)
+      mbar_wait(&landed[u], (t >> 1) & 1);
+      // in place: the thread reads its blocks' raw rows from the lo tiles before it
+      // writes them
+      split_rows(part + K_HI + TILE_BYTES, part + K_HI, m);
+      split_rows(part + V_HI + TILE_BYTES, part + V_HI, m);
+      fence_proxy_async();  // the stores become visible to wgmma's reads
+      mbar_arrive(&rows_full[u]);
+      // every producer thread is past stage t - 1 (its transpose reads the other part):
+      // the other part takes stage t + 1 once the consumers are past S and dP of t - 1
+      bar_sync(1, 128);
+      if (p == 0 && t >= 1 && t + 1 < k_tiles) {
+        mbar_wait(&rows_empty[u ^ 1], ((t - 1) >> 1) & 1);
+        land_stage(t + 1);
+      }
+      mbar_wait(&tr_empty, (t & 1) ^ 1);  // the consumers are past dQ of stage t - 1
+      transpose_rows(part + K_HI, tr, m);  // the thread reads back only the blocks it wrote
+      fence_proxy_async();
+      mbar_arrive(&tr_full);
+    }
+  } else {
+    // ------------------------------- consumers ------------------------------------
+    reg_alloc<216>();
+    const int warp = (tid & 127) >> 5;
+    const int r0 = 16 * warp + (lane >> 2);  // this thread's query rows r0 and r0 + 8 of its 64
+    const int row0 = q0 + 64 * wg;
+    if (row0 >= N) {
+      // the last block's consumer whose 64 query rows all lie past N: hand every stage
+      // straight back, so that the other consumer has the SM to itself
+      for (int t = 0; t < k_tiles; ++t) {
+        mbar_wait(&rows_full[t & 1], (t >> 1) & 1);
+        if (lane == 0) mbar_arrive(&rows_empty[t & 1]);
+        mbar_wait(&tr_full, t & 1);
+        if (lane == 0) mbar_arrive(&tr_empty);
+      }
+      return;
+    }
+    uint8_t* q_rows = smem + wg * (64 * 128);
+    uint8_t* do_rows = q_rows + HELD_BYTES;
+    const uint32_t rows_addr = smem_addr(rows), tr_addr = smem_addr(tr);
+    const long long bh = static_cast<long long>(b) * H + h;
+    const int col = 2 * (lane & 3);  // element e of an accumulator's group j: column 8 j + col + e % 2
+    // this thread's rows: lse log2 e, and a quarter of O (head columns 16 (lane % 4) ..
+    // +15), read while Q and dO land (rows past N: 0, where Q and dO are zeros)
+    float lse2[2];
+    float4 o_part[2][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + r0 + 8 * half;
+      const bool valid = row < N;
+      lse2[half] = valid ? lse[bh * N + row] * LOG2E : 0.f;
+      const float* o_row = row_of(o, b, h, valid ? row : 0) + 16 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_part[half][i] = valid ? ld4(o_row + 4 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    mbar_wait(&qo_full, 0);
+    // di = rowsum(O o dO) in f32: the four lanes of a row add their quarters
+    float di_r[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int chunk = 4 * (lane & 3) + i;  // head columns 4 chunk .. +3
+        const float4 x = o_part[half][i];
+        const float4 y = *reinterpret_cast<const float4*>(do_rows + (chunk >> 3) * HELD_HALF + r * 128 +
+                                                          (((chunk & 7) ^ (r & 7)) << 4));
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      di_r[half] = sum;
+      const int row = row0 + r;
+      if ((lane & 3) == 0 && row < N) di[bh * N + row] = sum;
+    }
+    // Q and dO are loaded and split again every stage: whether the thread's values need
+    // split_raw_lo's full recipe is known once, and its A fragments are rewritten
+    // fragment-major once (four 16-byte loads a half then, not sixteen of 4 bytes)
+    const bool qo_finite = held_finite(q_rows, do_rows, r0, lane);
+    const int fi = tid & 127;
+    {
+      uint32_t f[4][4][4];  // Q's halves, then dO's
+#pragma unroll
+      for (int set = 0; set < 4; ++set) load_a(f[set], set & 2 ? do_rows : q_rows, set & 1, r0, lane);
+      bar_sync(2 + wg, 128);  // every thread of this consumer has read its rows (and di its dO)
+#pragma unroll
+      for (int set = 0; set < 4; ++set)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          *reinterpret_cast<uint4*>((set & 2 ? do_rows : q_rows) + frag_at(set & 1, fi, kk)) =
+              make_uint4(f[set][kk][0], f[set][kk][1], f[set][kk][2], f[set][kk][3]);
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const float scale_log2 = sm_scale * LOG2E;
+
+    for (int t = 0; t < k_tiles; ++t) {
+      // two sets of A operands, a half (four k-steps) each: one is split while the
+      // products of the other run, and each is written again only after those products
+      // have been waited for
+      uint32_t a0[4][4], a0_lo[4][4], a1[4][4], a1_lo[4][4];
+      float s[BS / 2], dp[BS / 2];
+      // S = Q K^T, then dP = dO V^T (64 query rows x 64 key columns), each over two halves
+      // of d: B is the stage's [key][d] tiles
+      const uint32_t kv = rows_addr + (t & 1) * PART_BYTES;  // the stage's [key][d] part
+      mbar_wait(&rows_full[t & 1], (t >> 1) & 1);
+      load_frag(a0, q_rows, 0, fi);
+      held_half(s, a0, a0_lo, kv + K_HI, 0, qo_finite);
+      load_frag(a1, q_rows, 1, fi);
+      held_half(s, a1, a1_lo, kv + K_HI, 1, qo_finite);
+      wgmma_wait<1>();  // S's first half: a0 is free
+      load_frag(a0, do_rows, 0, fi);
+      held_half(dp, a0, a0_lo, kv + V_HI, 0, qo_finite);
+      wgmma_wait<1>();  // S: a1 is free
+      load_frag(a1, do_rows, 1, fi);
+      held_half(dp, a1, a1_lo, kv + V_HI, 1, qo_finite);
+      // P = 2^(S scale log2 e - lse log2 e) in place of S while dP is multiplied; 0 in
+      // the key columns past N (8 jj + e % 2 >= lim)
+      const int lim = N - t * BS - col;
+#pragma unroll
+      for (int jj = 0; jj < BS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = exp2f(fmaf(s[4 * jj + e], scale_log2, -lse2[e >> 1]));
+          s[4 * jj + e] = 8 * jj + (e & 1) < lim ? x : 0.f;
+        }
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&rows_empty[t & 1]);  // the [key][d] part goes back to the producer
+      // dS = P (dP - di) scale in place of dP
+#pragma unroll
+      for (int i = 0; i < BS / 2; ++i) dp[i] = s[i] * (dp[i] - di_r[(i >> 1) & 1]) * sm_scale;
+      // dQ += dS K over the stage's 64 key rows: A straight from the dS accumulator, B
+      // K's [d][key] tiles; into a fresh accumulator, added to the running sum in f32
+      mbar_wait(&tr_full, t & 1);
+      float part[D / 2];
+      stage_product<true>(part, a0, a0_lo, a1, a1_lo, dp, tr_addr);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq_acc[i] += part[i];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&tr_empty);  // and the [d][key] part
+    }
+    // accumulator layout: group j's d[4j], d[4j+1] are row r0, head columns 8 j + col, +1;
+    // d[4j+2], d[4j+3] the same columns of row r0 + 8
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + r0 + 8 * half;
+      if (row >= N) continue;
+      float* pq = row_of(dq, b, h, row);
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<float2*>(pq + 8 * jj + col) = make_float2(dq_acc[4 * jj + 2 * half], dq_acc[4 * jj + 2 * half + 1]);
+    }
+  }
+}
+
+// ---- dK/dV: a block holds 128 key rows; stages of 64 query rows ----------------------
+// the stage's two parts, each Q hi, Q lo, dO hi, dO lo: [query][d], the B of S^T and dP^T,
+// then [d][query], the B of dV and dK
+constexpr int Q_HI = 0, DO_HI = 2 * TILE_BYTES;
+// K, V, the two parts, the landing buffer, and room to align to 1024 bytes
+constexpr int DKV_SMEM = 2 * HELD_BYTES + 2 * PART_BYTES + LAND_BYTES + 1024;
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict__ di, OutView dk, OutView dv,
                          int H, int N, float sm_scale, int heads_inner,
                          const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -317,16 +569,15 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
   // each part of the stage: full (the producer's 128 threads, after their stores) and
   // empty (lane 0 of every consumer warp); the landing buffer and K/V: TMA bytes
   __shared__ uint64_t rows_full, rows_empty, tr_full, tr_empty, landed, kv_full;
-  __shared__ __align__(16) float s_lse[BQ];  // the stage's query rows: lse log2 e, +inf past N (rows part)
-  __shared__ __align__(16) float s_di[BQ];   // and di, 0 past N ([d][query] part)
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* rows = smem + 2 * KV_BYTES;  // K, V, the [query][d] part, the [d][query] part, landing
+  __shared__ __align__(16) float s_lse[BS];  // the stage's query rows: lse log2 e, +inf past N (rows part)
+  __shared__ __align__(16) float s_di[BS];   // and di, 0 past N ([d][query] part)
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* rows = smem + 2 * HELD_BYTES;  // K, V, the [query][d] part, the [d][query] part, landing
   uint8_t* tr = rows + PART_BYTES;
   uint8_t* land = tr + PART_BYTES;
-  const int kv0 = blockIdx.x * KV_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int kv0 = blockIdx.x * HELD, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int q_tiles = (N + BQ - 1) / BQ;
+  const int q_tiles = (N + BS - 1) / BS;
 
   if (tid == 0) {
     mbar_init(&rows_full, 128);
@@ -343,58 +594,48 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
     // ------------------------------- producer -------------------------------------
     reg_dealloc<72>();
     const int p = tid - 256;
-    // a map's dimensions are (64, heads, tokens, batch) where its bit of heads_inner is
-    // set, else (64, tokens, heads, batch); a box is 32 head columns from d0
-    auto load = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int bit, int d0, int row) {
-      if (heads_inner >> bit & 1)
-        tma_load_4d(smem_addr(dst), map, bar, d0, h, row, b);
-      else
-        tma_load_4d(smem_addr(dst), map, bar, d0, row, h, b);
-    };
     auto land_stage = [&](int t) {  // the raw Q and dO rows of stage t
       mbar_arrive_expect_tx(&landed, LAND_BYTES);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        load(land + half * TILE_HALF, &q_map, &landed, 0, 32 * half, t * BQ);
-        load(land + TILE_BYTES + half * TILE_HALF, &do_map, &landed, 3, 32 * half, t * BQ);
+        load_box(land + half * TILE_HALF, &q_map, &landed, heads_inner, 0, 32 * half, t * BS, h, b);
+        load_box(land + TILE_BYTES + half * TILE_HALF, &do_map, &landed, heads_inner, 3, 32 * half, t * BS, h, b);
       }
     };
     if (p == 0) {
-      mbar_arrive_expect_tx(&kv_full, 2 * KV_BYTES);
+      mbar_arrive_expect_tx(&kv_full, 2 * HELD_BYTES);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        load(smem + half * KV_HALF, &k_map, &kv_full, 1, 32 * half, kv0);
-        load(smem + KV_BYTES + half * KV_HALF, &v_map, &kv_full, 2, 32 * half, kv0);
+        load_box(smem + half * HELD_HALF, &k_map, &kv_full, heads_inner, 1, 32 * half, kv0, h, b);
+        load_box(smem + HELD_BYTES + half * HELD_HALF, &v_map, &kv_full, heads_inner, 2, 32 * half, kv0, h, b);
       }
       land_stage(0);
     }
-    // this thread's 4 x 4 blocks of a stage (split_rows, split_tr)
-    const int par = p & 1, j = (p >> 1) & 3;
-    const int c = 2 * ((j + (p >> 4)) & 3) + ((p >> 3) & 1) + 8 * (p >> 6);
+    const Blocks m(p);  // this thread's 4 x 4 blocks of a stage (split_rows, transpose_rows)
     const long long bh = static_cast<long long>(b) * H + h;
     for (int t = 0; t < q_tiles; ++t) {
       const int parity = t & 1;
-      // lse log2 e (threads 0-63) or di (64-127) of query row t BQ + p % 64
-      const int row = t * BQ + (p & (BQ - 1));
+      // lse log2 e (threads 0-63) or di (64-127) of query row t BS + p % 64
+      const int row = t * BS + (p & (BS - 1));
       float stat = 0.f;
-      if (p < BQ)
+      if (p < BS)
         stat = row < N ? lse[bh * N + row] * LOG2E : __int_as_float(0x7F800000);
       else if (row < N)
         stat = di[bh * N + row];
       mbar_wait(&landed, parity);
       mbar_wait(&rows_empty, parity ^ 1);  // the consumers are past S^T and dP^T of stage t - 1
-      split_rows(land, rows + Q_HI, j, par, c);
-      split_rows(land + TILE_BYTES, rows + DO_HI, j, par, c);
-      if (p < BQ) s_lse[p] = stat;
+      split_rows(land, rows + Q_HI, m);
+      split_rows(land + TILE_BYTES, rows + DO_HI, m);
+      if (p < BS) s_lse[p] = stat;
       fence_proxy_async();  // the stores become visible to wgmma's reads
       mbar_arrive(&rows_full);
       bar_sync(1, 128);  // every producer thread has read the landing buffer
       if (p == 0 && t + 1 < q_tiles) land_stage(t + 1);
       mbar_wait(&tr_empty, parity ^ 1);  // and past dV and dK of stage t - 1
       // the thread reads back only the blocks it wrote itself
-      transpose_rows(rows + Q_HI, tr + Q_HI, j, par, c);
-      transpose_rows(rows + DO_HI, tr + DO_HI, j, par, c);
-      if (p >= BQ) s_di[p - BQ] = stat;
+      transpose_rows(rows + Q_HI, tr + Q_HI, m);
+      transpose_rows(rows + DO_HI, tr + DO_HI, m);
+      if (p >= BS) s_di[p - BS] = stat;
       fence_proxy_async();
       mbar_arrive(&tr_full);
     }
@@ -416,7 +657,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
       return;
     }
     const uint8_t* k_rows = smem + wg * (64 * 128);
-    const uint8_t* v_rows = k_rows + KV_BYTES;
+    const uint8_t* v_rows = k_rows + HELD_BYTES;
     const uint32_t rows_addr = smem_addr(rows), tr_addr = smem_addr(tr);
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -426,60 +667,30 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
     mbar_wait(&kv_full, 0);
     // K and V are split again every stage: whether the thread's values need split_raw_lo's
     // full recipe is known once
-    bool kv_finite;
-    {
-      uint32_t a[4][4], top = 0;
-#pragma unroll
-      for (int kv = 0; kv < 4; ++kv) {
-        load_a(a, kv & 2 ? v_rows : k_rows, kv & 1, r0, lane);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) top = max(top, a[kk][e] & 0x7FFFFFFFu);
-      }
-      kv_finite = top < 0x7F7FF000u;
-    }
-    auto split_kv = [&](uint32_t (&a)[4][4], uint32_t (&a_lo)[4][4]) {
-      if (kv_finite)
-        split_raw_lo_finite(a, a_lo);
-      else
-        split_raw_lo(a, a_lo);
-    };
+    const bool kv_finite = held_finite(k_rows, v_rows, r0, lane);
 
     for (int t = 0; t < q_tiles; ++t) {
       // two sets of A operands, a half (four k-steps) each: one is split while the
       // products of the other run, and each is written again only after those products
       // have been waited for
       uint32_t a0[4][4], a0_lo[4][4], a1[4][4], a1_lo[4][4];
-      float st[BQ / 2], dpt[BQ / 2];
+      float st[BS / 2], dpt[BS / 2];
       // S^T = K Q^T and dP^T = V dO^T (64 key rows x 64 query columns), each over two
       // halves of d: B is the stage's [query][d] tiles
       mbar_wait(&rows_full, t & 1);
       load_a(a0, k_rows, 0, r0, lane);
-      split_kv(a0, a0_lo);
-      wgmma_fence();
-      split_product(st, a0, a0_lo, rows_addr + Q_HI, 0, true);
-      wgmma_commit();
+      held_half(st, a0, a0_lo, rows_addr + Q_HI, 0, kv_finite);
       load_a(a1, k_rows, 1, r0, lane);
-      split_kv(a1, a1_lo);
-      wgmma_fence();
-      split_product(st, a1, a1_lo, rows_addr + Q_HI, 1, false);
-      wgmma_commit();
+      held_half(st, a1, a1_lo, rows_addr + Q_HI, 1, kv_finite);
       wgmma_wait<1>();  // S^T's first half: a0 is free
       load_a(a0, v_rows, 0, r0, lane);
-      split_kv(a0, a0_lo);
-      wgmma_fence();
-      split_product(dpt, a0, a0_lo, rows_addr + DO_HI, 0, true);
-      wgmma_commit();
+      held_half(dpt, a0, a0_lo, rows_addr + DO_HI, 0, kv_finite);
       wgmma_wait<1>();  // S^T: a1 is free
       load_a(a1, v_rows, 1, r0, lane);
-      split_kv(a1, a1_lo);
-      wgmma_fence();
-      split_product(dpt, a1, a1_lo, rows_addr + DO_HI, 1, false);
-      wgmma_commit();
+      held_half(dpt, a1, a1_lo, rows_addr + DO_HI, 1, kv_finite);
       // P = 2^(S scale log2 e - lse log2 e) in place of S^T while dP^T is multiplied
 #pragma unroll
-      for (int jj = 0; jj < BQ / 8; ++jj) {
+      for (int jj = 0; jj < BS / 8; ++jj) {
         const float2 l2 = *reinterpret_cast<const float2*>(&s_lse[8 * jj + col]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[4 * jj + e] = exp2f(fmaf(st[4 * jj + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
@@ -490,40 +701,20 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
       // dS = P (dP - di) scale in place of dP^T
       mbar_wait(&tr_full, t & 1);
 #pragma unroll
-      for (int jj = 0; jj < BQ / 8; ++jj) {
+      for (int jj = 0; jj < BS / 8; ++jj) {
         const float2 d2 = *reinterpret_cast<const float2*>(&s_di[8 * jj + col]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e & 1 ? d2.y : d2.x)) * sm_scale;
       }
-      // dV += P^T dO, then dK += dS^T Q, each over two halves of the stage's 64 query
-      // rows: A straight from the accumulators, split in registers (P <= 1 on every key
-      // row below N; past N it may overflow, in rows that are not stored); B the
-      // [d][query] tiles. Each into a fresh accumulator, added to the running sum in f32.
+      // dV += P^T dO, then dK += dS^T Q, each over the stage's 64 query rows: A straight
+      // from the accumulators (P <= 1 on every key row below N; past N it may overflow, in
+      // rows that are not stored); B the [d][query] tiles. Each into a fresh accumulator,
+      // added to the running sum in f32.
       float part[D / 2];
-      acc_to_a(a0, st, 0);
-      split_raw_lo_finite(a0, a0_lo);
-      wgmma_fence();
-      split_product(part, a0, a0_lo, tr_addr + DO_HI, 0, true);
-      wgmma_commit();
-      acc_to_a(a1, st, 1);
-      split_raw_lo_finite(a1, a1_lo);
-      wgmma_fence();
-      split_product(part, a1, a1_lo, tr_addr + DO_HI, 1, false);
-      wgmma_commit();
-      wgmma_wait<0>();
+      stage_product<false>(part, a0, a0_lo, a1, a1_lo, st, tr_addr + DO_HI);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dv_acc[i] += part[i];
-      acc_to_a(a0, dpt, 0);
-      split_raw_lo(a0, a0_lo);
-      wgmma_fence();
-      split_product(part, a0, a0_lo, tr_addr + Q_HI, 0, true);
-      wgmma_commit();
-      acc_to_a(a1, dpt, 1);
-      split_raw_lo(a1, a1_lo);
-      wgmma_fence();
-      split_product(part, a1, a1_lo, tr_addr + Q_HI, 1, false);
-      wgmma_commit();
-      wgmma_wait<0>();
+      stage_product<true>(part, a0, a0_lo, a1, a1_lo, dpt, tr_addr + Q_HI);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk_acc[i] += part[i];
       __syncwarp();
@@ -548,6 +739,19 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
 
 bool grid_fits(int B, int H, int N) { return B > 0 && H > 0 && N > 0 && B <= 65535 && H <= 65535; }
 
+// the four operands' tensor maps (q, k, v, dO), q and dO in boxes of `qo_rows` tokens, k
+// and v of `kv_rows`; `order` gets bit i set where operand i has its heads inside its
+// tokens
+bool operand_maps(CUtensorMap (&maps)[4], int& order, const flash_maps::Operand (&ops)[4], int qo_rows, int kv_rows) {
+  const int rows[4] = {qo_rows, kv_rows, kv_rows, qo_rows};
+  order = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (!flash_maps::operand_map(&maps[i], ops[i], rows[i])) return false;
+    order |= flash_maps::heads_inner(ops[i]) << i;
+  }
+  return true;
+}
+
 }  // namespace
 
 // dq of one backward, and di = rowsum(O o dO) (B, H, N) f32 for the dK/dV kernel, from
@@ -566,13 +770,17 @@ extern "C" int tpuhar_flash_bwd_dq_f32(const void* q, const void* k, const void*
   static bool ready[64] = {};
   const cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel, DQ_SMEM, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + T - 1) / T, H, B);
-  flash_bwd_dq_f32_kernel<<<grid, THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const float*>(q), sqb, sqh, sqn}, View{static_cast<const float*>(k), skb, skh, skn},
-      View{static_cast<const float*>(v), svb, svh, svn}, View{static_cast<const float*>(o), sob, soh, son},
-      View{static_cast<const float*>(dout), sdb, sdh, sdn}, static_cast<const float*>(lse),
-      static_cast<float*>(di), OutView{static_cast<float*>(dq), sqgb, sqgh, sqgn}, H, N, sm_scale,
-      sm_scale * LOG2E);
+  // q and dO: boxes of a block's query rows; k and v: of a stage's key rows
+  const flash_maps::Operand ops[4] = {
+      {q, B, H, N, sqb, sqh, sqn, true}, {k, B, H, N, skb, skh, skn, true},
+      {v, B, H, N, svb, svh, svn, true}, {dout, B, H, N, sdb, sdh, sdn, true}};
+  CUtensorMap maps[4];
+  int order = 0;
+  if (!operand_maps(maps, order, ops, HELD, BS)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + HELD - 1) / HELD, H, B);
+  flash_bwd_dq_f32_kernel<<<grid, BWD_THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      View{static_cast<const float*>(o), sob, soh, son}, static_cast<const float*>(lse), static_cast<float*>(di),
+      OutView{static_cast<float*>(dq), sqgb, sqgh, sqgn}, H, N, sm_scale, order, maps[0], maps[1], maps[2], maps[3]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -593,19 +801,15 @@ extern "C" int tpuhar_flash_bwd_dkv_f32(const void* q, const void* k, const void
   static bool ready[64] = {};
   const cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel, DKV_SMEM, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // q, k, v, dO: boxes of a stage's query rows, or of a block's key rows
+  // q and dO: boxes of a stage's query rows; k and v: of a block's key rows
   const flash_maps::Operand ops[4] = {
       {q, B, H, N, sqb, sqh, sqn, true}, {k, B, H, N, skb, skh, skn, true},
       {v, B, H, N, svb, svh, svn, true}, {dout, B, H, N, sdb, sdh, sdn, true}};
-  const int rows[4] = {BQ, KV_ROWS, KV_ROWS, BQ};
   CUtensorMap maps[4];
-  int order = 0;  // bit i set where operand i has its heads inside its tokens
-  for (int i = 0; i < 4; ++i) {
-    if (!flash_maps::operand_map(&maps[i], ops[i], rows[i])) return static_cast<int>(cudaErrorInvalidValue);
-    order |= flash_maps::heads_inner(ops[i]) << i;
-  }
-  const dim3 grid((N + KV_ROWS - 1) / KV_ROWS, H, B);
-  flash_bwd_dkv_f32_kernel<<<grid, DKV_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  int order = 0;
+  if (!operand_maps(maps, order, ops, BS, HELD)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + HELD - 1) / HELD, H, B);
+  flash_bwd_dkv_f32_kernel<<<grid, BWD_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lse), static_cast<const float*>(di),
       OutView{static_cast<float*>(dk), skgb, skgh, skgn}, OutView{static_cast<float*>(dv), svgb, svgh, svgn},
       H, N, sm_scale, order, maps[0], maps[1], maps[2], maps[3]);

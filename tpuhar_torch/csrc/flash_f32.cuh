@@ -1,9 +1,10 @@
 // What the f32 flash kernels (csrc/flash_attn_f32.cu, the forward, and
 // csrc/flash_attn_bwd_f32.cu, the dQ and dK/dV kernels) share: the (B, H, N, 64) f32
-// views they read and write, the load of a tile into shared memory, and the
-// register-tiled product step on the CUDA cores.
+// views they read and write and the shared-memory opt-in; and the forward's load of a
+// tile into shared memory and register-tiled product step on the CUDA cores (the
+// backward kernels run theirs on the tensor cores in split TF32).
 //
-// Every product of these kernels is a tile product C += A B in f32 FFMA over k = 0 ..
+// Every product of the forward is a tile product C += A B in f32 FFMA over k = 0 ..
 // 63. A block has 128 threads; a thread owns an R x 8 tile of C, R = 4 or 8: rows r0 ..
 // r0 + 3 (and r0 + 16 .. r0 + 19 for R = 8), r0 = 4 R * warp + 4 * (lane / 8), so a warp
 // owns 4 R rows of its own, and columns 4 g .. 4 g + 3 and 32 + 4 g .. 32 + 4 g + 3,
@@ -15,8 +16,7 @@
 // that sum over d, and row-major ([row][d], its 16-byte chunks swizzled by the row) for
 // those that sum over the rows. The shared-memory loads, not the FFMA, set the pace of
 // a 4 x 8 tile: three loads of 16 bytes a lane for 32 FFMA; an 8 x 8 tile needs four
-// for 64, where the registers allow it (the forward's two accumulators; the backward
-// kernels hold three and four).
+// for 64, where the registers allow it (the forward's two accumulators).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,6 +1,7 @@
 // The tensor maps through which the flash kernels (csrc/flash_attn.cu, the forward, and
 // csrc/flash_attn_bwd.cu, the dK/dV and dQ kernels) read their (B, H, N, 64) bf16
-// operands by TMA, and the f32 dK/dV kernel (csrc/flash_attn_bwd_f32.cu) its f32 ones.
+// operands by TMA, and the f32 dQ and dK/dV kernels (csrc/flash_attn_bwd_f32.cu) their
+// f32 ones.
 // Host code only.
 #pragma once
 #include <cuda.h>

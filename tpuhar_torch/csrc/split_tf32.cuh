@@ -1,6 +1,6 @@
 // The split of f32 values into two TF32 values on which the split-TF32 ("3xTF32") wgmma
-// kernels run their f32 products: csrc/conv3x3_f32.cu (split_in_place) and the dK/dV
-// kernel of csrc/flash_attn_bwd_f32.cu (split_raw_lo).
+// kernels run their f32 products: csrc/conv3x3_f32.cu (split_in_place) and the dQ and
+// dK/dV kernels of csrc/flash_attn_bwd_f32.cu (split_raw_lo).
 //
 // hi = v rounded to TF32 (nearest, ties away from zero) and lo = v - hi rounded the same
 // way, so that |v - hi - lo| <= 2^-22 |v| (ops/conv3x3.split_tf32 is the same split in

@@ -227,15 +227,15 @@ def check_flash_grad_operands(B: int, H: int, N: int, stats) -> None:
     """Raise ``ValueError`` on saved statistics the backward kernels do not take, from
     shapes and contiguity alone: ``stats`` maps a name (``lse``, ``di``) to ``(shape,
     contiguous)``, each a contiguous ``(B, H, N)`` f32 tensor. The grids of both kernels
-    of either type, ``⌈N/rows⌉ × H × B`` blocks (bf16: 128 query rows a block for dQ, 128
-    key rows for dK/dV; f32: 64 query rows for dQ, 128 key rows for dK/dV, which walks
-    the query rows in stages of 64), need ``H`` and ``B`` from 1 to 65535 (CUDA's limit on
-    a grid's second and third dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``, the output
-    and ``dO`` are held to ``check_flash_operand``: the dK/dV kernels of both types and the
-    bf16 dQ kernel read q, k, v and dO through tensor maps (rows of 128 bytes: 64 bf16 or
-    32 f32 head columns a box), the f32 dQ kernel in 16-byte pieces; the dK/dV kernels
-    read lse and di 4 bytes at a time, and the dQ kernels the f32 output in 8-byte (bf16)
-    or 16-byte (f32) pieces."""
+    of either type, ``⌈N/rows⌉ × H × B`` blocks (128 query rows a block for dQ, which
+    walks the key rows in stages of 64, and 128 key rows for dK/dV, which walks the query
+    rows in stages of 64), need ``H`` and ``B`` from 1 to 65535 (CUDA's limit on a grid's
+    second and third dimensions) and ``N ≥ 1``. ``q``, ``k``, ``v``, the output and
+    ``dO`` are held to ``check_flash_operand``: every backward kernel reads q, k, v and dO
+    through tensor maps (rows of 128 bytes: 64 bf16 or 32 f32 head columns a box; the f32
+    dQ kernel's q and dO in boxes of a block's 128 rows, its k and v in boxes of a
+    stage's 64); the dK/dV kernels read lse and di 4 bytes at a time, and the dQ kernels
+    the f32 output in 8-byte (bf16) or 16-byte (f32) pieces."""
     for name, (shape, contiguous) in stats.items():
         if tuple(shape) != (B, H, N):
             raise ValueError(f"flash backward kernel: {name} {tuple(shape)} != {(B, H, N)}")

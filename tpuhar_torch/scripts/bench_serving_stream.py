@@ -12,8 +12,10 @@ bank by ``BatchLoader``, repeated until ``--min-windows`` are served. It reports
 - sequential serving (``predict`` per stream batch) and overlapped serving
   (``predict_stream``: an upload thread, the replay enqueued, the oldest batch read
   back), whose logits equal ``predict``'s;
-- which of the host feed, the upload and the card's compute (``benchmark_engine``'s
-  step less the upload) bounds the run.
+- which of the host feed, the upload and the card's compute bounds the run: on a CUDA
+  device the compute is the graph replay's device time on the last request's inputs;
+  without a graph (the CPU) it is ``benchmark_engine``'s step less the upload, the JAX
+  script's estimate.
 
 The JSON has the JAX script's keys. ``bound`` names ``"host"``, ``"upload"`` or
 ``"chip"``: the JAX script's ``"tunnel-upload"`` is ``"upload"`` here, a copy over PCIe
@@ -191,13 +193,18 @@ def run(args, *, bench_iters=None, calib_clips: int = CALIB_CLIPS, trials: int =
         outputs["sequential"], outputs["stream"] = seq_logits, str_logits
 
     # the binding resource is the slowest of the host feed, the upload and the card's
-    # compute; benchmark_engine's rate includes an upload, so the compute rate is its
-    # step less the measured upload of one batch
-    t_engine = args.batch / chip["throughput"]
-    if upload_rate is None:  # no upload trial: no rate to name as the bound, no compute estimate
+    # compute. On a CUDA device the compute is the graph replay, timed on the device: the
+    # step less the upload is a host prep, a replay and a readback less one pageable copy,
+    # and is lost in that copy's spread when the replay is short. Without a graph,
+    # benchmark_engine's rate includes an upload, so the compute rate is its step less
+    # the measured upload of one batch
+    if device.type == "cuda":
+        compute_rate = per_s(args.batch, median_ms(engine._replay, (args.batch,), trials=trials, iters=10,
+                                                   warmup=1, device=device))
+    elif upload_rate is None:  # no upload trial: no rate to name as the bound, no compute estimate
         compute_rate = None
     else:
-        t_upload = args.batch / upload_rate
+        t_engine, t_upload = args.batch / chip["throughput"], args.batch / upload_rate
         compute_rate = args.batch / (t_engine - t_upload) if t_engine > t_upload * 1.05 else float("inf")
     rates = {k: v for k, v in zip(RATE_NAMES, (host_rate, upload_rate, compute_rate)) if v is not None}
     result = {

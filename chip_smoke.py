@@ -193,14 +193,16 @@ Phases; any failed check raises and the exit code is non-zero:
     flash off (plain f32 attention), the replay and eager ms of both; then f32
     pretraining (``pretrain_config()`` with ``compute_dtype="float32"``, under
     ``precision_scope("float32")``): 3 steps at batch 16 with 12 launches of each f32 flash
-    kernel a step, their ms, samples/s and peak memory, and 3 steps at batch 4 with flash
+    kernel a step, their ms, samples/s and peak memory, and 3 steps at batch 8 with flash
     on, and with flash off in f32 and in float64, from the same parameters, batches and
     generator: each flash step's loss within 1e-5 of the float64 step's, relative, its
     gradient norm within 1e-4.
 
-Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward in FFMA,
-dQ and dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of
-the largest element, at the bf16 forms' shapes and the f32 backward kernels' block edges.
+Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward, dQ and
+dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of the
+largest element, at the bf16 forms' shapes and the f32 kernels' block edges, and print
+each one's registers, spills and shared memory (``_ext.kernel_attributes``) beside its
+time.
 
 The line before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script fails at once.
@@ -399,6 +401,13 @@ FLASH_F32_RTOL = 1e-5
 # one key row while the second consumer holds one query row (65)
 FLASH_F32_DKV_SHAPES = [(2, 3, n) for n in (2, 31, 33, 65, 255, 257)]
 FLASH_F32_LSE_ATOL = 1e-5
+# the f32 forward's own edges beyond FLASH_SHAPES (it holds 128 query rows a block, 64 a
+# consumer, and walks the key rows in stages of 64 through a ring of two parts; P V takes a
+# stage's key rows 16 at a time): a block of two rows whose second consumer has none (2);
+# a stage cut mid-way (31, 33); one stage, then the ring's second slot first used by one
+# key row (64, 65); one block, then a block of one row (127, 128, 129); a second block
+# (255, 257)
+FLASH_F32_FWD_EDGES = [(2, 3, n) for n in (2, 31, 33, 64, 65, 127, 128, 129, 255, 257)]
 # pretraining: one epoch of four batches of 16 (and one validation batch), the depth
 # cut to one epoch from the configuration's ten
 PRETRAIN_BATCH, PRETRAIN_TRAIN_BATCHES, PRETRAIN_EPOCHS = 16, 4, 1
@@ -578,12 +587,17 @@ F32_FLAGSHIP_FORWARD = {"fused_window": 1, "conv3x3_bn_act_f32": 4, "conv3x3_bn_
 # the materialized scores fit) with flash on, and with flash off in f32 and in float64:
 # each flash step's loss within F32_VIT_LOSS_RTOL of the float64 step's, relative, its
 # gradient norm (before the clip) within F32_VIT_GRAD_RTOL. The float64 steps are the
-# arbiter because the f32 flash-off steps are not exact enough to be one: at init, with
-# the projection heads' BatchNorm over 4 rows, the first gradient norm of the f32
-# flash-off step was 3.5e-4 from the float64 step's on an H100, the flash step's 5.9e-6;
-# the f32 pair's gaps are printed beside
+# arbiter because the f32 flash-off steps are not exact enough to be one (at batch 8 the
+# f32 flash-off program's second gradient norm lands 6.2e-4 from the float64 step's on an
+# H100); the f32 pair's gaps are printed beside. Batch 8 and not 4: at init the video
+# projection head's BatchNorm over four nearly equal rows amplifies a last-bit difference
+# in the video features some 10^4-fold, so at 4 the first gradient norm of any f32
+# program, even with its attention computed in float64 and rounded to f32, lands 1.6e-5 to
+# 7e-4 from the float64 step's depending on the rounding alone (3.6e-4 for that rounded
+# forward); at 8 that forward lands within 3.2e-6 at every step, and a forward whose O is
+# off by 1e-3 fails by 8.4e-4
 F32_VIT_TIMING_ITERS = {8: 5, 64: 2}
-F32_VIT_STEPS, F32_VIT_CHECK_BATCH = 3, 4
+F32_VIT_STEPS, F32_VIT_CHECK_BATCH = 3, 8
 F32_VIT_LOSS_RTOL, F32_VIT_GRAD_RTOL = 1e-5, 1e-4
 # the serving engine: each engine's registered batch sizes, and the iterations of its
 # timings at each size (cut to keep the run short; the widths are the full ones)
@@ -1128,14 +1142,25 @@ def ffma_ms(flops: float) -> float:
     return flops / PEAK_OPS_PER_S["f32"] * 1e3
 
 
+def kernel_attributes(name: str) -> dict:
+    """``_ext.kernel_attributes(name)``, printed: the registers and spills a later change
+    would move show in the card's own run."""
+    attrs = _ext.kernel_attributes(name)
+    print(f"[kernel] {name} attributes: {attrs['registers']} registers a thread, {attrs['local_bytes']} bytes of "
+          f"local memory (spills) a thread, {attrs['static_shared_bytes']} bytes of static and "
+          f"{attrs['max_dynamic_shared_bytes']} of dynamic shared memory")
+    return attrs
+
+
 def check_flash_f32() -> dict:
     """The f32 forward kernel against its plain version in float64 on f32 views of (B, N,
-    H·64) projections at the bf16 form's shapes; at (8, 12, 1568) its time beside the
-    plain version's (in f32), SDPA's in f32 with TF32 off and the bound (three TF32
-    products an f32 one, and at the FFMA rate)."""
+    H·64) projections at the bf16 form's shapes and FLASH_F32_FWD_EDGES; at (8, 12, 1568)
+    bit for bit across two calls, with and without the LSE, its time beside the plain
+    version's (in f32), SDPA's in f32 with TF32 off and the bound (three TF32 products an
+    f32 one, and at the FFMA rate), and its compiled attributes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed, worst_abs, worst_rel = None, 0.0, 0.0
-    for B, H, N in FLASH_SHAPES:
+    for B, H, N in FLASH_SHAPES + FLASH_F32_FWD_EDGES:
         q, k, v = f32_projections(gen, B, H, N)
         got = flash_lean(q, k, v)
         if got.dtype != torch.float32:
@@ -1149,6 +1174,11 @@ def check_flash_f32() -> dict:
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         del want
         if (B, H, N) == FLASH_TIMED_SHAPE:
+            (out, lse, _), (out2, lse2, _) = (flash_lean_with_stats(q, k, v, SM_SCALE) for _ in range(2))
+            if not (torch.equal(got, flash_lean(q, k, v)) and torch.equal(out, got) and torch.equal(out, out2)
+                    and torch.equal(lse, lse2)):
+                raise AssertionError("flash_lean f32: two calls, or the calls with and without the LSE, differ")
+            del out, lse, out2, lse2
             ms = cuda_ms(lambda: flash_lean(q, k, v), 20)
             plain_ms = cuda_ms(lambda: flash_lean_reference(q, k, v), 5)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
@@ -1163,7 +1193,8 @@ def check_flash_f32() -> dict:
                 f"F.scaled_dot_product_attention (f32, TF32 off) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                 f"({b['bound_by']}; {ffma:.4f} ms at the FFMA rate)"
             )
-            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b, "ffma_bound_ms": ffma}
+            timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b, "ffma_bound_ms": ffma,
+                     "attributes": kernel_attributes("flash_attn_f32")}
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **timed, "shape": "(8, 12, 1568, 64) f32"}
 
 
@@ -1244,13 +1275,16 @@ def check_flash_backward_f32() -> dict:
                   f"F.scaled_dot_product_attention (f32, TF32 off) {fwd_library_ms:.4f} ms, bound "
                   f"{b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}; {ffma_ms(4 * scores * 64):.4f} at the FFMA rate)")
             timed = {
-                "dkv": {"ms": dkv_ms, **b_dkv, "ffma_bound_ms": ffma_ms(4 * product)},
-                "dq": {"ms": dq_ms, **b_dq, "ffma_bound_ms": ffma_ms(3 * product)},
+                "dkv": {"ms": dkv_ms, **b_dkv, "ffma_bound_ms": ffma_ms(4 * product),
+                        "attributes": kernel_attributes("flash_bwd_dkv_f32")},
+                "dq": {"ms": dq_ms, **b_dq, "ffma_bound_ms": ffma_ms(3 * product),
+                       "attributes": kernel_attributes("flash_bwd_dq_f32")},
                 "common": {"plain_ms": plain_ms, "library_ms": library_ms,
                            "function_bound_ms": b_fn["bound_ms"], "shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} f32"},
                 "train_forward": {"train_forward_shape": f"{FLASH_BWD_TIMED_SHAPE + (64,)} f32",
                                   "train_forward_ms": fwd_ms, "train_forward_library_ms": fwd_library_ms,
-                                  "train_forward_bound_ms": b_fwd["bound_ms"]},
+                                  "train_forward_bound_ms": b_fwd["bound_ms"],
+                                  "train_forward_attributes": kernel_attributes("flash_attn_f32_stats")},
             }
     out = {
         name: {"max_abs_err": worst[name][0], "max_rel_err": worst[name][1], **timed[name], **timed["common"]}

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tpuhar.ops.flash_lean import flash_lean as jax_flash_lean
+from tpuhar_torch import _ext
 from tpuhar_torch.ops.flash_lean import (
     FLASH_DTYPES,
     QUERY_TILE,
@@ -159,3 +160,15 @@ def test_f32_plain_forward_matches_jax_interpret(B_, H_):
     got = flash_lean(*(torch.from_numpy(t) for t in (q, k, v)))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_attributes_raise_cleanly_without_cuda(monkeypatch):
+    """``_ext.kernel_attributes`` refuses a name the kernel table does not hold, and without
+    a CUDA device raises before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_ext, "library", lambda: pytest.fail("built the library without a CUDA device"))
+    with pytest.raises(ValueError, match="not one of"):
+        _ext.kernel_attributes("flash_attn")
+    for name in _ext.ATTRIBUTE_KERNELS:
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            _ext.kernel_attributes(name)

@@ -13,15 +13,23 @@ top 19 bits). The A of the last products comes straight from the S and dP accumu
 registers, so its k-th column is stage row ``8 j + sigma(k)`` of each group of eight; the
 kernels store the B tiles' stage rows in that order. Stage rows past N arrive as zeros,
 and P is 0 there: the dK/dV kernel gives those query rows lse = +inf, the dQ kernel
-masks the key columns. The kernels themselves run only on the card
-(``tests/test_torch_kernels_cuda.py``).
+masks the key columns. The forward kernel (``tpuhar_torch/csrc/flash_attn_f32.cu``) runs
+S = Q K^T the same way over stages of 64 key rows, the online softmax on the stage's
+scores (the running max m, alpha = exp((m_old − m)·scale), l = alpha·l + the row sums,
+-inf in the key columns past N), and each stage's P V, A straight from the S accumulator
+and V's [d][key] rows in the same key order, into a fresh sum that is added as
+O = alpha·O + O_stage; then O / l and m·scale + ln l. The kernels themselves run only on
+the card (``tests/test_torch_kernels_cuda.py``).
 """
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from tpuhar.ops.flash_lean import flash_lean as jax_flash_lean
 from tpuhar_torch.ops.conv3x3 import split_tf32
-from tpuhar_torch.ops.flash_lean import flash_lean_backward_reference, flash_lean_with_stats
+from tpuhar_torch.ops.flash_lean import _reference_sums, flash_lean_backward_reference, flash_lean_with_stats
 
 torch.set_num_threads(2)
 
@@ -120,6 +128,32 @@ def _emulated_dq(q, k, v, dout, lse, di, *, single: bool = False):
     return dq, p
 
 
+def _emulated_forward(q, k, v, *, single: bool = False):
+    """(out, lse) of the forward kernel on f32 operands, each product and sum in float64:
+    key rows padded to whole stages with zeros and -inf scores in the key columns past N;
+    a stage at a time the running max m, alpha and l, P (rounded to f32, as the kernel
+    holds it) split with A's columns and V's [d][key] rows in the tiles' key order, its
+    P V into a fresh sum added as O = alpha O + O_stage; then O / l and m scale + ln l."""
+    N = k.shape[2]
+    n_pad = -(-N // STAGE) * STAGE
+    k, v = (F.pad(t, (0, 0, 0, n_pad - N)) for t in (k, v))
+    s = _split_product(q, k.mT, single=single)  # (B, H, N queries, n_pad keys)
+    s[..., N:] = float("-inf")
+    order = _query_order(n_pad)
+    m = torch.full(s.shape[:-1], float("-inf"), dtype=torch.float64)
+    l = torch.zeros_like(m)
+    o = torch.zeros((*s.shape[:-1], v.shape[-1]), dtype=torch.float64)
+    for s0 in range(0, n_pad, STAGE):
+        m_new = torch.maximum(m, s[..., s0:s0 + STAGE].amax(-1))  # finite: every stage starts below N
+        alpha = torch.exp((m - m_new) * SM_SCALE)  # 0 on the first stage
+        p = torch.exp((s - m_new[..., None]) * SM_SCALE)  # the stage's columns are read below
+        keys = order[s0:s0 + STAGE]
+        l = l * alpha + p[..., s0:s0 + STAGE].sum(-1)
+        o = o * alpha[..., None] + _split_product(p[..., keys], v[..., keys, :], single=single)
+        m = m_new
+    return o / l[..., None], m * SM_SCALE + torch.log(l)
+
+
 def _case(B, H, N, seed):
     gen = torch.Generator().manual_seed(seed)
     q, k, v, dout = (torch.randn((B, H, N, 64), generator=gen) for _ in range(4))
@@ -160,6 +194,36 @@ def test_split_dq_matches_the_float64_backward(B, H, N):
     assert not p[..., N:].any()  # key columns past N: masked
     dq1, _ = _emulated_dq(q, k, v, dout, lse, di, single=True)
     assert _rel(dq1, want_dq) > 1e-5
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1568), (2, 1, 65), (2, 1, 129), (1, 2, 200)])
+def test_split_forward_matches_the_float64_forward(B, H, N):
+    """The forward kernel's arithmetic within 1e-6 of the largest output element, and its
+    log-sum-exp within 1e-6 absolute, against the plain forward in float64 (what is left:
+    the dropped lo·lo, what the splits leave over, P in f32); key columns past N add
+    nothing (a stage of one key row at 65, a block of one query row at 129); a single TF32
+    pass (hi·hi) misses the output by more than 1e-5."""
+    gen = torch.Generator().manual_seed(N + 2)
+    q, k, v = (torch.randn((B, H, N, 64), generator=gen) for _ in range(3))
+    want, want_lse = _reference_sums(q.double(), k.double(), v.double(), SM_SCALE)
+    out, lse = _emulated_forward(q, k, v)
+    assert _rel(out, want) <= 1e-6
+    assert (lse - want_lse).abs().max().item() <= 1e-6
+    out1, _ = _emulated_forward(q, k, v, single=True)
+    assert _rel(out1, want) > 1e-5
+
+
+def test_split_forward_matches_jax_interpret():
+    """The forward kernel's arithmetic against the JAX package's ``flash_lean`` in
+    interpret mode on the same f32 numpy inputs, with the kernel's staging (128-row query
+    blocks, 64-row key blocks, the last one masked past N) at a ragged N: within 1e-5 of
+    the largest element."""
+    rng = np.random.default_rng(27)
+    q, k, v = (rng.standard_normal((1, 2, 200, 64)).astype(np.float32) for _ in range(3))
+    want = np.array(jax_flash_lean(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=SM_SCALE,
+                                   block_q=128, block_k=64, interpret=True))
+    out, _ = _emulated_forward(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert _rel(out, torch.from_numpy(want).double()) <= 1e-5
 
 
 def test_accumulator_columns_make_the_permuted_a_operand():

@@ -679,11 +679,17 @@ F32_RTOL = 1e-5  # of the largest element: the same f32 function, its sums in an
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
 @pytest.mark.parametrize("B,H", [(1, 1), (2, 3), (8, 12)])
-@pytest.mark.parametrize("N", [1, 8, 32, 100, 112, 128, 192, 224, 256, 384, 1568])
+# the bf16 forward's N grid, then the f32 forward's own edges: it holds 128 query rows a
+# block, 64 a consumer, and walks the key rows in stages of 64 through a ring of two parts
+# (P V takes a stage's key rows 16 at a time): a second consumer with no rows (2), a stage
+# cut mid-way (31, 33), one stage and then a second ring slot first used by one key row
+# (64, 65), one block and then a block of one row (127, 129), a second block (255, 257)
+@pytest.mark.parametrize("N", [1, 8, 32, 100, 112, 128, 192, 224, 256, 384, 1568,
+                               2, 31, 33, 64, 65, 127, 129, 255, 257])
 def test_flash_lean_f32_matches_float64(cuda, B, H, N, strided):
-    """The f32 forward kernel (full f32 FFMA) against the plain version in float64 on the
-    same operands: max |kernel − plain| / max |plain| ≤ 1e-5; the f32 kernel's launch
-    counted, the bf16 one's not."""
+    """The f32 forward kernel (split TF32 on the tensor cores) against the plain version in
+    float64 on the same operands: max |kernel − plain| / max |plain| ≤ 1e-5; the f32
+    kernel's launch counted, the bf16 one's not."""
     from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_f32, flash_lean_reference
 
     q, k, v = _attention_case(B, H, N, cuda, dtype=torch.float32, strided=strided)
@@ -747,6 +753,41 @@ def test_flash_backward_f32_matches_float64(cuda, B, H, N, strided):
         assert g.transpose(1, 2).is_contiguous(), name
         rel = (g.double() - w).abs().max() / w.abs().max()
         assert rel.item() <= F32_RTOL, (name, rel.item())
+
+
+@pytest.mark.parametrize("N", [129, 1568])
+def test_flash_f32_forward_is_deterministic(cuda, N):
+    """The f32 forward kernel, without and with its log-sum-exp: bit for bit equal across
+    two calls (each block owns its query rows), and the same output either way."""
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_with_stats
+
+    q, k, v = _attention_case(2, 3, N, cuda, dtype=torch.float32, strided=True)
+    first, again = flash_lean(q, k, v), flash_lean(q, k, v)
+    assert torch.equal(first, again)
+    (out, lse, _), (out2, lse2, _) = (flash_lean_with_stats(q, k, v, 0.125) for _ in range(2))
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, first)
+
+
+def test_f32_flash_kernel_attributes(cuda):
+    """``_ext.kernel_attributes`` reads each f32 flash kernel's compiled attributes: 168
+    registers a thread (384 threads, one block an SM; setmaxnreg moves them), the
+    dynamic shared-memory limit its entry point set, and a name no table holds refused."""
+    from tpuhar_torch import _ext
+    from tpuhar_torch.ops.flash_lean import flash_lean, flash_lean_backward, flash_lean_with_stats
+
+    q, k, v = _attention_case(1, 2, 200, cuda, dtype=torch.float32)
+    flash_lean(q, k, v)  # each entry point sets its kernels' shared-memory limit at first use
+    _, lse, out_f32 = flash_lean_with_stats(q, k, v, 0.125)
+    flash_lean_backward(q, k, v, out_f32, torch.ones_like(q), lse, 0.125)
+    for name in _ext.ATTRIBUTE_KERNELS:
+        attrs = _ext.kernel_attributes(name)
+        assert set(attrs) == set(_ext.ATTRIBUTES), name
+        assert attrs["registers"] == 168, (name, attrs)
+        assert 190 * 1024 < attrs["max_dynamic_shared_bytes"] <= 227 * 1024, (name, attrs)
+        assert attrs["local_bytes"] >= 0, (name, attrs)
+    with pytest.raises(ValueError, match="not one of"):
+        _ext.kernel_attributes("flash_attn")
 
 
 def test_flash_f32_backward_is_deterministic(cuda):

@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tpuhar_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuhar_cuda_error_string.restype = ctypes.c_char_p
+    lib.tpuhar_kernel_attributes.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+    lib.tpuhar_kernel_attributes.restype = ctypes.c_int
     return lib
 
 
@@ -133,3 +135,26 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = library().tpuhar_cuda_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status}: {msg}")
+
+
+# the kernels whose compiled attributes ``tpuhar_kernel_attributes`` reads, by the names of
+# csrc/kernel_table.cuh: the f32 flash forward (without and with its LSE), dQ and dK/dV
+ATTRIBUTE_KERNELS = ("flash_attn_f32", "flash_attn_f32_stats", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+ATTRIBUTES = ("registers", "local_bytes", "static_shared_bytes", "max_dynamic_shared_bytes")
+
+
+def kernel_attributes(name: str) -> dict:
+    """The compiled attributes of kernel ``name`` (one of ``ATTRIBUTE_KERNELS``), read by
+    ``cudaFuncGetAttributes`` over the built library: registers a thread, local (spill)
+    bytes a thread, static shared memory, and the dynamic shared-memory limit its entry
+    point set at its first launch (before that, the default). Raises ``ValueError`` for
+    another name and ``RuntimeError`` without a CUDA device, before anything is built."""
+    import torch
+
+    if name not in ATTRIBUTE_KERNELS:
+        raise ValueError(f"kernel_attributes: {name!r} is not one of {ATTRIBUTE_KERNELS}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"kernel_attributes({name!r}) needs a CUDA device")
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    check(library().tpuhar_kernel_attributes(name.encode(), out), "tpuhar_kernel_attributes")
+    return dict(zip(ATTRIBUTES, out))

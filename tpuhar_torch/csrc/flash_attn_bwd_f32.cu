@@ -26,43 +26,28 @@
 // No block writes what another writes, so the results need no atomics and are the same
 // from call to call.
 //
-// Both kernels run every product on the tensor cores in split TF32 (csrc/split_tf32.cuh)
-// and share one block shape, that of the bf16 kernels: a block holds 128 rows of one
-// (batch, head), 64 for each of two consumer warpgroups, and a producer warpgroup walks
-// the other side's rows in stages of 64. Launched with 168 registers a thread, which
-// setmaxnreg moves to where they are needed (72 + 216 + 216).
-//  - The producer brings the block's held rows once by TMA (raw f32, 64 KB, in 128-byte
-//    swizzled rows of 32 head columns) and then, each stage: lane 0 brings the stage's raw
-//    rows of two operands by TMA (4-D tensor maps over the strided views,
-//    csrc/flash_maps.cuh; rows past N arrive as zeros); its 128 threads split them into
-//    TF32 hi and lo halves as [row][d] tiles, the K-major B of the products that sum over
-//    d, and then transpose those that a product summing over the stage's rows reads into
-//    [d][row] tiles (TF32 wgmma reads both operands K-major). A stage's two layouts are
-//    two parts with their own full and empty mbarriers, so the producer writes one while
-//    the consumers read the other. A thread owns two 4 x 4 blocks of each operand (stage
-//    rows 8 j + par + 2 i, head columns 4 c .. 4 c + 3) in every layout, so it reads back
-//    only what it wrote, its loads and stores are 16 bytes, and no eight lanes of one
-//    share a bank.
+// Both kernels run every product on the tensor cores in split TF32 on the block shape of
+// the f32 flash kernels (csrc/flash_f32.cuh, which holds what they share with the
+// forward): a block holds 128 rows of one (batch, head), 64 for each of two consumer
+// warpgroups, and a producer warpgroup walks the other side's rows in stages of 64.
+// Launched with 168 registers a thread, which setmaxnreg moves to where they are needed
+// (72 + 216 + 216).
+//  - The producer brings the block's held rows once by TMA (raw f32, 64 KB) and then, each
+//    stage, the stage's raw rows of two operands; its 128 threads split them into TF32 hi
+//    and lo halves as [row][d] tiles, the K-major B of the products that sum over d, and
+//    transpose those that a product summing over the stage's rows reads into [d][row]
+//    tiles. A stage's two layouts are two parts with their own full and empty mbarriers,
+//    so the producer writes one while the consumers read the other.
 //  - A consumer's products over d take A from its held raw rows in shared memory, loaded
 //    into registers and split there (whether a thread's values need split_raw_lo's full
 //    recipe is known once a block), three m64n64k8 products a k-step, small terms first
 //    (lo_a hi_b, hi_a lo_b, hi_a hi_b; lo_a lo_b is dropped). Every split here leaves lo
 //    unrounded (split_raw_lo: the tensor cores read its top 19 bits, within 2^-21 of the
 //    value against 2^-22 rounded). The products over the stage's rows take A straight from
-//    the accumulators of those over d: an accumulator's 8-column group j holds, in a
-//    thread's d[4j .. 4j+3], columns 2t and 2t + 1 (t = lane % 4) of two rows; the
-//    register A operand of a k-step holds columns t and t + 4. So a = {d[4j], d[4j+2],
-//    d[4j+1], d[4j+3]} is the A of the k-step whose k-th column is stage row
-//    8 j + sigma(k), sigma = (0, 2, 4, 6, 1, 3, 5, 7), and the [d][row] tiles hold the
-//    stage's rows in that order: P and dS never go through shared memory. Each product
-//    runs in two halves of its k-steps, each half's A in its own registers, so one half is
-//    split while the other's products run; a register is written again only after the
-//    products that read it have been waited for (ptxas serializes every wgmma
-//    otherwise). Each stage's products over its rows land in a fresh accumulator that is
-//    added to the running sum in f32 registers, so the tensor cores' own accumulation
-//    spans 64 rows and not N. A consumer whose 64 rows all lie past N hands every stage
-//    straight back; held rows past N compute on zeros and are not stored, each quad of
-//    threads storing 32 bytes of a row.
+//    the accumulators of those over d (acc_to_a), each stage's into a fresh accumulator
+//    added to the running sum in f32 registers. A consumer whose 64 rows all lie past N
+//    hands every stage straight back; held rows past N compute on zeros and are not
+//    stored, each quad of threads storing 32 bytes of a row.
 //
 // dQ (a block holds 128 query rows, Q and dO; a stage is 64 key rows, K and V): before the
 // loop each consumer thread forms di for its two query rows, a quarter of each row a lane
@@ -106,109 +91,21 @@
 // to fit) 2.54-2.56 against 2.18-2.20 (168 against 88 KB of shared-memory reads a
 // consumer every 32 key rows); the next stage's Q prefetched while dQ runs (it spills)
 // 2.67-2.71 against 2.54-2.58; 40/232 registers 2.29-2.31, 56/224 2.20-2.23 against
-// 2.19-2.20; two [d][key] parts without the ring, level.
+// 2.19-2.20; two [d][key] parts without the ring, level. held_finite taking the larger of
+// one scan an operand (against one loop over both) leaves dK/dV 20 bytes of spills against
+// 156: 2.63-2.69 ms against 2.76-2.81 in turns (dQ level).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_f32.cuh"
-#include "flash_maps.cuh"
-#include "hopper.cuh"
-#include "split_tf32.cuh"
+#include "kernel_table.cuh"
 
 using namespace flash_f32;
-using namespace hopper;
-using tf32x3::split_raw_lo;
-using tf32x3::split_raw_lo_finite;
 
 namespace {
 
-// ---- what both kernels share -------------------------------------------------------
-constexpr int HELD = 128;                  // rows a block holds: 64 a consumer warpgroup
-constexpr int BS = 64;                     // rows of one stage
-constexpr int BWD_THREADS = 384;           // two consumer warpgroups, then the producer
-constexpr int HELD_BYTES = HELD * D * 4;   // the block's rows of one operand, raw: two 16 KB halves
-constexpr int HELD_HALF = HELD_BYTES / 2;  // head columns 0-31, then 32-63
-constexpr int TILE_BYTES = BS * D * 4;     // a stage's tile of one operand, hi or lo: two 8 KB halves
-constexpr int TILE_HALF = TILE_BYTES / 2;  // [row][d]: head columns 0-31, then 32-63;
-                                           // [d][row]: stage rows 0-31, then 32-63
-constexpr int LAND_BYTES = 2 * TILE_BYTES;  // the stage's raw rows of two operands, as TMA lands them
-constexpr int PART_BYTES = 4 * TILE_BYTES;  // a part of a stage: two operands' tiles, hi and lo (64 KB)
-
-// Producer thread (j, par, c)'s 4 x 4 blocks of one operand's stage: stage rows
-// 8 (j + 4 g) + 2 i + par (i = 0..3) of block g = 0, 1 at head columns 4 c .. 4 c + 3.
-// Eight lanes of a load or store are (j, par) = all eight pairs at one parity of c and
-// four values of c % 8, so their 16-byte chunks fall on eight different bank groups in
-// every layout.
-struct Blocks {
-  int j, par, c;
-  __device__ __forceinline__ explicit Blocks(int p)
-      : j((p >> 1) & 3), par(p & 1), c(2 * ((((p >> 1) & 3) + (p >> 4)) & 3) + ((p >> 3) & 1) + 8 * (p >> 6)) {}
-};
-
-// rows_at: the offset of stage row r's chunk of head columns 4 c .. 4 c + 3 in a
-// [row][d] tile (two halves of BS rows x 128 bytes, swizzled), as TMA lands raw rows
-__device__ __forceinline__ int rows_at(int r, int c) { return (c >> 3) * TILE_HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4); }
-
-// the raw rows of blocks 0 and 1 at `raw` into TF32 halves at `tile` ([row][d]; hi, then
-// lo TILE_BYTES on), a row at a time; `raw` may be the lo tile itself, since each chunk is
-// read before it is written
-__device__ __forceinline__ void split_rows(const uint8_t* raw, uint8_t* tile, Blocks m) {
-#pragma unroll
-  for (int g = 0; g < 2; ++g)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int at = rows_at(8 * (m.j + 4 * g) + 2 * i + m.par, m.c);
-      const uint4 x = *reinterpret_cast<const uint4*>(raw + at);
-      uint32_t v[1][4] = {{x.x, x.y, x.z, x.w}}, lo[1][4];
-      split_raw_lo(v, lo);
-      *reinterpret_cast<uint4*>(tile + at) = make_uint4(v[0][0], v[0][1], v[0][2], v[0][3]);
-      *reinterpret_cast<uint4*>(tile + TILE_BYTES + at) = make_uint4(lo[0][0], lo[0][1], lo[0][2], lo[0][3]);
-    }
-}
-
-// the same blocks of the split [row][d] tiles at `rows` (hi, lo) transposed into `tile`
-// as [d][row] (64 swizzled rows of 128 bytes a half; hi, then lo TILE_BYTES on), where
-// position 8 j + 4 par + i of a half's row holds stage row 8 j + 2 i + par (sigma: the
-// order in which an accumulator's columns make the register A operand's k), so the
-// thread's 4 rows at one head column are one 16-byte chunk
-__device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* tile, Blocks m) {
-#pragma unroll
-  for (int g = 0; g < 2; ++g)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // hi, then lo
-      uint32_t v[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint4 x =
-            *reinterpret_cast<const uint4*>(rows + half * TILE_BYTES + rows_at(8 * (m.j + 4 * g) + 2 * i + m.par, m.c));
-        v[i][0] = x.x;
-        v[i][1] = x.y;
-        v[i][2] = x.z;
-        v[i][3] = x.w;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = 4 * m.c + e;
-        const int at = half * TILE_BYTES + g * TILE_HALF + n * 128 + (((2 * m.j + m.par) ^ (n & 7)) << 4);
-        *reinterpret_cast<uint4*>(tile + at) = make_uint4(v[0][e], v[1][e], v[2][e], v[3][e]);
-      }
-    }
-}
-
-// the register A operand of the 4 k-steps (8 head columns each) of head-column half
-// `half` from this thread's rows r0 and r0 + 8 of a consumer's 64 held raw rows at `rows`
-// (head columns 0-31; 32-63 HELD_HALF on): one 4-byte load an element, conflict-free
-// under the swizzle
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const uint8_t* rows, int half, int r0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a[kk][e] = *reinterpret_cast<const uint32_t*>(rows + half * HELD_HALF + (r0 + 8 * (e & 1)) * 128 +
-                                                    (((2 * kk + (e >> 1)) ^ (r0 & 7)) << 4) + 4 * (lane & 3));
-}
-
+// ---- what both kernels share beyond csrc/flash_f32.cuh --------------------------------
 // The dQ kernel's held rows, fragment-major: consumer thread i's 16 values of head-column
 // half `half` (what load_a gives it, a[kk][e]) as four 16-byte chunks at 64 i, chunk kk at
 // position kk ^ (i / 2 % 4), so that the eight lanes of a 16-byte access cover every bank
@@ -227,47 +124,24 @@ __device__ __forceinline__ void load_frag(uint32_t (&a)[4][4], const uint8_t* ro
   }
 }
 
-// whether every value of this thread's held rows r0 and r0 + 8 of two operands (at `x`
-// and `y`) lies below 0x7F7FF000, where split_raw_lo_finite takes them
-__device__ __forceinline__ bool held_finite(const uint8_t* x, const uint8_t* y, int r0, int lane) {
+// the largest magnitude's bits among this thread's held raw rows r0 and r0 + 8 at `x`
+__device__ __forceinline__ uint32_t held_top(const uint8_t* x, int r0, int lane) {
   uint32_t a[4][4], top = 0;
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    load_a(a, s & 2 ? y : x, s & 1, r0, lane);
+  for (int half = 0; half < 2; ++half) {
+    load_a(a, x, half, r0, lane);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) top = max(top, a[kk][e] & 0x7FFFFFFFu);
   }
-  return top < 0x7F7FF000u;
+  return top;
 }
 
-// the register A operand of the four k-steps over 32 of an accumulator's columns (half
-// `half` of its 64; see the head of the file), as f32 bits to be split
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[BS / 2], int half) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int j = 4 * half + kk;
-    a[kk][0] = __float_as_uint(d[4 * j]);
-    a[kk][1] = __float_as_uint(d[4 * j + 2]);
-    a[kk][2] = __float_as_uint(d[4 * j + 1]);
-    a[kk][3] = __float_as_uint(d[4 * j + 3]);
-  }
-}
-
-// acc (+)= A B over half `half` of 64 k (its four k-steps kk): three m64n64k8 products a
-// k-step, small terms first, B a K-major tile pair (hi at b, lo TILE_BYTES on) whose
-// k-step lies `half` halves and kk 32-byte steps along its 128-byte rows; `first` starts
-// the sum
-__device__ __forceinline__ void split_product(float (&acc)[32], const uint32_t (&a)[4][4], const uint32_t (&a_lo)[4][4],
-                                              uint32_t b, int half, bool first) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t at = b + half * TILE_HALF + kk * 32;
-    wgmma_m64n64k8_rs_tf32(acc, a_lo[kk], wgmma_desc(at, 16, 1024), !(first && kk == 0));
-    wgmma_m64n64k8_rs_tf32(acc, a[kk], wgmma_desc(at + TILE_BYTES, 16, 1024), 1);
-    wgmma_m64n64k8_rs_tf32(acc, a[kk], wgmma_desc(at, 16, 1024), 1);
-  }
+// whether every value of this thread's held rows of the operands at `x` and `y` lies below
+// 0x7F7FF000, where split_raw_lo_finite takes them (known once a block)
+__device__ __forceinline__ bool held_finite(const uint8_t* x, const uint8_t* y, int r0, int lane) {
+  return max(held_top(x, r0, lane), held_top(y, r0, lane)) < 0x7F7FF000u;
 }
 
 // acc (+)= A B over head-column half `half` of d, A a half of held raw rows loaded into
@@ -310,37 +184,19 @@ __device__ __forceinline__ void stage_product(float (&acc)[32], uint32_t (&a0)[4
   wgmma_wait<0>();
 }
 
-// a map's dimensions are (64, heads, tokens, batch) where its bit of heads_inner is set,
-// else (64, tokens, heads, batch); a box is 32 head columns from d0
-__device__ __forceinline__ void load_box(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int heads_inner, int bit,
-                                         int d0, int row, int h, int b) {
-  if (heads_inner >> bit & 1)
-    tma_load_4d(smem_addr(dst), map, bar, d0, h, row, b);
-  else
-    tma_load_4d(smem_addr(dst), map, bar, d0, row, h, b);
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
 // ---- dQ: a block holds 128 query rows; stages of 64 key rows -------------------------
-// a [key][d] part: K hi, K lo, V hi, V lo; TMA lands a stage's raw K and V rows in its lo
-// tiles, and the producer splits them in place
-constexpr int K_HI = 0, V_HI = 2 * TILE_BYTES;
-constexpr int DQ_TR_BYTES = 2 * TILE_BYTES;  // the [d][key] part: K hi, K lo (32 KB)
-// Q, dO, a ring of two [key][d] parts, the [d][key] part, and room to align to 1024 bytes
-constexpr int DQ_SMEM = 2 * HELD_BYTES + 2 * PART_BYTES + DQ_TR_BYTES + 1024;
+// Q, dO, a ring of two [key][d] parts, the [d][key] part (K), and room to align to 1024
+// bytes
+constexpr int DQ_SMEM = 2 * HELD_BYTES + 2 * PART_BYTES + TR_BYTES + 1024;
 
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict__ di, OutView dq, int H, int N,
                         float sm_scale, int heads_inner,
                         const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map) {
   extern __shared__ uint8_t smem_raw[];
-  // each part: full (the producer's 128 threads, after their stores) and empty (lane 0
-  // of every consumer warp); a [key][d] part's raw rows and Q/dO: TMA bytes
-  __shared__ uint64_t rows_full[2], rows_empty[2], landed[2], tr_full, tr_empty, qo_full;
+  __shared__ KeyRing ring;
+  __shared__ uint64_t qo_full;  // Q and dO: TMA bytes
   uint8_t* smem = align_1024(smem_raw);
   uint8_t* rows = smem + 2 * HELD_BYTES;  // Q, dO, the two [key][d] parts, the [d][key] part
   uint8_t* tr = rows + 2 * PART_BYTES;
@@ -349,14 +205,7 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
   const int k_tiles = (N + BS - 1) / BS;
 
   if (tid == 0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      mbar_init(&rows_full[u], 128);
-      mbar_init(&rows_empty[u], 8);
-      mbar_init(&landed[u], 1);
-    }
-    mbar_init(&tr_full, 128);
-    mbar_init(&tr_empty, 8);
+    ring.init();
     mbar_init(&qo_full, 1);
     mbar_init_fence();
   }
@@ -366,17 +215,6 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
     // ------------------------------- producer -------------------------------------
     reg_dealloc<72>();
     const int p = tid - 256;
-    auto land_stage = [&](int t) {  // the raw K and V rows of stage t, into part t % 2's lo tiles
-      uint8_t* part = rows + (t & 1) * PART_BYTES;
-      mbar_arrive_expect_tx(&landed[t & 1], LAND_BYTES);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        load_box(part + K_HI + TILE_BYTES + half * TILE_HALF, &k_map, &landed[t & 1], heads_inner, 1, 32 * half,
-                 t * BS, h, b);
-        load_box(part + V_HI + TILE_BYTES + half * TILE_HALF, &v_map, &landed[t & 1], heads_inner, 2, 32 * half,
-                 t * BS, h, b);
-      }
-    };
     if (p == 0) {
       mbar_arrive_expect_tx(&qo_full, 2 * HELD_BYTES);
 #pragma unroll
@@ -384,34 +222,16 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
         load_box(smem + half * HELD_HALF, &q_map, &qo_full, heads_inner, 0, 32 * half, q0, h, b);
         load_box(smem + HELD_BYTES + half * HELD_HALF, &do_map, &qo_full, heads_inner, 3, 32 * half, q0, h, b);
       }
-      land_stage(0);
-      if (k_tiles > 1) land_stage(1);
     }
-    const Blocks m(p);  // this thread's 4 x 4 blocks of a stage (split_rows, transpose_rows)
-    for (int t = 0; t < k_tiles; ++t) {
-      const int u = t & 1;
-      uint8_t* part = rows + u * PART_BYTES;
-      // the part's raw rows are in, and the consumers are past S and dP of stage t - 2
-      // (the same part's last use: its landing waited for that)
-      mbar_wait(&landed[u], (t >> 1) & 1);
-      // in place: the thread reads its blocks' raw rows from the lo tiles before it
-      // writes them
-      split_rows(part + K_HI + TILE_BYTES, part + K_HI, m);
-      split_rows(part + V_HI + TILE_BYTES, part + V_HI, m);
-      fence_proxy_async();  // the stores become visible to wgmma's reads
-      mbar_arrive(&rows_full[u]);
-      // every producer thread is past stage t - 1 (its transpose reads the other part):
-      // the other part takes stage t + 1 once the consumers are past S and dP of t - 1
-      bar_sync(1, 128);
-      if (p == 0 && t >= 1 && t + 1 < k_tiles) {
-        mbar_wait(&rows_empty[u ^ 1], ((t - 1) >> 1) & 1);
-        land_stage(t + 1);
-      }
-      mbar_wait(&tr_empty, (t & 1) ^ 1);  // the consumers are past dQ of stage t - 1
-      transpose_rows(part + K_HI, tr, m);  // the thread reads back only the blocks it wrote
-      fence_proxy_async();
-      mbar_arrive(&tr_full);
-    }
+    // K and V split in place, the B of S and dP; K transposed from its split tiles into the
+    // [d][key] part, the B of dQ
+    produce_keys(
+        ring, rows, k_tiles, &k_map, &v_map, heads_inner, h, b, p,
+        [](uint8_t* part, Blocks m) {
+          split_rows(part + K_HI + TILE_BYTES, part + K_HI, m);
+          split_rows(part + V_HI + TILE_BYTES, part + V_HI, m);
+        },
+        [tr](uint8_t* part, Blocks m) { transpose_rows(part + K_HI, tr, m); });
   } else {
     // ------------------------------- consumers ------------------------------------
     reg_alloc<216>();
@@ -419,14 +239,7 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
     const int r0 = 16 * warp + (lane >> 2);  // this thread's query rows r0 and r0 + 8 of its 64
     const int row0 = q0 + 64 * wg;
     if (row0 >= N) {
-      // the last block's consumer whose 64 query rows all lie past N: hand every stage
-      // straight back, so that the other consumer has the SM to itself
-      for (int t = 0; t < k_tiles; ++t) {
-        mbar_wait(&rows_full[t & 1], (t >> 1) & 1);
-        if (lane == 0) mbar_arrive(&rows_empty[t & 1]);
-        mbar_wait(&tr_full, t & 1);
-        if (lane == 0) mbar_arrive(&tr_empty);
-      }
+      hand_back_keys(ring, k_tiles, lane);
       return;
     }
     uint8_t* q_rows = smem + wg * (64 * 128);
@@ -502,7 +315,7 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
       // S = Q K^T, then dP = dO V^T (64 query rows x 64 key columns), each over two halves
       // of d: B is the stage's [key][d] tiles
       const uint32_t kv = rows_addr + (t & 1) * PART_BYTES;  // the stage's [key][d] part
-      mbar_wait(&rows_full[t & 1], (t >> 1) & 1);
+      mbar_wait(&ring.rows_full[t & 1], (t >> 1) & 1);
       load_frag(a0, q_rows, 0, fi);
       held_half(s, a0, a0_lo, kv + K_HI, 0, qo_finite);
       load_frag(a1, q_rows, 1, fi);
@@ -525,19 +338,19 @@ flash_bwd_dq_f32_kernel(View o, const float* __restrict__ lse, float* __restrict
         }
       wgmma_wait<0>();
       __syncwarp();
-      if (lane == 0) mbar_arrive(&rows_empty[t & 1]);  // the [key][d] part goes back to the producer
+      if (lane == 0) mbar_arrive(&ring.rows_empty[t & 1]);  // the [key][d] part goes back to the producer
       // dS = P (dP - di) scale in place of dP
 #pragma unroll
       for (int i = 0; i < BS / 2; ++i) dp[i] = s[i] * (dp[i] - di_r[(i >> 1) & 1]) * sm_scale;
       // dQ += dS K over the stage's 64 key rows: A straight from the dS accumulator, B
       // K's [d][key] tiles; into a fresh accumulator, added to the running sum in f32
-      mbar_wait(&tr_full, t & 1);
+      mbar_wait(&ring.tr_full, t & 1);
       float part[D / 2];
       stage_product<true>(part, a0, a0_lo, a1, a1_lo, dp, tr_addr);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq_acc[i] += part[i];
       __syncwarp();
-      if (lane == 0) mbar_arrive(&tr_empty);  // and the [d][key] part
+      if (lane == 0) mbar_arrive(&ring.tr_empty);  // and the [d][key] part
     }
     // accumulator layout: group j's d[4j], d[4j+1] are row r0, head columns 8 j + col, +1;
     // d[4j+2], d[4j+3] the same columns of row r0 + 8
@@ -560,7 +373,7 @@ constexpr int Q_HI = 0, DO_HI = 2 * TILE_BYTES;
 // K, V, the two parts, the landing buffer, and room to align to 1024 bytes
 constexpr int DKV_SMEM = 2 * HELD_BYTES + 2 * PART_BYTES + LAND_BYTES + 1024;
 
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict__ di, OutView dk, OutView dv,
                          int H, int N, float sm_scale, int heads_inner,
                          const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -739,20 +552,14 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse, const float* __restrict_
 
 bool grid_fits(int B, int H, int N) { return B > 0 && H > 0 && N > 0 && B <= 65535 && H <= 65535; }
 
-// the four operands' tensor maps (q, k, v, dO), q and dO in boxes of `qo_rows` tokens, k
-// and v of `kv_rows`; `order` gets bit i set where operand i has its heads inside its
-// tokens
-bool operand_maps(CUtensorMap (&maps)[4], int& order, const flash_maps::Operand (&ops)[4], int qo_rows, int kv_rows) {
-  const int rows[4] = {qo_rows, kv_rows, kv_rows, qo_rows};
-  order = 0;
-  for (int i = 0; i < 4; ++i) {
-    if (!flash_maps::operand_map(&maps[i], ops[i], rows[i])) return false;
-    order |= flash_maps::heads_inner(ops[i]) << i;
-  }
-  return true;
-}
-
 }  // namespace
+
+namespace tpuhar_kernels {
+extern const Entry flash_attn_bwd_f32[2] = {
+    {"flash_bwd_dq_f32", reinterpret_cast<const void*>(&flash_bwd_dq_f32_kernel)},
+    {"flash_bwd_dkv_f32", reinterpret_cast<const void*>(&flash_bwd_dkv_f32_kernel)},
+};
+}  // namespace tpuhar_kernels
 
 // dq of one backward, and di = rowsum(O o dO) (B, H, N) f32 for the dK/dV kernel, from
 // q, k, v, the forward's f32 output o, dO and lse
@@ -776,9 +583,10 @@ extern "C" int tpuhar_flash_bwd_dq_f32(const void* q, const void* k, const void*
       {v, B, H, N, svb, svh, svn, true}, {dout, B, H, N, sdb, sdh, sdn, true}};
   CUtensorMap maps[4];
   int order = 0;
-  if (!operand_maps(maps, order, ops, HELD, BS)) return static_cast<int>(cudaErrorInvalidValue);
+  const int boxes[4] = {HELD, BS, BS, HELD};
+  if (!operand_maps(maps, order, ops, boxes)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + HELD - 1) / HELD, H, B);
-  flash_bwd_dq_f32_kernel<<<grid, BWD_THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_f32_kernel<<<grid, THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
       View{static_cast<const float*>(o), sob, soh, son}, static_cast<const float*>(lse), static_cast<float*>(di),
       OutView{static_cast<float*>(dq), sqgb, sqgh, sqgn}, H, N, sm_scale, order, maps[0], maps[1], maps[2], maps[3]);
   return static_cast<int>(cudaGetLastError());
@@ -807,9 +615,10 @@ extern "C" int tpuhar_flash_bwd_dkv_f32(const void* q, const void* k, const void
       {v, B, H, N, svb, svh, svn, true}, {dout, B, H, N, sdb, sdh, sdn, true}};
   CUtensorMap maps[4];
   int order = 0;
-  if (!operand_maps(maps, order, ops, BS, HELD)) return static_cast<int>(cudaErrorInvalidValue);
+  const int boxes[4] = {BS, HELD, HELD, BS};
+  if (!operand_maps(maps, order, ops, boxes)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + HELD - 1) / HELD, H, B);
-  flash_bwd_dkv_f32_kernel<<<grid, BWD_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_f32_kernel<<<grid, THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lse), static_cast<const float*>(di),
       OutView{static_cast<float*>(dk), skgb, skgh, skgn}, OutView{static_cast<float*>(dv), svgb, svgh, svgn},
       H, N, sm_scale, order, maps[0], maps[1], maps[2], maps[3]);

@@ -10,17 +10,18 @@ launches a kernel or raises. The kernels take D = 64 (the head width of every
 ``VIT_CONFIGS`` entry) and any strides whose last is 1, so views of the ``(B, N, H·D)``
 projections go in as they are, in one of two types, as the TPU kernels run in the
 input's: bf16 goes to ``csrc/flash_attn.cu`` (``flash_lean.launches`` counts its
-launches), f32 to ``csrc/flash_attn_f32.cu`` (full f32 FFMA whatever the matmul
-precision; ``flash_lean_f32.launches``); any other type raises.
+launches), f32 to ``csrc/flash_attn_f32.cu`` (full f32 on the tensor cores in split TF32,
+three TF32 products an f32 one, whatever the matmul precision;
+``flash_lean_f32.launches``); any other type raises.
 
 ``FlashLean`` gives the forward a gradient: it saves each row's log-sum-exp and the
 output in f32 (``flash_lean_with_stats``, the same kernel with more outputs), and its
 backward runs the dQ and the dK/dV kernels, the ports of the stock TPU kernel's two
 backward kernels: ``csrc/flash_attn_bwd.cu`` for bf16 (``flash_lean_bwd_dq``,
 ``flash_lean_bwd_dkv``, each with its ``launches``), ``csrc/flash_attn_bwd_f32.cu`` for
-f32 (``flash_lean_bwd_dq_f32``, full f32 FFMA; ``flash_lean_bwd_dkv_f32``, full f32 on the
-tensor cores in split TF32, whatever the matmul precision); or autograd through the
-plain version on the CPU. The gradients come back in q's type.
+f32 (``flash_lean_bwd_dq_f32``, ``flash_lean_bwd_dkv_f32``: full f32 on the tensor cores
+in split TF32, as the f32 forward, whatever the matmul precision); or autograd through
+the plain version on the CPU. The gradients come back in q's type.
 
 The TPU kernel's ``block_q``/``block_k`` are tiles of the TPU's memory and change no
 result (at its defaults ``(392, 1792)`` it clamps the KV block to N and runs one
@@ -185,8 +186,8 @@ def _require_f32(what: str, q: torch.Tensor) -> None:
 
 def flash_lean_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: Optional[float] = None):
     """``flash_lean`` on f32 operands only. ``launches`` counts the launches of the f32
-    forward kernel (``csrc/flash_attn_f32.cu``), through ``flash_lean`` and
-    ``flash_lean_with_stats`` too."""
+    forward kernel (``csrc/flash_attn_f32.cu``: split TF32 on the tensor cores, 128 query
+    rows a block), through ``flash_lean`` and ``flash_lean_with_stats`` too."""
     _require_f32("flash_lean_f32", q)
     return flash_lean(q, k, v, sm_scale=sm_scale)
 

@@ -1,6 +1,15 @@
 """Drive the PyTorch port (``tpuhar_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --phase 30     # phases 1 and 2, then the phases named
+    python3 chip_smoke.py --phase 21,22  # (comma-separated) and those they read
+
+With ``--phase`` the script runs the card's and the build's phases 1 and 2, the phases
+named and every phase whose results they read (``PHASE_NEEDS``: 22 reads 21's dataset),
+and prints the same last line. Each phase holds its own paths to their exact launch
+counts; the check that every kernel was launched by some main path runs only when all
+phases run. The kernels line lists every kernel with the launches this run counted, and
+with phase 3's checks and times where phase 3 ran.
 
 Phases; any failed check raises and the exit code is non-zero:
 
@@ -197,6 +206,19 @@ Phases; any failed check raises and the exit code is non-zero:
     on, and with flash off in f32 and in float64, from the same parameters, batches and
     generator: each flash step's loss within 1e-5 of the float64 step's, relative, its
     gradient norm within 1e-4.
+30. the port's last two parameters, at full width: (a) ``featurize_windows(
+    already_physical=True)`` on ``raw_to_physical`` of seeded raw counts at 8, 256 and
+    8192 windows of (250, 6) f32 equals the default path on the counts bit for bit, and
+    the fused kernel on the physical windows with ``racc = rgyro = 1.0`` is within 1e-5
+    of it; (b) phase 17's fusion classifier (``videomae_base``, bf16 with f32 masters,
+    batch 16, 224², 16 frames, the IMU windows through the fused featurizer): the video
+    tokens of ``video_encoder(video, train=True)`` (12 flash forwards with the LSE)
+    through ``forward_cast(..., method="fuse_with_tokens", train=True, generator=g)``
+    against ``forward(train=True)`` from the same state and generator seed: the logits,
+    the fused embedding, the moved statistics and the cross-entropy gradient of every
+    IMU-encoder, fusion and head parameter bit for bit; another seed gives other logits;
+    the default call equals the eval ``_fuse`` and the eval forward; the forward +
+    backward of ``fuse_with_tokens(train=True)`` timed at 16.
 
 Phases 3 and 12 hold the f32 forms of the flash kernels (full f32: the forward, dQ and
 dK/dV in split-TF32 wgmma) against their plain versions in float64, within 1e-5 of the
@@ -209,6 +231,7 @@ The line before the last is a JSON object with one entry per kernel; the last li
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import importlib.util
@@ -262,7 +285,7 @@ from tpuhar_torch.ops.conv3x3 import (
 from tpuhar_torch.ood import KNOWN_SCORES, OODEvaluator, full_f32
 from tpuhar_torch.ops import attention as attention_module
 from tpuhar_torch.ops import flash_lean as flash_lean_module
-from tpuhar_torch.ops.featurize import featurize_windows
+from tpuhar_torch.ops.featurize import featurize_windows, raw_to_physical
 from tpuhar_torch.ops.flash_lean import (
     flash_lean,
     flash_lean_backward,
@@ -291,7 +314,7 @@ from tpuhar_torch.serving import InferenceEngine, benchmark_engine
 from tpuhar_torch.serving_quant import build_quantized_tree, quantized_forward
 from tpuhar_torch.train.checkpoint import restore_checkpoint
 from tpuhar_torch.train.loop import ClassificationTrainer, CrossModalTrainer
-from tpuhar_torch.profile_step import device_profile
+from tpuhar_torch.profile_step import device_profile, median_ms
 from tpuhar_torch.time_fused_window import graph_ms, host_ms
 from tpuhar_torch.train.steps import contrastive_loss_fn, precision_scope
 from tpuhar_torch.utils.profiling import StepProfiler
@@ -606,6 +629,53 @@ ENGINE_TIMING_ITERS = {8: 20, 64: 3, 256: 3}
 ENGINE_BENCH_ITERS = {8: 10, 64: 2, 256: 2}  # benchmark_engine: predicts after its first
 STREAM_SIZES = (8, 5, 8, 3)  # predict_stream's four batches, held to predict
 STREAM_TIMED_BATCHES = 4  # predict_stream timed at each registered size
+# phase 30, the last two parameters: the featurizer on physical windows at
+# FEATURIZE_BATCHES; fuse_with_tokens(train=True) at phase 17's width, batch 16, timed in
+# FUSE_TOKENS_TRIALS trials of FUSE_TOKENS_ITERS steps after a warm-up
+FUSE_TOKENS_BATCH, FUSE_TOKENS_SEED = 16, 900
+FUSE_TOKENS_TRIALS, FUSE_TOKENS_ITERS = 5, 5
+
+# each hand kernel: its source and the TPU kernel it replaces (phase 3 adds its check,
+# times and bound; the main paths their launches)
+KERNELS = {
+    "fused_window": {"name": "fused_window", "route": "cuda", "source": "tpuhar_torch/csrc/fused_window.cu",
+                     "replaces": "tpuhar/ops/fused_window.py:93"},
+    "conv3x3_bn_act": {"name": "conv3x3_bn_act", "route": "cuda", "source": "tpuhar_torch/csrc/conv3x3.cu",
+                       "replaces": "tpuhar/ops/conv3x3.py:142"},
+    "conv3x3_bn_act_f32": {"name": "conv3x3_bn_act_f32", "route": "cuda",
+                           "source": "tpuhar_torch/csrc/conv3x3_f32.cu", "replaces": "tpuhar/ops/conv3x3.py:142"},
+    "stem_gemm_u8": {"name": "stem_gemm_u8", "route": "cuda", "source": "tpuhar_torch/csrc/stem_u8.cu",
+                     "replaces": "tpuhar/ops/stem.py:254"},
+    "conv3x3_i8": {"name": "conv3x3_i8", "route": "cuda", "source": "tpuhar_torch/csrc/conv3x3_i8.cu",
+                   "replaces": "tpuhar/ops/conv3x3.py:142"},
+    "int8_gemm": {"name": "int8_gemm", "route": "cuda", "source": "tpuhar_torch/csrc/stem_u8.cu",
+                  "replaces": "tpuhar/ops/stem.py:254",
+                  "also_replaces": "tpuhar/ops/quant.py:65 (int8_dense, an XLA int8 product) and the 1x1 and 7x7 "
+                                   "tpuhar/ops/quant.py:44 int8_conv of the int8 ResNet-18"},
+    "flash_lean": {"name": "flash_lean", "route": "cuda", "source": "tpuhar_torch/csrc/flash_attn.cu",
+                   "replaces": "tpuhar/ops/flash_lean.py:89", "also_replaces": "tpuhar/ops/attention.py:72"},
+    "flash_bwd_dkv": {"name": "flash_bwd_dkv", "route": "cuda", "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
+                      "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv) "
+                                  "through tpuhar/ops/attention.py:72"},
+    "flash_bwd_dq": {"name": "flash_bwd_dq", "route": "cuda", "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
+                     "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq) "
+                                 "through tpuhar/ops/attention.py:72"},
+    "flash_lean_f32": {"name": "flash_lean_f32", "route": "cuda", "source": "tpuhar_torch/csrc/flash_attn_f32.cu",
+                       "replaces": "tpuhar/ops/flash_lean.py:89", "also_replaces": "tpuhar/ops/attention.py:72"},
+    "flash_bwd_dkv_f32": {"name": "flash_bwd_dkv_f32", "route": "cuda",
+                          "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
+                          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+                                      "(_flash_attention_bwd_dkv) through tpuhar/ops/attention.py:72"},
+    "flash_bwd_dq_f32": {"name": "flash_bwd_dq_f32", "route": "cuda",
+                         "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
+                         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
+                                     "(_flash_attention_bwd_dq) through tpuhar/ops/attention.py:72"},
+}
+LAST_PHASE = 30
+# a phase and the phases whose results it reads (``--phase`` runs them too)
+PHASE_NEEDS = {5: {4}, 6: {4}, 7: {6}, 9: {8}, 10: {4, 6, 8}, 11: {6}, 14: {13}, 15: {13}, 16: {4, 6, 8},
+               22: {21}, 23: {22}, 25: {24}, 26: {24}}
+
 
 def require_cuda() -> None:
     """Fail unless a CUDA device is present: the script never falls back to the CPU."""
@@ -4046,215 +4116,11 @@ def run_f32_vit_stage(counters: dict, kernels: dict, smi: str) -> dict:
     return result
 
 
-def main() -> None:
-    require_cuda()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-
-    t0 = time.perf_counter()
-    _ext.library()
-    print(f"[build] {_ext.library_path().name} from tpuhar_torch/csrc: {time.perf_counter() - t0:.1f} s")
-
-    kernels = {
-        "fused_window": {
-            "name": "fused_window", "route": "cuda",
-            "source": "tpuhar_torch/csrc/fused_window.cu",
-            "replaces": "tpuhar/ops/fused_window.py:93",
-            **check_featurizer(np.random.default_rng(0)),
-        },
-        "conv3x3_bn_act": {
-            "name": "conv3x3_bn_act", "route": "cuda",
-            "source": "tpuhar_torch/csrc/conv3x3.cu",
-            "replaces": "tpuhar/ops/conv3x3.py:142",
-            **check_conv3x3(),
-        },
-        "conv3x3_bn_act_f32": {
-            "name": "conv3x3_bn_act_f32", "route": "cuda",
-            "source": "tpuhar_torch/csrc/conv3x3_f32.cu",
-            "replaces": "tpuhar/ops/conv3x3.py:142",
-            **check_conv3x3_f32(),
-        },
-    }
-    verify_byte_map("cuda")
-    print("[kernel] stem_u8 byte-map preflight: all 256 byte values exact")
-    kernels["stem_gemm_u8"] = {
-        "name": "stem_gemm_u8", "route": "cuda",
-        "source": "tpuhar_torch/csrc/stem_u8.cu",
-        "replaces": "tpuhar/ops/stem.py:254",
-        **check_stem_u8(),
-    }
-    kernels["conv3x3_i8"] = {
-        "name": "conv3x3_i8", "route": "cuda",
-        "source": "tpuhar_torch/csrc/conv3x3_i8.cu",
-        "replaces": "tpuhar/ops/conv3x3.py:142",
-        **check_conv3x3_i8(),
-    }
-    kernels["int8_gemm"] = {
-        "name": "int8_gemm", "route": "cuda",
-        "source": "tpuhar_torch/csrc/stem_u8.cu",
-        "replaces": "tpuhar/ops/stem.py:254",
-        "also_replaces": "tpuhar/ops/quant.py:65 (int8_dense, an XLA int8 product) and the 1x1 and 7x7 "
-                         "tpuhar/ops/quant.py:44 int8_conv of the int8 ResNet-18",
-        **check_int8_gemm(),
-    }
-    kernels["conv3x3_i8"]["explicit_padding"] = check_conv3x3_i8_padding()
-    kernels["flash_lean"] = {
-        "name": "flash_lean", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn.cu",
-        "replaces": "tpuhar/ops/flash_lean.py:89",
-        "also_replaces": "tpuhar/ops/attention.py:72",
-        **check_flash(),
-    }
-    bwd = check_flash_backward()
-    kernels["flash_lean"].update(bwd["train_forward"])  # row 5a: #4's kernel with the LSE stored
-    kernels["flash_bwd_dkv"] = {
-        "name": "flash_bwd_dkv", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv) "
-                    "through tpuhar/ops/attention.py:72",
-        **bwd["dkv"],
-    }
-    kernels["flash_bwd_dq"] = {
-        "name": "flash_bwd_dq", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn_bwd.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq) "
-                    "through tpuhar/ops/attention.py:72",
-        **bwd["dq"],
-    }
-    kernels["flash_lean_f32"] = {
-        "name": "flash_lean_f32", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn_f32.cu",
-        "replaces": "tpuhar/ops/flash_lean.py:89",
-        "also_replaces": "tpuhar/ops/attention.py:72",
-        **check_flash_f32(),
-    }
-    bwd32 = check_flash_backward_f32()
-    kernels["flash_lean_f32"].update(bwd32["train_forward"])  # row 5a'': the same kernel with the LSE stored
-    kernels["flash_bwd_dkv_f32"] = {
-        "name": "flash_bwd_dkv_f32", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv) "
-                    "through tpuhar/ops/attention.py:72",
-        **bwd32["dkv"],
-    }
-    kernels["flash_bwd_dq_f32"] = {
-        "name": "flash_bwd_dq_f32", "route": "cuda",
-        "source": "tpuhar_torch/csrc/flash_attn_bwd_f32.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq) "
-                    "through tpuhar/ops/attention.py:72",
-        **bwd32["dq"],
-    }
-    torch.cuda.empty_cache()
-    counters = launch_counters()
-
-    def drive(path: str, fn, requests, expected: dict, cfg) -> list:
-        """Serve ``requests`` with every launch count set to 0 just before and read
-        just after; fail unless the path launched each kernel as ``expected``."""
-        for counter in counters.values():
-            counter.launches = 0
-        outs = [fn(*r) for r in requests]
-        torch.cuda.synchronize()
-        counts = {name: counter.launches for name, counter in counters.items()}
-        for name, n in counts.items():
-            kernels[name].setdefault("launches_by_path", {})[path] = n
-        batch = requests[0][0].shape[0]
-        shapes = {"logits": (batch, cfg.model.num_classes), "msp": (batch,), "energy": (batch,),
-                  "embeddings": (batch, 2 * cfg.model.imu_d_model)}
-        for i, out in enumerate(outs):
-            for key, shape in shapes.items():
-                if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
-                    raise AssertionError(f"{path} request {i}: {key} {tuple(out[key].shape)} not finite {shape}")
-        print(f"[{path}] {len(requests)} request(s) of batch {batch} answered; outputs {shapes}, all "
-              f"finite; launches {counts}")
-        for name, n in expected.items():
-            if counts[name] != n:
-                raise AssertionError(f"{path}: {name} launched {counts[name]} times, expected {n}")
-        return outs
-
-    cfg = flagship_config()
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    fn, _ = build_forward(cfg, 8, device="cuda", params=params)
-    requests = [tuple(t.cuda() for t in request(100 + i, 8)) for i in range(3)]
-    outs = drive("bf16", fn, requests,
-                 {"fused_window": 3, "conv3x3_bn_act": 12, "stem_gemm_u8": 0, "conv3x3_i8": 0, "flash_lean": 0}, cfg)
-
-    ref_fn, _ = build_forward(flagship_config("float32"), 2, device="cpu", params=params)
-    imu, video = requests[0]
-    ref = ref_fn(imu[:2].cpu(), video[:2].cpu())
-    for key in ("logits", "embeddings"):
-        got = outs[0][key][:2].float().cpu()
-        diff, cos = (got - ref[key]).abs().max().item(), cosine(got, ref[key])
-        print(f"[cross-check] {key}: card bf16 vs CPU f32 max abs diff {diff:.4e}, cosine {cos:.6f}")
-        if not cos >= COSINE_MIN:
-            raise AssertionError(f"{key}: cosine {cos} < {COSINE_MIN}")
-
-    t0 = time.perf_counter()
-    fn8, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=True)
-    torch.cuda.synchronize()
-    print(f"[int8] int8-resident forward built (calibration, quantization, logit recalibration "
-          f"on the card): {time.perf_counter() - t0:.1f} s")
-    outs8 = drive("int8_resident", fn8, requests,
-                  {"fused_window": 3, "stem_gemm_u8": 3, "conv3x3_i8": 15, "conv3x3_bn_act": 0, "flash_lean": 0}, cfg)
-    fn8_base, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=False)
-    drive("int8_baseline", fn8_base, requests[:1],
-          {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5, "conv3x3_bn_act": 0, "flash_lean": 0}, cfg)
-
-    cfg_vit = vit_config()
-    t0 = time.perf_counter()
-    params_vit = init_params(cfg_vit, torch.Generator().manual_seed(0))
-    fn_vit, _ = build_forward(cfg_vit, 8, device="cuda", params=params_vit)
-    print(f"[vit] videomae_base forward built (weights drawn on the host, folded, loaded): "
-          f"{time.perf_counter() - t0:.1f} s")
-    requests_vit = [tuple(t.cuda() for t in vit_request(200 + i, 8)) for i in range(3)]
-    outs_vit = drive("vit_bf16", fn_vit, requests_vit, {
-        "flash_lean": 3 * VIT_CONFIGS[cfg_vit.model.video_backbone][0], "fused_window": 3,  # one per block
-        "conv3x3_bn_act": 0, "stem_gemm_u8": 0, "conv3x3_i8": 0,
-    }, cfg_vit)
-    # the card's quantized tree and logit map on the CPU's plain paths, at batch 2
-    q_cpu = tree_to(fn8.quantized_tree, "cpu")
-    frames = video[:2].reshape(32, 14, 14, 768)
-    feats = quant_tpucnn_forward_resident(fn8.quantized_tree, frames).cpu()
-    feats_ref = quant_tpucnn_forward_resident(q_cpu, frames.cpu())
-    diff = (feats - feats_ref).abs().max().item()
-    print(f"[cross-check] int8 tower features: card kernels vs CPU plain max abs diff {diff:.4e} "
-          f"(max |feature| {feats_ref.abs().max().item():.4e})")
-    if not torch.allclose(feats, feats_ref, rtol=FEATURE_RTOL, atol=FEATURE_ATOL):
-        raise AssertionError(f"int8 tower features differ beyond f32 sum order: {diff}")
-    cfg32 = flagship_config("float32")
-    ref8 = quantized_forward(
-        cfg32, load_variables(FusionClassifier(cfg32), params).eval(), q_cpu,
-        params["params"]["video_encoder"]["projection"], device="cpu",
-        recalibration=fn8.recalibration, resident=True,
-    )(imu[:2].cpu(), video[:2].cpu())
-    for key in ("logits", "embeddings"):
-        got = outs8[0][key][:2].float().cpu()
-        diff, cos = (got - ref8[key]).abs().max().item(), cosine(got, ref8[key])
-        print(f"[cross-check] int8 {key}: card (bf16 fusion) vs CPU (f32 fusion), same tree, "
-              f"max abs diff {diff:.4e}, cosine {cos:.6f}")
-        if not cos >= COSINE_MIN:
-            raise AssertionError(f"int8 {key}: cosine {cos} < {COSINE_MIN}")
-
-    t0 = time.perf_counter()
-    ref_vit, _ = build_forward(vit_config("float32"), 1, device="cpu", params=params_vit)
-    imu, video = requests_vit[0]
-    ref = ref_vit(imu[:1].cpu(), video[:1].cpu())
-    print(f"[vit] f32 plain forward of one request on the CPU: {time.perf_counter() - t0:.1f} s")
-    for key in ("logits", "embeddings"):
-        got = outs_vit[0][key][:1].float().cpu()
-        diff, cos = (got - ref[key]).abs().max().item(), cosine(got, ref[key])
-        print(f"[cross-check] vit {key}: card bf16 vs CPU f32 max abs diff {diff:.4e}, cosine {cos:.6f}")
-        if not cos >= COSINE_MIN:
-            raise AssertionError(f"vit {key}: cosine {cos} < {COSINE_MIN}")
-
-    check_int8_tree_device(fn8.quantized_tree, params)
-
-    # cross-modal pretraining at full width and depth, one epoch
+def run_pretrain_stage(counters: dict, kernels: dict, smi: str, phases: set) -> dict:
+    """Phases 13-15: cross-modal pretraining at full width and depth over one epoch
+    (13), the train step's time (15) and its first step against the plain path (14),
+    each where ``phases`` holds it. Returns the drawn parameters (phases 18 and 20 start
+    from them)."""
     cfg_pt = pretrain_config()
     cfg_pt.training.pretrain_epochs = PRETRAIN_EPOCHS
     t0 = time.perf_counter()
@@ -4314,84 +4180,430 @@ def main() -> None:
     shutil.rmtree(save_dir, ignore_errors=True)
 
     small = {key: t[:PRETRAIN_CHECK_BATCH] for key, t in train_batches[0].items()}
-    gen_dropout = torch.Generator(device="cuda").manual_seed(1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i in range(PRETRAIN_TIMED_STEPS):
-        task.train_step(task.state, train_batches[i % len(train_batches)], gen_dropout)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / PRETRAIN_TIMED_STEPS * 1e3
-    print(f"[timing] pretrain train step batch {PRETRAIN_BATCH}: {step_ms:.3f} ms, "
-          f"{PRETRAIN_BATCH / step_ms * 1e3:.1f} samples/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    if 15 in phases:
+        gen_dropout = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(PRETRAIN_TIMED_STEPS):
+            task.train_step(task.state, train_batches[i % len(train_batches)], gen_dropout)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / PRETRAIN_TIMED_STEPS * 1e3
+        print(f"[timing] pretrain train step batch {PRETRAIN_BATCH}: {step_ms:.3f} ms, "
+              f"{PRETRAIN_BATCH / step_ms * 1e3:.1f} samples/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
     del task, trainer, train_batches, val_batches
     torch.cuda.empty_cache()
-    check_first_step(cfg_pt, params_pt, small)
+    if 14 in phases:
+        check_first_step(cfg_pt, params_pt, small)
     del small
     torch.cuda.empty_cache()
+    return params_pt
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    programs = {"bf16": fn, "int8_resident": fn8, "int8_baseline": fn8_base, "vit_bf16": fn_vit}
-    for batch, names in ((8, ("bf16", "int8_resident", "vit_bf16")),
-                         (256, ("bf16", "int8_resident", "int8_baseline", "vit_bf16"))):
-        imu = torch.randn((batch, 250, 6), generator=gen, device="cuda") * 8000.0
-        video = torch.randint(0, 256, (batch, 16, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
-        for name in names:
-            clip = video.view(batch, 16, 224, 224, 3) if name == "vit_bf16" else video  # the same bytes, NHWC
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: programs[name](imu, clip), 20 if batch == 8 else 10)
-            print(
-                f"[timing] {name} batch {batch}: step {ms:.3f} ms, {batch / ms * 1e3:.1f} inf/s, "
-                f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})"
-            )
 
-    # the serving engine at full width: bf16, int8-resident and the ViT with flash
-    H, W = cfg.data.video_resize
-    calib = (np.random.default_rng(0).random((2, cfg.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
-    engines = {
-        "engine_bf16": (dict(config=cfg, variables=params), fn,
-                        {"fused_window": 1, "conv3x3_bn_act": 4}),
-        "engine_int8_resident": (dict(config=cfg, variables=params, quantize_calib_clips=calib,
-                                      quantize_resident=True, verify_byte_map=True), fn8,
-                                 {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5}),
-        "engine_vit": (dict(config=cfg_vit, variables=params_vit, fast_attention=True), fn_vit,
-                       {"fused_window": 1, "flash_lean": VIT_CONFIGS[cfg_vit.model.video_backbone][0]}),
-    }
-    for path, (kw, eager, expected) in engines.items():
-        t0 = time.perf_counter()
-        engine = InferenceEngine(batch_sizes=ENGINE_SIZES[path], device="cuda", **kw)
-        print(f"[{path}] built in {time.perf_counter() - t0:.1f} s")
-        check_engine(path, engine, eager, expected, counters, kernels, smi)
-        del engine
-        torch.cuda.empty_cache()
-    run_classification_stage(counters, kernels, smi)
-    run_towers_stage(counters, kernels, smi, params_pt)
-    run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
-    run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
-    cfg_pipeline = run_pipeline_stage(counters, kernels, smi)
-    try:
-        reference = run_mesh_stage(counters, kernels, smi, cfg_pipeline)
-        run_tp_stage(counters, kernels, smi, cfg_pipeline, reference)
-    finally:
-        shutil.rmtree(Path(cfg_pipeline.paths.base_output).parent, ignore_errors=True)
+
+def check_physical_windows(counters: dict, kernels: dict, smi: str) -> None:
+    """Phase 30 (a): ``featurize_windows(already_physical=True)`` on windows already in g
+    and deg/s (``raw_to_physical`` of seeded raw counts at each of ``FEATURIZE_BATCHES``)
+    equals the default path on the raw counts bit for bit; the fused kernel on the same
+    physical windows with ``racc = rgyro = 1.0`` (a multiply by exactly 1.0) within
+    ``FEATURIZE_ATOL`` of it, its launches counted on the path ``physical_windows``."""
+    d = pretrain_config().data
+    kw = dict(kernel_size=d.median_filter_kernel, normalize=d.normalize_imu)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        errors = {}
+        for batch in FEATURIZE_BATCHES:
+            raw = torch.randn((batch, d.imu_window_size, d.imu_channels), generator=gen, device="cuda") * 8000.0
+            phys = raw_to_physical(raw, d.Racc, d.Rgyro)
+            plain = featurize_windows(phys, already_physical=True, **kw)
+            default = featurize_windows(raw, racc=d.Racc, rgyro=d.Rgyro, **kw)
+            if not torch.equal(plain, default):
+                raise AssertionError(f"already_physical at {batch} windows differs from the default path by up to "
+                                     f"{(plain - default).abs().max().item():.3e}")
+            fused = featurize_windows_auto(phys, racc=1.0, rgyro=1.0, **kw)
+            errors[batch] = (fused - plain).abs().max().item()
+        return errors
+
+    errors, counts, seconds = drive_counted(counters, kernels, "physical_windows", run, {
+        **dict.fromkeys(counters, 0), "fused_window": len(FEATURIZE_BATCHES)})
+    print(f"[physical windows] featurize_windows(already_physical=True) equals the default path on the raw counts "
+          f"bit for bit at {', '.join(map(str, FEATURIZE_BATCHES))} windows of (250, 6) f32; the fused kernel with "
+          f"racc = rgyro = 1.0 on the physical windows against it, max abs err "
+          f"{', '.join(f'{e:.3e}' for e in errors.values())} (tolerance {FEATURIZE_ATOL}); {seconds:.2f} s; "
+          f"launches {counts} ({smi})")
+    if not max(errors.values()) <= FEATURIZE_ATOL:
+        raise AssertionError(f"the fused kernel on physical windows: {errors} > {FEATURIZE_ATOL}")
+
+
+def check_fuse_with_tokens(counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 30 (b): ``FusionClassifier.fuse_with_tokens(train=True)`` at phase 17's width
+    (``pretrain_config()``'s ``videomae_base`` fusion classifier through
+    ``build_fusion_task``: bf16 with f32 masters, batch 16, 224², 16 frames, the IMU
+    windows through the fused featurizer). The video tokens of ``video_encoder(video,
+    train=True)`` (the flash forward with its LSE) go through ``forward_cast(...,
+    method="fuse_with_tokens", train=True, generator=g)``; against ``forward(imu, video,
+    train=True, generator=g')`` from the same state, ``g`` and ``g'`` seeded alike: the
+    logits, the fused embedding, the moved statistics and the cross-entropy gradient of
+    every IMU-encoder, fusion and head parameter bit for bit. Another seed gives other
+    logits (dropout is live), and the default call equals the eval ``_fuse`` and the eval
+    forward. Then the forward + backward of ``fuse_with_tokens(train=True)`` timed."""
+    cfg = pretrain_config()
+    depth = VIT_CONFIGS[cfg.model.video_backbone][0]
+    precision = cfg.training.pretrain_matmul_precision
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(0), FusionClassifier)
+    model = build_fusion_task(cfg, device="cuda", params=params, steps_per_epoch=1).model
+    del params
+    print(f"[fuse tokens] {cfg.model.video_backbone} fusion classifier built (weights drawn on the host, f32 "
+          f"masters on the card): {time.perf_counter() - t0:.1f} s")
+    initial = {n: b.clone() for n, b in model.named_buffers()}
+    compared = [n for n, _ in model.named_parameters() if not n.startswith("video_encoder.")]
+
+    def train_pass(method: str, inputs: tuple, labels, seed: int) -> tuple:
+        """One cross-entropy forward and backward through ``method`` from the initial
+        statistics: (outputs, moved buffers, gradients of the compared parameters)."""
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(initial[n])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with precision_scope(precision):
+            logits, fused = model.forward_cast(*inputs, method=method, train=True, generator=gen)
+            cross_entropy_loss(logits, labels).backward()
+        grads = dict(model.named_parameters())
+        return ({"logits": logits.detach().cpu(), "fused": fused.detach().cpu()},
+                {n: b.cpu() for n, b in model.named_buffers()}, {n: grads[n].grad.cpu() for n in compared})
+
+    def run():
+        batch = classify_batches(cfg, 1, FUSE_TOKENS_BATCH, seed=FUSE_TOKENS_SEED, video=True)[0]
+        imu, labels, video = batch["imu"], batch["label"], normalize_clip(batch["video"])
+        with precision_scope(precision):
+            tokens = model.forward_cast(video, method="video_encoder", train=True)[1].detach()
+        whole = train_pass("forward", (imu, video), labels, FUSE_TOKENS_SEED)
+        split = train_pass("fuse_with_tokens", (imu, tokens), labels, FUSE_TOKENS_SEED)
+        other = train_pass("fuse_with_tokens", (imu, tokens), labels, FUSE_TOKENS_SEED + 1)[0]["logits"]
+        with torch.no_grad(), precision_scope(precision):
+            eval_tokens = model.forward_cast(video, method="video_encoder")[1]
+            imu_tokens = model.forward_cast(imu, method="imu_encoder")[1]
+            default = model.forward_cast(imu, eval_tokens, method="fuse_with_tokens")
+            fuse = model.forward_cast(imu_tokens, eval_tokens, method="_fuse")
+            forward = model.forward_cast(imu, video)
+        return imu, labels, tokens, whole, split, other, default, fuse, forward
+
+    (imu, labels, tokens, whole, split, other, default, fuse, forward), counts, seconds = drive_counted(
+        counters, kernels, "fuse_with_tokens", run, {
+            **dict.fromkeys(counters, 0), "fused_window": 1,
+            "flash_lean": 4 * depth,  # the tokens, forward(train=True), then both eval tokens
+            "flash_bwd_dkv": depth, "flash_bwd_dq": depth})
+    head = [n for n in initial if n.startswith("classifier.")]
+    moved_head = [n for n in head if not torch.equal(split[1][n], initial[n].cpu())]
+    for got, want, what in zip(split, whole, ("outputs", "moved statistics", "gradients")):
+        tree_equal(got, want, f"fuse_with_tokens(train=True) against forward(train=True), the {what}")
+    if not head or moved_head != head:
+        raise AssertionError(f"the head's statistics did not all move: {sorted(set(head) - set(moved_head))}")
+    if torch.equal(other, split[0]["logits"]):
+        raise AssertionError("fuse_with_tokens(train=True): two dropout seeds gave the same logits")
+    for name, want in (("the eval _fuse", fuse), ("the eval forward", forward)):
+        if not (torch.equal(default[0], want[0]) and torch.equal(default[1], want[1])):
+            raise AssertionError(f"the default fuse_with_tokens differs from {name}")
+    print(f"[fuse tokens] batch {FUSE_TOKENS_BATCH}, tokens {tuple(tokens.shape)} from video_encoder(train=True): "
+          f"fuse_with_tokens(train=True) equals forward(train=True) bit for bit on the logits, the fused "
+          f"embedding, all {len(initial)} buffers ({len(head)} of the head's statistics moved) and the gradients "
+          f"of {len(compared)} IMU-encoder, fusion and head parameters; another seed moves the logits by up to "
+          f"{(other - split[0]['logits']).abs().max().item():.3e}; the default call equals the eval _fuse and the "
+          f"eval forward bit for bit; {seconds:.1f} s; launches {counts} ({smi})")
+    del whole, split, other, default, fuse, forward
+
+    def fuse_step(imu, tokens, labels, gen):
+        model.zero_grad(set_to_none=True)
+        with precision_scope(precision):
+            logits, _ = model.forward_cast(imu, tokens, method="fuse_with_tokens", train=True, generator=gen)
+            cross_entropy_loss(logits, labels).backward()
+
+    gen = torch.Generator(device="cuda").manual_seed(FUSE_TOKENS_SEED)
+    ms = median_ms(fuse_step, (imu, tokens, labels, gen), trials=FUSE_TOKENS_TRIALS, iters=FUSE_TOKENS_ITERS)
+    print(f"[timing] fuse_with_tokens(train=True) forward + backward batch {FUSE_TOKENS_BATCH}: {ms:.3f} ms "
+          f"(CUDA events after a warm-up, the median of {FUSE_TOKENS_TRIALS} trials of {FUSE_TOKENS_ITERS} "
+          f"steps) ({smi})")
+    del model
+    torch.cuda.empty_cache()
+    return {"fuse_train_ms": ms}
+
+
+def run_fuse_tokens_stage(counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 30: the port's last two parameters, ``featurize_windows(already_physical=)``
+    and ``FusionClassifier.fuse_with_tokens(train=)``, on the card at full width."""
     t_phase = time.perf_counter()
-    kernels["int8_gemm"]["centered_stem"] = {**check_centered_stem(smi),
-                                             **check_centered_engines(counters, kernels, smi, cfg, params)}
-    print(f"[centered] phase 24 (a): {time.perf_counter() - t_phase:.1f} s")
-    root = run_workflows_stage(counters, kernels, smi)
-    print(f"[workflows] phase 24: {time.perf_counter() - t_phase:.1f} s")
-    try:
-        run_probes_stage(counters, kernels, smi, root)
-        run_bench_scripts_stage(counters, kernels, smi, root / "bench_accuracy")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    run_dryrun_stage(kernels, smi)
-    kernels["conv3x3_bn_act_f32"]["f32_flagship"] = run_f32_flagship_stage(counters, kernels, smi)
-    kernels["flash_lean_f32"]["f32_vit"] = run_f32_vit_stage(counters, kernels, smi)
+    check_physical_windows(counters, kernels, smi)
+    result = check_fuse_with_tokens(counters, kernels, smi)
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[fuse tokens] phase 30: {result['seconds']:.1f} s ({smi})")
+    return result
+
+
+def selected_phases(argv) -> set:
+    """The phases ``--phase N[,M...]`` names (all of them without it), with every phase
+    they read results of (``PHASE_NEEDS``), and the card and build phases 1 and 2."""
+    parser = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument("--phase", default=None,
+                        help="comma-separated phases to run (1-%d); default all" % LAST_PHASE)
+    args = parser.parse_args(argv)
+    if args.phase is None:
+        return set(range(1, LAST_PHASE + 1))
+    parts = [p.strip() for p in args.phase.split(",") if p.strip()]
+    wanted = {int(p) for p in parts if p.isdigit()}
+    if not parts or not all(p.isdigit() for p in parts) or not wanted <= set(range(1, LAST_PHASE + 1)):
+        parser.error(f"--phase takes numbers from 1 to {LAST_PHASE}, got {args.phase!r}")
+    phases = {1, 2}
+    while wanted:
+        p = wanted.pop()
+        phases.add(p)
+        wanted |= PHASE_NEEDS.get(p, set()) - phases
+    return phases
+
+
+def main(argv=None) -> None:
+    require_cuda()
+    phases = selected_phases(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    if len(phases) < LAST_PHASE:
+        print(f"[phases] {', '.join(map(str, sorted(phases)))} of 1-{LAST_PHASE}")
+
+    t0 = time.perf_counter()
+    _ext.library()
+    print(f"[build] {_ext.library_path().name} from tpuhar_torch/csrc: {time.perf_counter() - t0:.1f} s")
+
+    kernels = {name: dict(entry) for name, entry in KERNELS.items()}
+    if 3 in phases:
+        kernels["fused_window"].update(check_featurizer(np.random.default_rng(0)))
+        kernels["conv3x3_bn_act"].update(check_conv3x3())
+        kernels["conv3x3_bn_act_f32"].update(check_conv3x3_f32())
+        verify_byte_map("cuda")
+        print("[kernel] stem_u8 byte-map preflight: all 256 byte values exact")
+        kernels["stem_gemm_u8"].update(check_stem_u8())
+        kernels["conv3x3_i8"].update(check_conv3x3_i8())
+        kernels["int8_gemm"].update(check_int8_gemm())
+        kernels["conv3x3_i8"]["explicit_padding"] = check_conv3x3_i8_padding()
+        kernels["flash_lean"].update(check_flash())
+    if 12 in phases:
+        bwd = check_flash_backward()
+        kernels["flash_lean"].update(bwd["train_forward"])  # row 5a: #4's kernel with the LSE stored
+        kernels["flash_bwd_dkv"].update(bwd["dkv"])
+        kernels["flash_bwd_dq"].update(bwd["dq"])
+    if 3 in phases:
+        kernels["flash_lean_f32"].update(check_flash_f32())
+    if 12 in phases:
+        bwd32 = check_flash_backward_f32()
+        kernels["flash_lean_f32"].update(bwd32["train_forward"])  # row 5a'': the same kernel with the LSE stored
+        kernels["flash_bwd_dkv_f32"].update(bwd32["dkv"])
+        kernels["flash_bwd_dq_f32"].update(bwd32["dq"])
+    torch.cuda.empty_cache()
+    counters = launch_counters()
+
+    def drive(path: str, fn, requests, expected: dict, cfg) -> list:
+        """Serve ``requests`` with every launch count set to 0 just before and read
+        just after; fail unless the path launched each kernel as ``expected``."""
+        for counter in counters.values():
+            counter.launches = 0
+        outs = [fn(*r) for r in requests]
+        torch.cuda.synchronize()
+        counts = {name: counter.launches for name, counter in counters.items()}
+        for name, n in counts.items():
+            kernels[name].setdefault("launches_by_path", {})[path] = n
+        batch = requests[0][0].shape[0]
+        shapes = {"logits": (batch, cfg.model.num_classes), "msp": (batch,), "energy": (batch,),
+                  "embeddings": (batch, 2 * cfg.model.imu_d_model)}
+        for i, out in enumerate(outs):
+            for key, shape in shapes.items():
+                if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+                    raise AssertionError(f"{path} request {i}: {key} {tuple(out[key].shape)} not finite {shape}")
+        print(f"[{path}] {len(requests)} request(s) of batch {batch} answered; outputs {shapes}, all "
+              f"finite; launches {counts}")
+        for name, n in expected.items():
+            if counts[name] != n:
+                raise AssertionError(f"{path}: {name} launched {counts[name]} times, expected {n}")
+        return outs
+
+    cfg, cfg_vit = flagship_config(), vit_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0)) if phases & {4, 24} else None
+    params_vit = params_pt = None
+    if 4 in phases:
+        fn, _ = build_forward(cfg, 8, device="cuda", params=params)
+        requests = [tuple(t.cuda() for t in request(100 + i, 8)) for i in range(3)]
+        outs = drive("bf16", fn, requests,
+                     {"fused_window": 3, "conv3x3_bn_act": 12, "stem_gemm_u8": 0, "conv3x3_i8": 0, "flash_lean": 0},
+                     cfg)
+    if 5 in phases:
+        ref_fn, _ = build_forward(flagship_config("float32"), 2, device="cpu", params=params)
+        imu, video = requests[0]
+        ref = ref_fn(imu[:2].cpu(), video[:2].cpu())
+        for key in ("logits", "embeddings"):
+            got = outs[0][key][:2].float().cpu()
+            diff, cos = (got - ref[key]).abs().max().item(), cosine(got, ref[key])
+            print(f"[cross-check] {key}: card bf16 vs CPU f32 max abs diff {diff:.4e}, cosine {cos:.6f}")
+            if not cos >= COSINE_MIN:
+                raise AssertionError(f"{key}: cosine {cos} < {COSINE_MIN}")
+
+    if 6 in phases:
+        t0 = time.perf_counter()
+        fn8, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=True)
+        torch.cuda.synchronize()
+        print(f"[int8] int8-resident forward built (calibration, quantization, logit recalibration "
+              f"on the card): {time.perf_counter() - t0:.1f} s")
+        outs8 = drive("int8_resident", fn8, requests,
+                      {"fused_window": 3, "stem_gemm_u8": 3, "conv3x3_i8": 15, "conv3x3_bn_act": 0, "flash_lean": 0},
+                      cfg)
+        fn8_base, _ = build_int8_forward(cfg, 8, device="cuda", params=params, resident=False)
+        drive("int8_baseline", fn8_base, requests[:1],
+              {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5, "conv3x3_bn_act": 0, "flash_lean": 0}, cfg)
+
+    if 8 in phases:
+        t0 = time.perf_counter()
+        params_vit = init_params(cfg_vit, torch.Generator().manual_seed(0))
+        fn_vit, _ = build_forward(cfg_vit, 8, device="cuda", params=params_vit)
+        print(f"[vit] videomae_base forward built (weights drawn on the host, folded, loaded): "
+              f"{time.perf_counter() - t0:.1f} s")
+        requests_vit = [tuple(t.cuda() for t in vit_request(200 + i, 8)) for i in range(3)]
+        outs_vit = drive("vit_bf16", fn_vit, requests_vit, {
+            "flash_lean": 3 * VIT_CONFIGS[cfg_vit.model.video_backbone][0], "fused_window": 3,  # one per block
+            "conv3x3_bn_act": 0, "stem_gemm_u8": 0, "conv3x3_i8": 0,
+        }, cfg_vit)
+    if 7 in phases:
+        # the card's quantized tree and logit map on the CPU's plain paths, at batch 2
+        imu, video = requests[0]
+        q_cpu = tree_to(fn8.quantized_tree, "cpu")
+        frames = video[:2].reshape(32, 14, 14, 768)
+        feats = quant_tpucnn_forward_resident(fn8.quantized_tree, frames).cpu()
+        feats_ref = quant_tpucnn_forward_resident(q_cpu, frames.cpu())
+        diff = (feats - feats_ref).abs().max().item()
+        print(f"[cross-check] int8 tower features: card kernels vs CPU plain max abs diff {diff:.4e} "
+              f"(max |feature| {feats_ref.abs().max().item():.4e})")
+        if not torch.allclose(feats, feats_ref, rtol=FEATURE_RTOL, atol=FEATURE_ATOL):
+            raise AssertionError(f"int8 tower features differ beyond f32 sum order: {diff}")
+        cfg32 = flagship_config("float32")
+        ref8 = quantized_forward(
+            cfg32, load_variables(FusionClassifier(cfg32), params).eval(), q_cpu,
+            params["params"]["video_encoder"]["projection"], device="cpu",
+            recalibration=fn8.recalibration, resident=True,
+        )(imu[:2].cpu(), video[:2].cpu())
+        for key in ("logits", "embeddings"):
+            got = outs8[0][key][:2].float().cpu()
+            diff, cos = (got - ref8[key]).abs().max().item(), cosine(got, ref8[key])
+            print(f"[cross-check] int8 {key}: card (bf16 fusion) vs CPU (f32 fusion), same tree, "
+                  f"max abs diff {diff:.4e}, cosine {cos:.6f}")
+            if not cos >= COSINE_MIN:
+                raise AssertionError(f"int8 {key}: cosine {cos} < {COSINE_MIN}")
+
+    if 9 in phases:
+        t0 = time.perf_counter()
+        ref_vit, _ = build_forward(vit_config("float32"), 1, device="cpu", params=params_vit)
+        imu, video = requests_vit[0]
+        ref = ref_vit(imu[:1].cpu(), video[:1].cpu())
+        print(f"[vit] f32 plain forward of one request on the CPU: {time.perf_counter() - t0:.1f} s")
+        for key in ("logits", "embeddings"):
+            got = outs_vit[0][key][:1].float().cpu()
+            diff, cos = (got - ref[key]).abs().max().item(), cosine(got, ref[key])
+            print(f"[cross-check] vit {key}: card bf16 vs CPU f32 max abs diff {diff:.4e}, cosine {cos:.6f}")
+            if not cos >= COSINE_MIN:
+                raise AssertionError(f"vit {key}: cosine {cos} < {COSINE_MIN}")
+
+    if 11 in phases:
+        check_int8_tree_device(fn8.quantized_tree, params)
+
+    if 13 in phases:
+        params_pt = run_pretrain_stage(counters, kernels, smi, phases)
+
+    if 10 in phases:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        programs = {"bf16": fn, "int8_resident": fn8, "int8_baseline": fn8_base, "vit_bf16": fn_vit}
+        for batch, names in ((8, ("bf16", "int8_resident", "vit_bf16")),
+                             (256, ("bf16", "int8_resident", "int8_baseline", "vit_bf16"))):
+            imu = torch.randn((batch, 250, 6), generator=gen, device="cuda") * 8000.0
+            video = torch.randint(0, 256, (batch, 16, 14, 14, 768), generator=gen, device="cuda", dtype=torch.uint8)
+            for name in names:
+                clip = video.view(batch, 16, 224, 224, 3) if name == "vit_bf16" else video  # the same bytes, NHWC
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: programs[name](imu, clip), 20 if batch == 8 else 10)
+                print(
+                    f"[timing] {name} batch {batch}: step {ms:.3f} ms, {batch / ms * 1e3:.1f} inf/s, "
+                    f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})"
+                )
+
+    if 16 in phases:
+        # the serving engine at full width: bf16, int8-resident and the ViT with flash
+        H, W = cfg.data.video_resize
+        calib = (np.random.default_rng(0).random((2, cfg.data.video_frames_per_window, H, W, 3)) * 255).astype(np.uint8)
+        engines = {
+            "engine_bf16": (dict(config=cfg, variables=params), fn,
+                            {"fused_window": 1, "conv3x3_bn_act": 4}),
+            "engine_int8_resident": (dict(config=cfg, variables=params, quantize_calib_clips=calib,
+                                          quantize_resident=True, verify_byte_map=True), fn8,
+                                     {"fused_window": 1, "stem_gemm_u8": 1, "conv3x3_i8": 5}),
+            "engine_vit": (dict(config=cfg_vit, variables=params_vit, fast_attention=True), fn_vit,
+                           {"fused_window": 1, "flash_lean": VIT_CONFIGS[cfg_vit.model.video_backbone][0]}),
+        }
+        for path, (kw, eager, expected) in engines.items():
+            t0 = time.perf_counter()
+            engine = InferenceEngine(batch_sizes=ENGINE_SIZES[path], device="cuda", **kw)
+            print(f"[{path}] built in {time.perf_counter() - t0:.1f} s")
+            check_engine(path, engine, eager, expected, counters, kernels, smi)
+            del engine
+            torch.cuda.empty_cache()
+    if 17 in phases:
+        run_classification_stage(counters, kernels, smi)
+    if phases & {19, 20} and params_vit is None:
+        params_vit = init_params(cfg_vit, torch.Generator().manual_seed(0))
+    if phases & {18, 20} and params_pt is None:
+        params_pt = init_params(pretrain_config(), torch.Generator().manual_seed(0), CrossModalModel)
+    if 18 in phases:
+        run_towers_stage(counters, kernels, smi, params_pt)
+    if 19 in phases:
+        run_int8_towers_stage(counters, kernels, smi, cfg_vit, params_vit)
+    if 20 in phases:
+        run_evaluate_stage(counters, kernels, smi, params_vit, params_pt)
+    if 21 in phases:
+        cfg_pipeline = run_pipeline_stage(counters, kernels, smi)
+        try:
+            if 22 in phases:
+                reference = run_mesh_stage(counters, kernels, smi, cfg_pipeline)
+            if 23 in phases:
+                run_tp_stage(counters, kernels, smi, cfg_pipeline, reference)
+        finally:
+            shutil.rmtree(Path(cfg_pipeline.paths.base_output).parent, ignore_errors=True)
+    if 24 in phases:
+        t_phase = time.perf_counter()
+        kernels["int8_gemm"]["centered_stem"] = {**check_centered_stem(smi),
+                                                 **check_centered_engines(counters, kernels, smi, cfg, params)}
+        print(f"[centered] phase 24 (a): {time.perf_counter() - t_phase:.1f} s")
+        root = run_workflows_stage(counters, kernels, smi)
+        print(f"[workflows] phase 24: {time.perf_counter() - t_phase:.1f} s")
+        try:
+            if 25 in phases:
+                run_probes_stage(counters, kernels, smi, root)
+            if 26 in phases:
+                run_bench_scripts_stage(counters, kernels, smi, root / "bench_accuracy")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    if 27 in phases:
+        run_dryrun_stage(kernels, smi)
+    if 28 in phases:
+        kernels["conv3x3_bn_act_f32"]["f32_flagship"] = run_f32_flagship_stage(counters, kernels, smi)
+    if 29 in phases:
+        kernels["flash_lean_f32"]["f32_vit"] = run_f32_vit_stage(counters, kernels, smi)
+    if 30 in phases:
+        kernels["flash_lean"]["fuse_with_tokens"] = run_fuse_tokens_stage(counters, kernels, smi)
     for name, k in kernels.items():
-        k["launches"] = sum(k["launches_by_path"].values())
-        if k["launches"] <= 0:
+        k["launches"] = sum(k.get("launches_by_path", {}).values())
+        if len(phases) == LAST_PHASE and k["launches"] <= 0:
             raise AssertionError(f"no main path launched {name}")
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -19,18 +19,32 @@ from .layers import ClassifierHead, CrossAttentionBlock, ProjectionHead, l2_norm
 from .video import build_video_encoder
 
 
+class _Method(nn.Module):
+    """A call of ``model``'s attribute ``name`` (a method or a submodule) as a module's
+    ``forward``, which is the one entry ``torch.func.functional_call`` reaches."""
+
+    def __init__(self, model: nn.Module, name: str):
+        super().__init__()
+        self.model, self.method = model, name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.method)(*args, **kwargs)
+
+
 class MasterWeights(nn.Module):
     """``forward_cast`` over the dtypes recorded by ``record_use_dtypes``."""
 
     def record_use_dtypes(self) -> None:
         self.use_dtypes = {name: p.dtype for name, p in self.named_parameters()}
 
-    def forward_cast(self, *args, **kwargs):
-        """``forward`` with every parameter cast to its ``use_dtypes`` entry at use: on a
-        model whose parameters were made f32 masters (``.float()``), the modules compute
-        in the dtype they were built in and the gradients reach the f32 leaves."""
-        params = {name: p.to(self.use_dtypes[name]) for name, p in self.named_parameters()}
-        return torch.func.functional_call(self, params, args, kwargs)
+    def forward_cast(self, *args, method: str = "forward", **kwargs):
+        """``forward``, or the method or submodule that ``method`` names
+        (``"fuse_with_tokens"``, ``"video_encoder"``), with every parameter cast to its
+        ``use_dtypes`` entry at use: on a model whose parameters were made f32 masters
+        (``.float()``), the modules compute in the dtype they were built in and the
+        gradients reach the f32 leaves."""
+        params = {f"model.{name}": p.to(self.use_dtypes[name]) for name, p in self.named_parameters()}
+        return torch.func.functional_call(_Method(self, method), params, args, kwargs)
 
 
 class CrossModalModel(MasterWeights):
@@ -176,10 +190,15 @@ class FusionClassifier(MasterWeights):
         _, video_tokens = self.video_encoder(video, train=train)
         return self._fuse(imu_tokens, video_tokens, train, generator)
 
-    def fuse_with_tokens(self, imu, video_tokens):
-        """Forward with video tokens ``(B, N, video_d_model)`` computed elsewhere."""
-        _, imu_tokens = self.imu_encoder(imu)
-        return self._fuse(imu_tokens, video_tokens)
+    def fuse_with_tokens(self, imu, video_tokens, *, train: bool = False, generator=None):
+        """``forward`` with video tokens ``(B, N, video_d_model)`` computed elsewhere (an
+        int8 tower's, say). ``train`` and ``generator`` act as in ``forward``, and the
+        masks are drawn in its order: with the same tokens and generator state the two
+        give the same outputs and move a BatchNorm head's statistics alike. On a model
+        with f32 masters, call it through ``forward_cast(imu, video_tokens,
+        method="fuse_with_tokens", ...)``."""
+        _, imu_tokens = self.imu_encoder(imu, train=train, generator=generator)
+        return self._fuse(imu_tokens, video_tokens, train, generator)
 
     def _fuse(self, imu_tokens, video_tokens, train: bool = False, generator=None):
         hi = self.imu_to_fusion(imu_tokens)

@@ -148,9 +148,13 @@ def featurize_windows(
     normalize: bool = True,
     racc: float = 16384.0,
     rgyro: float = 16.4,
+    already_physical: bool = False,
 ) -> torch.Tensor:
-    """Per-window featurization for inference: ``(B, T, C)`` raw → ``(B, C, T)``."""
-    x = raw_to_physical(raw_windows, racc, rgyro)
+    """Per-window featurization for inference: ``(B, T, C)`` raw → ``(B, C, T)``.
+
+    With ``already_physical`` the windows are taken as already in g and deg/s: the unit
+    scaling by ``racc`` and ``rgyro`` is skipped."""
+    x = raw_windows if already_physical else raw_to_physical(raw_windows, racc, rgyro)
     x = median_filter_time(x, kernel_size)
     if normalize:
         x = zscore_time(x)
